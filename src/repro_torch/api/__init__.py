@@ -1,0 +1,4 @@
+"""``repro_torch.api`` — the declarative :class:`Experiment` spec and the
+:func:`build` entrypoint of the PyTorch port."""
+from repro_torch.api.build import Run, build  # noqa: F401
+from repro_torch.api.spec import Experiment, SpecError  # noqa: F401

@@ -1,0 +1,116 @@
+"""Configuration dataclasses of the PyTorch port (counterpart of
+``repro/config.py``).
+
+* :class:`ModelConfig`     — architecture hyper-parameters.
+* :class:`FederatedConfig` — the paper's algorithm knobs (M clients, I local
+  steps, learning rates, STORM constants, Neumann terms).
+
+Field names, defaults and :meth:`ModelConfig.reduced` are the JAX package's,
+so that one experiment spec means the same model and the same schedule in
+both; ``FederatedConfig`` carries only the fields an experiment sets.  The
+TPU roofline constants of the JAX package are not carried over: the port's
+device numbers come from runs on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # "ssm" is the only family ported so far
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0
+    num_experts: int = 0
+    experts_per_token: int = 0
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    lru_width: int = 0
+    attention_pattern: str = "global"
+    window_size: int = 0
+    logit_softcap: float = 0.0
+    attn_softcap: float = 0.0
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    causal: bool = True
+    num_patches: int = 0
+    frontend_dim: int = 0
+    scale_embed: bool = False
+    source: str = ""
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer mixer kind, length == num_layers."""
+        if self.family == "ssm":
+            return ("ssm",) * self.num_layers
+        raise NotImplementedError(
+            f"model family {self.family!r} is not ported yet "
+            f"(ROADMAP queue 1, item 'Other model families and serving')")
+
+    def reduced(self, num_layers: int = 2, d_model: int = 256, d_ff: int = 512,
+                vocab_size: int = 512, num_experts: int = 4) -> "ModelConfig":
+        """A tiny same-family variant for CPU tests (same rules as the JAX
+        package's ``ModelConfig.reduced``)."""
+        heads = min(self.num_heads, 4) if self.num_heads else 0
+        kv = min(self.num_kv_heads, max(1, heads // 2)) if self.num_kv_heads else 0
+        changes = dict(
+            num_layers=num_layers,
+            d_model=d_model,
+            d_ff=d_ff if self.d_ff else 0,
+            vocab_size=vocab_size,
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=(d_model // heads if heads else self.ssm_head_dim),
+        )
+        if self.num_experts:
+            changes["num_experts"] = num_experts
+            changes["experts_per_token"] = min(self.experts_per_token, 2)
+        if self.family == "ssm":
+            changes["ssm_state"] = 16
+            changes["ssm_heads"] = 4
+            changes["ssm_head_dim"] = 32
+            changes["ssm_chunk"] = 32
+            changes["num_heads"] = 0
+            changes["num_kv_heads"] = 0
+            changes["head_dim"] = 0
+        if self.family == "hybrid":
+            changes["lru_width"] = d_model
+            changes["num_layers"] = 3
+        if self.window_size:
+            changes["window_size"] = 64
+        if self.num_patches:
+            changes["num_patches"] = 8
+        return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class FederatedConfig:
+    algorithm: str = "fedbioacc"
+    num_clients: int = 16
+    local_steps: int = 4             # I in the paper
+    lr_x: float = 0.05
+    lr_y: float = 0.1
+    lr_u: float = 0.1
+    # STORM constants: c_nu, c_omega, c_u and alpha_t = delta/(u0+t)^{1/3}
+    c_nu: float = 1.0
+    c_omega: float = 1.0
+    c_u: float = 1.0
+    alpha_delta: float = 1.0
+    alpha_u0: float = 8.0
+    neumann_q: int = 8
+    neumann_tau: float = 0.5
+    lower_l2: float = 1e-2
+    hierarchy_period: int = 0
+    hierarchy_groups: int = 2
+    seed: int = 0

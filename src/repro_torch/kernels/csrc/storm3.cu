@@ -1,0 +1,189 @@
+// Triple-sequence STORM updates over flat buffers, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of repro/kernels/storm/kernel.py:
+//   storm3_step    <- storm3_step_flat   (_storm3_step_kernel)
+//       p' = p - lr[t]*m,   m' = decay[t]*(m - g_old)
+//   storm3_update  <- storm3_update_flat (_storm3_kernel)
+//       p' = p - lr[t]*m,   m' = g_new + decay[t]*(m - g_old)
+// with t = i / block: `block` is the flat layout's tile (65,536 elements by
+// default), a layout constant that selects which per-tile table entry an
+// element reads.  It is not the CUDA block size.  Buffers are client-major
+// [M*N] flattenings, so the tables hold M*N/block entries.
+//
+// Bound: a single pass over memory with no reuse.  Per element the half
+// step reads p, m, g_old and writes p', m' (16 B with bf16 p and f32
+// momenta, 20 B with f32 p); the full update reads g_new as well (20 B and
+// 24 B).  A few flops per element, so the card's memory rate is the limit.
+//
+// Design: a grid-stride loop in which each thread handles four consecutive
+// elements with 16-byte loads of the f32 streams (8-byte loads of bf16 p).
+// The four share one tile when block % 4 == 0, so a thread reads its table
+// entries once per group, through the read-only cache.  Indices are 64-bit.
+// Buffers whose length or alignment does not allow the vector path run the
+// scalar loop.  Arithmetic is f32 with explicit round-to-nearest intrinsics
+// (no contraction into FMA), so the results equal the plain PyTorch version
+// bit for bit; bf16 stores round to nearest even.
+//
+// C interface for ctypes: every function returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cstring>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename P> __device__ __forceinline__ P from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void load4(const float* p, int64_t g, float v[4]) {
+  const float4 x = reinterpret_cast<const float4*>(p)[g];
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int64_t g, float v[4]) {
+  const uint2 raw = reinterpret_cast<const uint2*>(p)[g];
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &raw.x, sizeof(lo));
+  memcpy(&hi, &raw.y, sizeof(hi));
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
+
+__device__ __forceinline__ void store4(float* p, int64_t g, const float v[4]) {
+  reinterpret_cast<float4*>(p)[g] = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int64_t g, const float v[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  memcpy(&raw.x, &lo, sizeof(lo));
+  memcpy(&raw.y, &hi, sizeof(hi));
+  reinterpret_cast<uint2*>(p)[g] = raw;
+}
+
+// One element: the plain version's operation order, each op rounded once.
+template <bool kFull>
+__device__ __forceinline__ void storm_elem(float p, float m, float gn, float go,
+                                           float lr, float decay,
+                                           float* p_out, float* m_out) {
+  *p_out = __fsub_rn(p, __fmul_rn(lr, m));
+  const float part = __fmul_rn(decay, __fsub_rn(m, go));
+  *m_out = kFull ? __fadd_rn(gn, part) : part;
+}
+
+template <typename P, bool kFull>
+__global__ void __launch_bounds__(kThreads)
+storm3_vec4(const P* __restrict__ p, const float* __restrict__ m,
+            const float* __restrict__ g_new, const float* __restrict__ g_old,
+            const float* __restrict__ lrs, const float* __restrict__ decays,
+            P* __restrict__ p_out, float* __restrict__ m_out,
+            int64_t groups, int64_t block) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < groups; g += stride) {
+    const int64_t t = (g * 4) / block;
+    const float lr = __ldg(lrs + t);
+    const float decay = __ldg(decays + t);
+    float pv[4], mv[4], gov[4], gnv[4] = {0.f, 0.f, 0.f, 0.f};
+    load4(p, g, pv);
+    load4(m, g, mv);
+    load4(g_old, g, gov);
+    if (kFull) load4(g_new, g, gnv);
+    float po[4], mo[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      storm_elem<kFull>(pv[k], mv[k], gnv[k], gov[k], lr, decay, &po[k], &mo[k]);
+    store4(p_out, g, po);
+    store4(m_out, g, mo);
+  }
+}
+
+template <typename P, bool kFull>
+__global__ void __launch_bounds__(kThreads)
+storm3_scalar(const P* __restrict__ p, const float* __restrict__ m,
+              const float* __restrict__ g_new, const float* __restrict__ g_old,
+              const float* __restrict__ lrs, const float* __restrict__ decays,
+              P* __restrict__ p_out, float* __restrict__ m_out,
+              int64_t begin, int64_t n, int64_t block) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = begin + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    const int64_t t = i / block;
+    float po, mo;
+    storm_elem<kFull>(to_f32(p[i]), m[i], kFull ? g_new[i] : 0.f, g_old[i],
+                      __ldg(lrs + t), __ldg(decays + t), &po, &mo);
+    p_out[i] = from_f32<P>(po);
+    m_out[i] = mo;
+  }
+}
+
+bool aligned(const void* ptr, uintptr_t bytes) {
+  return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+int grid_for(int64_t work) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t resident = static_cast<int64_t>(sms) * (2048 / kThreads);
+  const int64_t need = (work + kThreads - 1) / kThreads;
+  return static_cast<int>(need < resident ? (need > 0 ? need : 1) : resident);
+}
+
+template <typename P, bool kFull>
+int launch(const void* p, const float* m, const float* g_new, const float* g_old,
+           const float* lrs, const float* decays, void* p_out, float* m_out,
+           int64_t n, int64_t block, cudaStream_t stream) {
+  const P* pp = static_cast<const P*>(p);
+  P* po = static_cast<P*>(p_out);
+  const bool vec = block % 4 == 0 && aligned(p, 4 * sizeof(P)) &&
+                   aligned(p_out, 4 * sizeof(P)) && aligned(m, 16) &&
+                   aligned(g_old, 16) && aligned(m_out, 16) && aligned(g_new, 16);
+  int64_t done = 0;
+  if (vec && n >= 4) {
+    const int64_t groups = n / 4;
+    storm3_vec4<P, kFull><<<grid_for(groups), kThreads, 0, stream>>>(
+        pp, m, g_new, g_old, lrs, decays, po, m_out, groups, block);
+    done = groups * 4;
+  }
+  if (done < n) {
+    storm3_scalar<P, kFull><<<grid_for(n - done), kThreads, 0, stream>>>(
+        pp, m, g_new, g_old, lrs, decays, po, m_out, done, n, block);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int storm3_step(int p_is_bf16, const void* p, const float* m, const float* g_old,
+                const float* lrs, const float* decays, void* p_out, float* m_out,
+                int64_t n, int64_t block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p_is_bf16
+      ? launch<__nv_bfloat16, false>(p, m, nullptr, g_old, lrs, decays, p_out, m_out, n, block, s)
+      : launch<float, false>(p, m, nullptr, g_old, lrs, decays, p_out, m_out, n, block, s);
+}
+
+int storm3_update(int p_is_bf16, const void* p, const float* m, const float* g_new,
+                  const float* g_old, const float* lrs, const float* decays,
+                  void* p_out, float* m_out, int64_t n, int64_t block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p_is_bf16
+      ? launch<__nv_bfloat16, true>(p, m, g_new, g_old, lrs, decays, p_out, m_out, n, block, s)
+      : launch<float, true>(p, m, g_new, g_old, lrs, decays, p_out, m_out, n, block, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,112 @@
+"""Triple-sequence STORM kernels for Hopper: the wrappers around
+``kernels/csrc/storm3.cu``.
+
+* :func:`storm3_step`   replaces ``repro/kernels/storm/kernel.py``
+  ``storm3_step_flat``: ``p' = p − lr[t]·m``, ``m' = decay[t]·(m − g_old)``.
+* :func:`storm3_update` replaces ``storm3_update_flat``:
+  ``p' = p − lr[t]·m``, ``m' = g_new + decay[t]·(m − g_old)``.
+
+``t = i // block`` indexes the per-tile (lr, decay) tables of the flat layout
+(``block`` = :data:`BLOCK` unless the spec says otherwise).
+
+Dispatch is by device and nothing else: tensors on the CPU go to the plain
+PyTorch versions in ``ref.py``; tensors on a CUDA device launch the kernel on
+the current stream, or raise if the kernel cannot take them.  There is no
+fallback from the card to the plain version.
+
+``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls of
+each wrapper on any device; :func:`reset_counts` zeroes both.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.storm import ref
+
+BLOCK = 64 * 1024      # the flat layout's tile; the JAX package's default
+
+LAUNCHES = {"storm3_step": 0, "storm3_update": 0}
+CALLS = {"storm3_step": 0, "storm3_update": 0}
+
+_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _lib():
+    from repro_torch.kernels.build import load
+    lib = load("storm3")
+    lib.storm3_step.argtypes = [ctypes.c_int] + [_VP] * 7 + [_I64, _I64, _VP]
+    lib.storm3_update.argtypes = [ctypes.c_int] + [_VP] * 8 + [_I64, _I64, _VP]
+    lib.storm3_step.restype = lib.storm3_update.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, p, streams, tables, block: int) -> bool:
+    """Validate shapes; returns True for the card, False for the CPU."""
+    tensors = (p, *streams, *tables)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    n = p.numel()
+    if any(t.dim() != 1 for t in tensors):
+        raise ValueError(f"{name}: buffers and tables must be flat [N] / [T]")
+    if block <= 0 or n % block:
+        raise ValueError(f"{name}: N={n} is not a multiple of block={block}")
+    if any(s.numel() != n for s in streams):
+        raise ValueError(f"{name}: buffers differ in length")
+    if any(t.numel() != n // block for t in tables):
+        raise ValueError(f"{name}: tables need N/block={n // block} entries, "
+                         f"got {[t.numel() for t in tables]}")
+    dev = p.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if p.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: p must be float32 or bfloat16, got {p.dtype}")
+    if any(t.dtype != torch.float32 for t in (*streams, *tables)):
+        raise TypeError(f"{name}: momenta, gradients and tables must be "
+                        f"float32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return True
+
+
+def _launch(name, fn, p, streams, tables, block: int):
+    p_out = torch.empty_like(p)
+    m_out = torch.empty_like(streams[0])
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    with torch.cuda.device(p.device):
+        err = fn(int(p.dtype == torch.bfloat16), p.data_ptr(),
+                 *[t.data_ptr() for t in (*streams, *tables)],
+                 p_out.data_ptr(), m_out.data_ptr(), p.numel(), block, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return p_out, m_out
+
+
+def storm3_step(p, m, g_old, lrs, decays, *, block: int = BLOCK):
+    """Half step over flat buffers: (p − lr·m, decay·(m − g_old))."""
+    CALLS["storm3_step"] += 1
+    if not _check("storm3_step", p, (m, g_old), (lrs, decays), block):
+        return ref.storm3_step_ref(p, m, g_old, lrs, decays, block)
+    return _launch("storm3_step", _lib().storm3_step, p, (m, g_old),
+                   (lrs, decays), block)
+
+
+def storm3_update(p, m, g_new, g_old, lrs, decays, *, block: int = BLOCK):
+    """Full update over flat buffers: (p − lr·m, g_new + decay·(m − g_old))."""
+    CALLS["storm3_update"] += 1
+    if not _check("storm3_update", p, (m, g_new, g_old), (lrs, decays), block):
+        return ref.storm3_update_ref(p, m, g_new, g_old, lrs, decays, block)
+    return _launch("storm3_update", _lib().storm3_update, p, (m, g_new, g_old),
+                   (lrs, decays), block)

@@ -1,0 +1,186 @@
+"""Sequence-spec engine (counterpart of ``repro/optim/sequences.py``).
+
+An algorithm is a tuple of named optimizer sequences — (variable section,
+momentum, lr key, STORM-constant key, communication policy) — compiled onto
+the flat substrate of ``repro_torch.optim.flat``.  One STORM step is
+
+    old-iterate oracle → fused ``storm3_step`` launch per dtype buffer →
+    section-masked client mean of the variables → new-iterate oracle →
+    correction add → client mean of the momenta
+
+Ported so far: the STORM kind with the AVERAGED / PRIVATE policies and
+HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging), no
+participation, faults, compression, telemetry, stragglers, sharding or
+per-sequence cadences.
+
+The step counter lives on the host (``FlatState.step`` is a Python int), so
+whether a step communicates is decided without reading the device.  The
+STORM schedule α_t and the per-section (lr, decay) scalars are f32 tensors
+on the CPU, computed with the JAX package's f32 operation order, so the
+per-tile tables agree with the reference's.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.optim import flat
+
+AVERAGED = "averaged"
+HIERARCHICAL = "hierarchical"
+PRIVATE = "private"
+
+
+class Sequence(NamedTuple):
+    """One named optimizer sequence: a variable section and its momentum."""
+    section: str
+    momentum: str
+    lr: str                   # FederatedConfig field holding the lr
+    decay: str | None = None  # FederatedConfig field of the STORM constant
+    comm: str = HIERARCHICAL  # AVERAGED | HIERARCHICAL | PRIVATE
+
+
+class AlgoSpec(NamedTuple):
+    """Declarative algorithm description the engine compiles."""
+    name: str
+    kind: str                 # "storm" is the only kind ported so far
+    sequences: tuple
+
+    @property
+    def sections(self):
+        return tuple(s.section for s in self.sequences)
+
+    @property
+    def policies(self):
+        return tuple(s.comm for s in self.sequences)
+
+
+SPECS = {
+    "fedbioacc": AlgoSpec("fedbioacc", "storm", (
+        Sequence("x", "nu", "lr_x", "c_nu"),
+        Sequence("y", "omega", "lr_y", "c_omega"),
+        Sequence("u", "q", "lr_u", "c_u"),
+    )),
+}
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def alpha_schedule(cfg, t: int) -> torch.Tensor:
+    """α_t = δ/(u0 + t)^{1/3} as a 0-d f32 CPU tensor, computed as the
+    reference's compiled step computes it: every operand f32, and the
+    division by the power taken as ``δ · (u0 + t)^(−1/3)`` (XLA's algebraic
+    simplifier rewrites it so; the two differ in the last bit)."""
+    return _f32(cfg.alpha_delta) * (_f32(cfg.alpha_u0) + _f32(t)) ** _f32(-1.0 / 3.0)
+
+
+def _round_preds(cfg, step: int):
+    is_comm = (step + 1) % cfg.local_steps == 0
+    round_idx = (step + 1) // cfg.local_steps
+    is_global = round_idx % max(cfg.hierarchy_period, 1) == 0
+    return is_comm, is_global
+
+
+def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies):
+    """Apply the per-section policies to flat [M, N] buffers at a
+    communication step: one masked reduction per communicated run, private
+    sections untouched.  Other steps return ``bufs`` as they are."""
+    if cfg.hierarchy_period > 0 and HIERARCHICAL in policies:
+        raise NotImplementedError(
+            "the hierarchical schedule (hierarchy_period > 0) is not ported "
+            "yet (ROADMAP queue 1, item 'Participation, staleness and "
+            "cadence')")
+    is_comm, _ = _round_preds(cfg, step)
+    modes = tuple("none" if p == PRIVATE else "mean" for p in policies)
+    if not is_comm or all(m == "none" for m in modes):
+        return bufs
+    return flat.client_mean_masked(spec, bufs, modes)
+
+
+class FlatState(NamedTuple):
+    """Train state on the flat substrate: per-dtype [M, N] variable and f32
+    momentum buffers, and the host-side step counter."""
+    vars: Any
+    mom: Any
+    step: int
+
+
+class Engine(NamedTuple):
+    """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
+    step=0)``, ``step(state, batch) -> state`` and ``views(state) ->
+    (var_dict, mom_dict)``."""
+    aspec: AlgoSpec
+    spec: flat.FlatSpec
+    init_state: Any
+    step: Any
+    views: Any
+
+
+def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
+                block: int | None = None) -> Engine:
+    """Compile ``aspec`` into the fused flat-substrate step.
+
+    ``templates``: section → leaf template tree without the client axis
+    (meta tensors will do).  ``oracle(views, batch) -> {section: grad tree}``
+    takes and returns [M, ...] trees; its outputs are the momentum targets,
+    evaluated at the old and the new iterate with the same batch."""
+    if aspec.kind != "storm":
+        raise NotImplementedError(
+            f"the {aspec.kind!r} engine kind is not ported yet (ROADMAP "
+            f"queue 1, item 'Remaining algorithms')")
+    sections = aspec.sections
+    spec = flat.make_spec({s: templates[s] for s in sections},
+                          sections=sections,
+                          block=block if block else flat.BLOCK)
+    policies = aspec.policies
+
+    def _flatten_grads(gdict):
+        return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
+                                 batch_dims=1, dtype=torch.float32)
+
+    def init_state(var_trees, mom_trees=None, step: int = 0):
+        vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
+                                   batch_dims=1)
+        if mom_trees is None:
+            # momenta live in f32 buffers whatever the variable dtype
+            mom_b = tuple(torch.zeros(b.shape, dtype=torch.float32,
+                                      device=b.device) for b in vars_b)
+        else:
+            mom_b = flat.flatten_tree(
+                spec, {q.section: mom_trees[q.momentum]
+                       for q in aspec.sequences},
+                batch_dims=1, dtype=torch.float32)
+        return FlatState(vars_b, mom_b, int(step))
+
+    def step(state: FlatState, batch) -> FlatState:
+        t = state.step
+        a = alpha_schedule(cfg, t)
+        lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
+        decays = tuple(_f32(1.0) - _f32(getattr(cfg, q.decay)) * a * a
+                       for q in aspec.sequences)
+        # 1) old-iterate oracle on pytree views of the entering iterate
+        g_old = _flatten_grads(oracle(flat.unflatten_tree(spec, state.vars),
+                                      batch))
+        # 2) variable step + partial momentum: one launch per dtype buffer
+        vars_b, mom_b = flat.storm_partial_step(spec, state.vars, state.mom,
+                                                g_old, lrs, decays)
+        del g_old
+        # 3) communicate the variables
+        vars_c = comm_buffers(spec, cfg, t, vars_b, policies)
+        # 4) new-iterate oracle, same batch; the STORM correction is one add
+        g_new = _flatten_grads(oracle(flat.unflatten_tree(spec, vars_c),
+                                      batch))
+        mom_b = flat.buffers_add(mom_b, g_new)
+        del g_new
+        mom_b = comm_buffers(spec, cfg, t, mom_b, policies)
+        return FlatState(vars_c, mom_b, t + 1)
+
+    def views(state: FlatState):
+        vt = flat.unflatten_tree(spec, state.vars)
+        mt = flat.unflatten_tree(spec, state.mom)
+        return vt, {q.momentum: mt[q.section] for q in aspec.sequences}
+
+    return Engine(aspec, spec, init_state, step, views)
