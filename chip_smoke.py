@@ -7,19 +7,24 @@ Phases, each of which stops the script with a non-zero exit on failure:
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build every CUDA source of the port (one ``nvcc`` each, all at once);
-3. every kernel against its plain PyTorch version at the shapes the main
-   path gives it (full-width Mamba-2-130M, 2 clients: a bf16 buffer and an
-   f32 buffer), bit for bit, with median times over CUDA events;
-4. a reduced-model cross-check: two FedBiOAcc steps on the card against two
-   on the CPU from the same initial state and batches (within 1e-4 of each
-   buffer's norm: reduction orders differ between the two devices);
-5. the main path: ``experiments/fedbioacc.json`` at full Mamba-2-130M width
-   (bf16, 2 clients, 1 sequence of 512 tokens each — two SSD chunks), four
-   steps (two communication rounds), with the kernels' launch counts taken
-   over this phase alone and a finite validation loss.
+3. every kernel against its plain PyTorch version at the shapes its path
+   gives it (full-width Mamba-2-130M, 2 clients: a bf16 buffer and an f32
+   buffer; the FedBiOAcc buffers for the STORM pair, FedBiO's for
+   ``sgd3_step``, FedAvg's for ``momsgd3_step``), bit for bit, with median
+   times over CUDA events;
+4. a reduced-model cross-check of each path: two steps on the card against
+   two on the CPU from the same initial state and batches (within 1e-4 of
+   each buffer's norm: reduction orders differ between the two devices);
+5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
+   ``fedbio_local.json`` and ``fedavg.json``, each at full Mamba-2-130M
+   width (bf16, 2 clients, 1 sequence of 512 tokens each — two SSD chunks),
+   four steps (two communication rounds), with the kernels' launch counts
+   taken over that path's run alone (its kernel once per dtype buffer per
+   step, every other kernel never) and a finite validation loss.
 
-The line before the last is one JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object describing each kernel, its
+``launches`` summed over the paths; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -44,7 +50,9 @@ from repro_torch.optim.sequences import FlatState  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
-SPEC = os.path.join(ROOT, "experiments", "fedbioacc.json")
+# path (committed spec) → the kernel its step launches once per dtype buffer
+PATHS = {"fedbioacc": "storm3_step", "fedbio": "sgd3_step",
+         "fedbio_local": "sgd3_step", "fedavg": "momsgd3_step"}
 CLIENTS = 2
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 
@@ -92,64 +100,86 @@ def full_width_experiment(exp: Experiment) -> Experiment:
 # phase 3: kernels against their plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 
+class Kernel(NamedTuple):
+    wrapper: Callable
+    plain: Callable
+    n_in: int          # f32 input streams besides p
+    n_tables: int      # per-tile f32 tables
+    m_out: bool        # writes an f32 stream besides p'
+    ops: int           # f32 operations per element
+    replaces: str      # the TPU kernel
+    path: str          # the path whose buffers it is held and timed at
+
+
 KERNELS = {
-    # name: (wrapper, plain version, f32 input streams besides p, f32
-    #        operations per element, the TPU kernel it replaces)
-    "storm3_step": (storm.storm3_step, storm_ref.storm3_step_ref, 2, 4,
-                    "src/repro/kernels/storm/kernel.py:153"),
-    "storm3_update": (storm.storm3_update, storm_ref.storm3_update_ref, 3, 5,
-                      "src/repro/kernels/storm/kernel.py:127"),
+    "storm3_step": Kernel(storm.storm3_step, storm_ref.storm3_step_ref,
+                          2, 2, True, 4,
+                          "src/repro/kernels/storm/kernel.py:153", "fedbioacc"),
+    "storm3_update": Kernel(storm.storm3_update, storm_ref.storm3_update_ref,
+                            3, 2, True, 5,
+                            "src/repro/kernels/storm/kernel.py:127",
+                            "fedbioacc"),
+    "sgd3_step": Kernel(storm.sgd3_step, storm_ref.sgd3_step_ref,
+                        1, 1, False, 2,
+                        "src/repro/kernels/storm/kernel.py:206", "fedbio"),
+    "momsgd3_step": Kernel(storm.momsgd3_step, storm_ref.momsgd3_step_ref,
+                           2, 2, True, 4,
+                           "src/repro/kernels/storm/kernel.py:228", "fedavg"),
 }
 
 
-def kernel_phase(groups, dev) -> dict:
-    """Per kernel: both buffers of one main-path step — the bitwise check,
+def kernel_phase(groups_of: dict, dev) -> dict:
+    """Per kernel: both buffers of one step of its path — the bitwise check,
     the measured kernel and plain times, and the bound from the bytes and
-    operations these inputs need."""
+    operations these inputs need (each input read once, each output written
+    once, from the kernel's own signature)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for name, (kern, plain, n_f32, ops, replaces) in KERNELS.items():
+    for name, k in KERNELS.items():
         ms = plain_ms = bound_bytes = flops = 0.0
         max_err = 0.0
-        for grp in groups:
+        for grp in groups_of[k.path]:
             n = CLIENTS * grp.padded
             tiles = n // grp.block
             p = torch.randn(n, generator=gen, device=dev).to(grp.dtype)
             streams = [torch.randn(n, generator=gen, device=dev)
-                       for _ in range(n_f32)]
-            lrs = 0.1 * torch.rand(tiles, generator=gen, device=dev)
-            decays = torch.rand(tiles, generator=gen, device=dev)
-            args = (p, *streams, lrs, decays)
-            out = kern(*args, block=grp.block)
-            want = plain(*args, grp.block)
+                       for _ in range(k.n_in)]
+            tables = [0.1 * torch.rand(tiles, generator=gen, device=dev)]
+            tables += [torch.rand(tiles, generator=gen, device=dev)
+                       for _ in range(k.n_tables - 1)]
+            args = (p, *streams, *tables)
+            out = k.wrapper(*args, block=grp.block)
+            want = k.plain(*args, grp.block)
             torch.cuda.synchronize()
+            out, want = ((o,) if torch.is_tensor(o) else o for o in (out, want))
             for o, w in zip(out, want):
                 if not same_bits(o, w):
                     raise SystemExit(f"{name}: kernel differs from the plain "
                                      f"version on the {grp.dtype} buffer")
                 max_err = max(max_err, float((o.float() - w.float()).abs().max()))
             del out, want
-            k_ms = timed_ms(lambda: kern(*args, block=grp.block), KERNEL_RUNS)
-            p_ms = timed_ms(lambda: plain(*args, grp.block), PLAIN_RUNS)
-            moved = (2 * n * p.element_size() + (n_f32 + 1) * n * 4
-                     + 2 * tiles * 4)   # p in/out, f32 streams in, m out, tables
-            bound = max(moved / HBM_BYTES_PER_S, ops * n / F32_FLOPS_PER_S) * 1e3
+            k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block),
+                            KERNEL_RUNS)
+            p_ms = timed_ms(lambda: k.plain(*args, grp.block), PLAIN_RUNS)
+            moved = (2 * n * p.element_size() + k.n_in * n * 4
+                     + (n * 4 if k.m_out else 0) + k.n_tables * tiles * 4)
+            bound = max(moved / HBM_BYTES_PER_S, k.ops * n / F32_FLOPS_PER_S) * 1e3
             log(f"{name} {str(grp.dtype).replace('torch.', '')} "
-                f"[{CLIENTS}, {grp.padded}]: bitwise equal, kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {moved} B, "
+                f"[{CLIENTS}, {grp.padded}] ({k.path} path): bitwise equal, "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, {moved} B, "
                 f"bound {bound:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s)")
             ms += k_ms
             plain_ms += p_ms
             bound_bytes += moved
-            flops += ops * n
-            del p, streams, args
+            flops += k.ops * n
+            del p, streams, tables, args
             torch.cuda.empty_cache()
         bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
         results[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/storm3.cu",
-            "replaces": replaces, "launches": None, "max_abs_err": max_err,
+            "replaces": k.replaces, "launches": 0, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
@@ -167,6 +197,7 @@ def _to(state: FlatState, dev) -> FlatState:
 
 def cross_check(exp: Experiment, dev) -> None:
     """Two reduced steps on the card against two on the CPU."""
+    name = exp.algorithm.name
     cpu_run = build(exp, device="cpu")
     gpu_run = build(exp, device=dev)
     cpu_state = cpu_run.init(torch.Generator().manual_seed(0))
@@ -183,10 +214,10 @@ def cross_check(exp: Experiment, dev) -> None:
                     gpu_state.vars + gpu_state.mom):
         rel = float((g.cpu().float() - c.float()).norm() / c.float().norm())
         worst = max(worst, rel)
-    log(f"reduced cross-check: card vs CPU after 2 steps, worst relative "
-        f"buffer difference {worst:.3e} (limit 1e-4)")
+    log(f"reduced cross-check, {name}: card vs CPU after 2 steps, worst "
+        f"relative buffer difference {worst:.3e} (limit 1e-4)")
     if not worst <= 1e-4:
-        raise SystemExit("reduced cross-check failed")
+        raise SystemExit(f"reduced cross-check of {name} failed")
 
 
 def main_path(exp: Experiment, dev) -> dict:
@@ -206,17 +237,18 @@ def main_path(exp: Experiment, dev) -> dict:
     launches = dict(storm.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     val = run.eval_fn(state)
+    name = exp.algorithm.name
     sizes = [f"{str(g.dtype).replace('torch.', '')}[{CLIENTS}, {g.padded}]"
              for g in run.init.spec.groups]
-    log(f"main path: full-width {run.model_cfg.name}, buffers {sizes}, "
+    log(f"path {name}: full-width {run.model_cfg.name}, buffers {sizes}, "
         f"steps {len(step_ms)}, step ms {[round(t, 3) for t in step_ms]}, "
         f"peak memory {peak} B, launches {launches}, val_loss {val}")
-    want = exp.schedule.steps * len(run.init.spec.groups)
-    if launches["storm3_step"] != want:
-        raise SystemExit(f"storm3_step launched {launches['storm3_step']} "
-                         f"times on the main path, expected {want}")
+    want = dict.fromkeys(launches, 0)
+    want[PATHS[name]] = exp.schedule.steps * len(run.init.spec.groups)
+    if launches != want:
+        raise SystemExit(f"path {name} launched {launches}, expected {want}")
     if not math.isfinite(val):
-        raise SystemExit(f"non-finite validation loss {val}")
+        raise SystemExit(f"non-finite validation loss {val} on path {name}")
     return launches
 
 
@@ -237,16 +269,22 @@ def main() -> None:
         if log_path.is_file():
             log(log_path.read_text().strip())
 
-    base = Experiment.load(SPEC)
-    full = full_width_experiment(base)
-    groups = build(full, device=dev).init.spec.groups
-    kernels = kernel_phase(groups, dev)
+    bases = {name: Experiment.load(os.path.join(ROOT, "experiments",
+                                                f"{name}.json"))
+             for name in PATHS}
+    fulls = {name: full_width_experiment(b) for name, b in bases.items()}
+    groups_of = {name: build(f, device=dev).init.spec.groups
+                 for name, f in fulls.items()}
+    kernels = kernel_phase(groups_of, dev)
     torch.cuda.empty_cache()
 
-    cross_check(base, dev)
-    launches = main_path(full, dev)
-    for name, k in kernels.items():
-        k["launches"] = launches[name]
+    for base in bases.values():
+        cross_check(base, dev)
+    for full in fulls.values():
+        launches = main_path(full, dev)
+        torch.cuda.empty_cache()
+        for name, k in kernels.items():
+            k["launches"] += launches[name]
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

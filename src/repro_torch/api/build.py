@@ -52,6 +52,8 @@ def resolve_device(device=None) -> torch.device:
 def unported_features(exp: Experiment) -> list:
     """What ``exp`` asks for that the port does not run yet, each with the
     ROADMAP item that ports it."""
+    from repro_torch.api import registry
+
     ex, sch = exp.execution, exp.schedule
     algos, part = "queue 1, 'Remaining algorithms'", \
         "queue 1, 'Participation, staleness and cadence'"
@@ -59,7 +61,7 @@ def unported_features(exp: Experiment) -> list:
         "hardening'", "queue 1, 'Sharded substrate'"
     model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
     checks = [
-        (exp.algorithm.name != "fedbioacc",
+        (exp.algorithm.name not in registry.names(),
          f"algorithm {exp.algorithm.name!r}", algos),
         (exp.participation.sampler != "full",
          f"participation sampling (sampler={exp.participation.sampler!r})",
@@ -148,7 +150,8 @@ def build(experiment: Experiment, *, device=None) -> Run:
 
     def eval_fn(state) -> float:
         s = step.views(state)
-        p0 = client_slice({"body": s.x, "head": s.y}, 0)
+        p = s.params if hasattr(s, "params") else {"body": s.x, "head": s.y}
+        p0 = client_slice(p, 0)
         with torch.no_grad():
             return float(model.loss(p0, eval_batch)[0])
 

@@ -4,7 +4,8 @@
 Trainer factories self-register at import with :func:`register`, declaring
 their algorithm-specific hyperparams (defaults, and which of them are
 :class:`~repro_torch.config.FederatedConfig` fields) and their section names.
-Only FedBiOAcc is ported so far.
+Ported so far: FedBiO, FedBiOAcc, FedBiO-Local and FedAvg; FedBiOAcc-Local
+waits.
 """
 from __future__ import annotations
 
@@ -49,11 +50,17 @@ def _ensure_registered() -> None:
         importlib.import_module("repro_torch.federation.trainer")
 
 
+def names() -> Tuple[str, ...]:
+    """The ported algorithms, sorted."""
+    _ensure_registered()
+    return tuple(sorted(_TRAINERS))
+
+
 def get(name: str) -> AlgorithmEntry:
     _ensure_registered()
     if name not in _TRAINERS:
         raise NotImplementedError(
             f"algorithm {name!r} is not ported yet (ported: "
-            f"{sorted(_TRAINERS)}); see ROADMAP queue 1, item 'Remaining "
+            f"{list(names())}); see ROADMAP queue 1, item 'Remaining "
             f"algorithms'")
     return _TRAINERS[name]

@@ -18,11 +18,10 @@ from repro_torch.core.tree_util import tree_leaves
 from repro_torch.models.registry import Model
 
 
-def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,
-                       n_micro: int = 1, remat: bool = False,
-                       use_flash: bool = False, use_lru_kernel: bool = False):
-    """Returns (f, g): per-client stochastic upper/lower objectives over
-    ``batch = {"train": model_batch, "val": model_batch}``."""
+def check_model_options(n_micro: int = 1, remat: bool = False,
+                        use_flash: bool = False,
+                        use_lru_kernel: bool = False) -> None:
+    """Refuse the model-execution options the port does not run yet."""
     if n_micro != 1 or remat:
         raise NotImplementedError(
             "microbatching (n_micro > 1) and remat are not ported; the port "
@@ -31,6 +30,14 @@ def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,
         raise NotImplementedError(
             "use_flash / use_lru_kernel select kernels that are not ported "
             "yet (ROADMAP queue 2, kernels 8 and 9)")
+
+
+def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,
+                       n_micro: int = 1, remat: bool = False,
+                       use_flash: bool = False, use_lru_kernel: bool = False):
+    """Returns (f, g): per-client stochastic upper/lower objectives over
+    ``batch = {"train": model_batch, "val": model_batch}``."""
+    check_model_options(n_micro, remat, use_flash, use_lru_kernel)
 
     def _loss(x, y, mb):
         return model.loss({"body": x, "head": y}, mb)[0].to(torch.float32)

@@ -89,6 +89,15 @@ def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
 
+def tree_scale(s, a):
+    return tree_map(lambda x: s * x, a)
+
+
+def tree_axpy(s, a, b):
+    """b + s * a"""
+    return tree_map(lambda x, y: y + s * x, a, b)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
 

@@ -1,28 +1,35 @@
-// Triple-sequence STORM updates over flat buffers, for Hopper (sm_90a).
+// Storm-family updates over flat buffers, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of repro/kernels/storm/kernel.py:
 //   storm3_step    <- storm3_step_flat   (_storm3_step_kernel)
 //       p' = p - lr[t]*m,   m' = decay[t]*(m - g_old)
 //   storm3_update  <- storm3_update_flat (_storm3_kernel)
 //       p' = p - lr[t]*m,   m' = g_new + decay[t]*(m - g_old)
+//   sgd3_step      <- sgd3_step_flat     (_sgd3_kernel)
+//       p' = p - lr[t]*g
+//   momsgd3_step   <- momsgd3_step_flat  (_momsgd3_kernel)
+//       m' = beta[t]*m + g,  p' = p - lr[t]*m'   (the updated momentum)
 // with t = i / block: `block` is the flat layout's tile (65,536 elements by
 // default), a layout constant that selects which per-tile table entry an
 // element reads.  It is not the CUDA block size.  Buffers are client-major
 // [M*N] flattenings, so the tables hold M*N/block entries.
 //
-// Bound: a single pass over memory with no reuse.  Per element the half
-// step reads p, m, g_old and writes p', m' (16 B with bf16 p and f32
-// momenta, 20 B with f32 p); the full update reads g_new as well (20 B and
-// 24 B).  A few flops per element, so the card's memory rate is the limit.
+// Bound: a single pass over memory with no reuse.  Per element, with bf16 p
+// and f32 momenta and gradients: the STORM half step reads p, m, g_old and
+// writes p', m' (16 B; 20 B with f32 p), the full update reads g_new as well
+// (20 B / 24 B), plain SGD reads p, g and writes p' (8 B / 12 B), heavy-ball
+// SGD reads p, m, g and writes p', m' (16 B / 20 B).  A few flops per
+// element, so the card's memory rate is the limit.
 //
-// Design: a grid-stride loop in which each thread handles four consecutive
-// elements with 16-byte loads of the f32 streams (8-byte loads of bf16 p).
-// The four share one tile when block % 4 == 0, so a thread reads its table
-// entries once per group, through the read-only cache.  Indices are 64-bit.
-// Buffers whose length or alignment does not allow the vector path run the
-// scalar loop.  Arithmetic is f32 with explicit round-to-nearest intrinsics
-// (no contraction into FMA), so the results equal the plain PyTorch version
-// bit for bit; bf16 stores round to nearest even.
+// Design: one grid-stride template for all four updates, in which each
+// thread handles four consecutive elements with 16-byte loads of the f32
+// streams (8-byte loads of bf16 p).  The four share one tile when
+// block % 4 == 0, so a thread reads its table entries once per group,
+// through the read-only cache.  Indices are 64-bit.  Buffers whose length
+// or alignment does not allow the vector path run the scalar loop.
+// Arithmetic is f32 with explicit round-to-nearest intrinsics (no
+// contraction into FMA), so the results equal the plain PyTorch versions bit
+// for bit; bf16 stores round to nearest even.
 //
 // C interface for ctypes: every function returns cudaGetLastError().
 
@@ -72,59 +79,101 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, int64_t g, const float 
   reinterpret_cast<uint2*>(p)[g] = raw;
 }
 
-// One element: the plain version's operation order, each op rounded once.
-template <bool kFull>
-__device__ __forceinline__ void storm_elem(float p, float m, float gn, float go,
-                                           float lr, float decay,
-                                           float* p_out, float* m_out) {
-  *p_out = __fsub_rn(p, __fmul_rn(lr, m));
-  const float part = __fmul_rn(decay, __fsub_rn(m, go));
-  *m_out = kFull ? __fadd_rn(gn, part) : part;
-}
+// The four updates, one element each: the plain version's operation order,
+// each op rounded once.  kIn is the number of f32 input streams besides p
+// (read in the order the C entry point takes them), kTables the number of
+// per-tile tables (a, b), kMOut whether an f32 stream is written besides p'.
 
-template <typename P, bool kFull>
+struct StormStep {        // s = (m, g_old), (a, b) = (lr, decay)
+  static constexpr int kIn = 2, kTables = 2;
+  static constexpr bool kMOut = true;
+  __device__ static void apply(float p, const float* s, float lr, float decay,
+                               float* p_out, float* m_out) {
+    *p_out = __fsub_rn(p, __fmul_rn(lr, s[0]));
+    *m_out = __fmul_rn(decay, __fsub_rn(s[0], s[1]));
+  }
+};
+
+struct StormUpdate {      // s = (m, g_new, g_old), (a, b) = (lr, decay)
+  static constexpr int kIn = 3, kTables = 2;
+  static constexpr bool kMOut = true;
+  __device__ static void apply(float p, const float* s, float lr, float decay,
+                               float* p_out, float* m_out) {
+    *p_out = __fsub_rn(p, __fmul_rn(lr, s[0]));
+    *m_out = __fadd_rn(s[1], __fmul_rn(decay, __fsub_rn(s[0], s[2])));
+  }
+};
+
+struct Sgd {              // s = (g), a = lr
+  static constexpr int kIn = 1, kTables = 1;
+  static constexpr bool kMOut = false;
+  __device__ static void apply(float p, const float* s, float lr, float,
+                               float* p_out, float*) {
+    *p_out = __fsub_rn(p, __fmul_rn(lr, s[0]));
+  }
+};
+
+struct MomSgd {           // s = (m, g), (a, b) = (lr, beta)
+  static constexpr int kIn = 2, kTables = 2;
+  static constexpr bool kMOut = true;
+  __device__ static void apply(float p, const float* s, float lr, float beta,
+                               float* p_out, float* m_out) {
+    const float m = __fadd_rn(__fmul_rn(beta, s[0]), s[1]);
+    *p_out = __fsub_rn(p, __fmul_rn(lr, m));
+    *m_out = m;
+  }
+};
+
+template <typename P, class Op>
 __global__ void __launch_bounds__(kThreads)
-storm3_vec4(const P* __restrict__ p, const float* __restrict__ m,
-            const float* __restrict__ g_new, const float* __restrict__ g_old,
-            const float* __restrict__ lrs, const float* __restrict__ decays,
+update_vec4(const P* __restrict__ p, const float* __restrict__ s0,
+            const float* __restrict__ s1, const float* __restrict__ s2,
+            const float* __restrict__ ta, const float* __restrict__ tb,
             P* __restrict__ p_out, float* __restrict__ m_out,
             int64_t groups, int64_t block) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
     const int64_t t = (g * 4) / block;
-    const float lr = __ldg(lrs + t);
-    const float decay = __ldg(decays + t);
-    float pv[4], mv[4], gov[4], gnv[4] = {0.f, 0.f, 0.f, 0.f};
+    const float a = __ldg(ta + t);
+    float b = 0.f;
+    if constexpr (Op::kTables > 1) b = __ldg(tb + t);
+    float pv[4], sv[3][4] = {};
     load4(p, g, pv);
-    load4(m, g, mv);
-    load4(g_old, g, gov);
-    if (kFull) load4(g_new, g, gnv);
+    load4(s0, g, sv[0]);
+    if constexpr (Op::kIn > 1) load4(s1, g, sv[1]);
+    if constexpr (Op::kIn > 2) load4(s2, g, sv[2]);
     float po[4], mo[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      storm_elem<kFull>(pv[k], mv[k], gnv[k], gov[k], lr, decay, &po[k], &mo[k]);
+    for (int k = 0; k < 4; ++k) {
+      const float s[3] = {sv[0][k], sv[1][k], sv[2][k]};
+      Op::apply(pv[k], s, a, b, &po[k], &mo[k]);
+    }
     store4(p_out, g, po);
-    store4(m_out, g, mo);
+    if constexpr (Op::kMOut) store4(m_out, g, mo);
   }
 }
 
-template <typename P, bool kFull>
+template <typename P, class Op>
 __global__ void __launch_bounds__(kThreads)
-storm3_scalar(const P* __restrict__ p, const float* __restrict__ m,
-              const float* __restrict__ g_new, const float* __restrict__ g_old,
-              const float* __restrict__ lrs, const float* __restrict__ decays,
+update_scalar(const P* __restrict__ p, const float* __restrict__ s0,
+              const float* __restrict__ s1, const float* __restrict__ s2,
+              const float* __restrict__ ta, const float* __restrict__ tb,
               P* __restrict__ p_out, float* __restrict__ m_out,
               int64_t begin, int64_t n, int64_t block) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = begin + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const int64_t t = i / block;
+    float s[3] = {s0[i], 0.f, 0.f};
+    if constexpr (Op::kIn > 1) s[1] = s1[i];
+    if constexpr (Op::kIn > 2) s[2] = s2[i];
+    float b = 0.f;
+    if constexpr (Op::kTables > 1) b = __ldg(tb + t);
     float po, mo;
-    storm_elem<kFull>(to_f32(p[i]), m[i], kFull ? g_new[i] : 0.f, g_old[i],
-                      __ldg(lrs + t), __ldg(decays + t), &po, &mo);
+    Op::apply(to_f32(p[i]), s, __ldg(ta + t), b, &po, &mo);
     p_out[i] = from_f32<P>(po);
-    m_out[i] = mo;
+    if constexpr (Op::kMOut) m_out[i] = mo;
   }
 }
 
@@ -141,27 +190,39 @@ int grid_for(int64_t work) {
   return static_cast<int>(need < resident ? (need > 0 ? need : 1) : resident);
 }
 
-template <typename P, bool kFull>
-int launch(const void* p, const float* m, const float* g_new, const float* g_old,
-           const float* lrs, const float* decays, void* p_out, float* m_out,
+// The vector loop over the largest multiple of 4 elements, then the scalar
+// loop over the tail (or over everything when the vector path is barred).
+template <typename P, class Op>
+int launch(const void* p, const float* s0, const float* s1, const float* s2,
+           const float* ta, const float* tb, void* p_out, float* m_out,
            int64_t n, int64_t block, cudaStream_t stream) {
   const P* pp = static_cast<const P*>(p);
   P* po = static_cast<P*>(p_out);
   const bool vec = block % 4 == 0 && aligned(p, 4 * sizeof(P)) &&
-                   aligned(p_out, 4 * sizeof(P)) && aligned(m, 16) &&
-                   aligned(g_old, 16) && aligned(m_out, 16) && aligned(g_new, 16);
+                   aligned(p_out, 4 * sizeof(P)) && aligned(s0, 16) &&
+                   aligned(s1, 16) && aligned(s2, 16) && aligned(m_out, 16);
   int64_t done = 0;
   if (vec && n >= 4) {
     const int64_t groups = n / 4;
-    storm3_vec4<P, kFull><<<grid_for(groups), kThreads, 0, stream>>>(
-        pp, m, g_new, g_old, lrs, decays, po, m_out, groups, block);
+    update_vec4<P, Op><<<grid_for(groups), kThreads, 0, stream>>>(
+        pp, s0, s1, s2, ta, tb, po, m_out, groups, block);
     done = groups * 4;
   }
   if (done < n) {
-    storm3_scalar<P, kFull><<<grid_for(n - done), kThreads, 0, stream>>>(
-        pp, m, g_new, g_old, lrs, decays, po, m_out, done, n, block);
+    update_scalar<P, Op><<<grid_for(n - done), kThreads, 0, stream>>>(
+        pp, s0, s1, s2, ta, tb, po, m_out, done, n, block);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Op>
+int dispatch(int p_is_bf16, const void* p, const float* s0, const float* s1,
+             const float* s2, const float* ta, const float* tb, void* p_out,
+             float* m_out, int64_t n, int64_t block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p_is_bf16
+      ? launch<__nv_bfloat16, Op>(p, s0, s1, s2, ta, tb, p_out, m_out, n, block, s)
+      : launch<float, Op>(p, s0, s1, s2, ta, tb, p_out, m_out, n, block, s);
 }
 
 }  // namespace
@@ -171,19 +232,28 @@ extern "C" {
 int storm3_step(int p_is_bf16, const void* p, const float* m, const float* g_old,
                 const float* lrs, const float* decays, void* p_out, float* m_out,
                 int64_t n, int64_t block, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p_is_bf16
-      ? launch<__nv_bfloat16, false>(p, m, nullptr, g_old, lrs, decays, p_out, m_out, n, block, s)
-      : launch<float, false>(p, m, nullptr, g_old, lrs, decays, p_out, m_out, n, block, s);
+  return dispatch<StormStep>(p_is_bf16, p, m, g_old, nullptr, lrs, decays,
+                             p_out, m_out, n, block, stream);
 }
 
 int storm3_update(int p_is_bf16, const void* p, const float* m, const float* g_new,
                   const float* g_old, const float* lrs, const float* decays,
                   void* p_out, float* m_out, int64_t n, int64_t block, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p_is_bf16
-      ? launch<__nv_bfloat16, true>(p, m, g_new, g_old, lrs, decays, p_out, m_out, n, block, s)
-      : launch<float, true>(p, m, g_new, g_old, lrs, decays, p_out, m_out, n, block, s);
+  return dispatch<StormUpdate>(p_is_bf16, p, m, g_new, g_old, lrs, decays,
+                               p_out, m_out, n, block, stream);
+}
+
+int sgd3_step(int p_is_bf16, const void* p, const float* g, const float* lrs,
+              void* p_out, int64_t n, int64_t block, void* stream) {
+  return dispatch<Sgd>(p_is_bf16, p, g, nullptr, nullptr, lrs, nullptr,
+                       p_out, nullptr, n, block, stream);
+}
+
+int momsgd3_step(int p_is_bf16, const void* p, const float* m, const float* g,
+                 const float* lrs, const float* betas, void* p_out, float* m_out,
+                 int64_t n, int64_t block, void* stream) {
+  return dispatch<MomSgd>(p_is_bf16, p, m, g, nullptr, lrs, betas,
+                          p_out, m_out, n, block, stream);
 }
 
 }  // extern "C"

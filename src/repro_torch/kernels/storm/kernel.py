@@ -1,13 +1,16 @@
-"""Triple-sequence STORM kernels for Hopper: the wrappers around
+"""Triple-sequence storm-family kernels for Hopper: the wrappers around
 ``kernels/csrc/storm3.cu``.
 
 * :func:`storm3_step`   replaces ``repro/kernels/storm/kernel.py``
   ``storm3_step_flat``: ``p' = p − lr[t]·m``, ``m' = decay[t]·(m − g_old)``.
 * :func:`storm3_update` replaces ``storm3_update_flat``:
   ``p' = p − lr[t]·m``, ``m' = g_new + decay[t]·(m − g_old)``.
+* :func:`sgd3_step`     replaces ``sgd3_step_flat``: ``p' = p − lr[t]·g``.
+* :func:`momsgd3_step`  replaces ``momsgd3_step_flat``:
+  ``m' = β[t]·m + g``, ``p' = p − lr[t]·m'``.
 
-``t = i // block`` indexes the per-tile (lr, decay) tables of the flat layout
-(``block`` = :data:`BLOCK` unless the spec says otherwise).
+``t = i // block`` indexes the per-tile (lr, decay|β) tables of the flat
+layout (``block`` = :data:`BLOCK` unless the spec says otherwise).
 
 Dispatch is by device and nothing else: tensors on the CPU go to the plain
 PyTorch versions in ``ref.py``; tensors on a CUDA device launch the kernel on
@@ -27,8 +30,9 @@ from repro_torch.kernels.storm import ref
 
 BLOCK = 64 * 1024      # the flat layout's tile; the JAX package's default
 
-LAUNCHES = {"storm3_step": 0, "storm3_update": 0}
-CALLS = {"storm3_step": 0, "storm3_update": 0}
+_NAMES = ("storm3_step", "storm3_update", "sgd3_step", "momsgd3_step")
+LAUNCHES = dict.fromkeys(_NAMES, 0)
+CALLS = dict.fromkeys(_NAMES, 0)
 
 _VP, _I64 = ctypes.c_void_p, ctypes.c_int64
 
@@ -42,9 +46,12 @@ def reset_counts() -> None:
 def _lib():
     from repro_torch.kernels.build import load
     lib = load("storm3")
-    lib.storm3_step.argtypes = [ctypes.c_int] + [_VP] * 7 + [_I64, _I64, _VP]
-    lib.storm3_update.argtypes = [ctypes.c_int] + [_VP] * 8 + [_I64, _I64, _VP]
-    lib.storm3_step.restype = lib.storm3_update.restype = ctypes.c_int
+    # pointers: p, the f32 streams, the tables, then the outputs
+    for name, n_ptrs in (("storm3_step", 7), ("storm3_update", 8),
+                         ("sgd3_step", 4), ("momsgd3_step", 7)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] + [_VP] * n_ptrs + [_I64, _I64, _VP]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -79,19 +86,23 @@ def _check(name, p, streams, tables, block: int) -> bool:
     return True
 
 
-def _launch(name, fn, p, streams, tables, block: int):
-    p_out = torch.empty_like(p)
-    m_out = torch.empty_like(streams[0])
+def _launch(name, p, streams, tables, block: int, n_out: int):
+    """Launch ``name`` on the current stream; returns ``p'`` alone
+    (``n_out`` 1) or ``(p', m')`` (``n_out`` 2, ``m'`` f32)."""
+    outs = [torch.empty_like(p)]
+    if n_out == 2:
+        outs.append(torch.empty_like(streams[0]))
+    fn = getattr(_lib(), name)
     stream = torch.cuda.current_stream(p.device).cuda_stream
     with torch.cuda.device(p.device):
-        err = fn(int(p.dtype == torch.bfloat16), p.data_ptr(),
-                 *[t.data_ptr() for t in (*streams, *tables)],
-                 p_out.data_ptr(), m_out.data_ptr(), p.numel(), block, stream)
+        err = fn(int(p.dtype == torch.bfloat16),
+                 *[t.data_ptr() for t in (p, *streams, *tables, *outs)],
+                 p.numel(), block, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
-    return p_out, m_out
+    return outs[0] if n_out == 1 else tuple(outs)
 
 
 def storm3_step(p, m, g_old, lrs, decays, *, block: int = BLOCK):
@@ -99,8 +110,7 @@ def storm3_step(p, m, g_old, lrs, decays, *, block: int = BLOCK):
     CALLS["storm3_step"] += 1
     if not _check("storm3_step", p, (m, g_old), (lrs, decays), block):
         return ref.storm3_step_ref(p, m, g_old, lrs, decays, block)
-    return _launch("storm3_step", _lib().storm3_step, p, (m, g_old),
-                   (lrs, decays), block)
+    return _launch("storm3_step", p, (m, g_old), (lrs, decays), block, 2)
 
 
 def storm3_update(p, m, g_new, g_old, lrs, decays, *, block: int = BLOCK):
@@ -108,5 +118,22 @@ def storm3_update(p, m, g_new, g_old, lrs, decays, *, block: int = BLOCK):
     CALLS["storm3_update"] += 1
     if not _check("storm3_update", p, (m, g_new, g_old), (lrs, decays), block):
         return ref.storm3_update_ref(p, m, g_new, g_old, lrs, decays, block)
-    return _launch("storm3_update", _lib().storm3_update, p, (m, g_new, g_old),
-                   (lrs, decays), block)
+    return _launch("storm3_update", p, (m, g_new, g_old), (lrs, decays),
+                   block, 2)
+
+
+def sgd3_step(p, g, lrs, *, block: int = BLOCK):
+    """Plain SGD step over flat buffers: ``p − lr·g`` (``p'`` alone)."""
+    CALLS["sgd3_step"] += 1
+    if not _check("sgd3_step", p, (g,), (lrs,), block):
+        return ref.sgd3_step_ref(p, g, lrs, block)
+    return _launch("sgd3_step", p, (g,), (lrs,), block, 1)
+
+
+def momsgd3_step(p, m, g, lrs, betas, *, block: int = BLOCK):
+    """Heavy-ball step over flat buffers: ``m' = β·m + g`` and
+    ``p' = p − lr·m'``; returns ``(p', m')``."""
+    CALLS["momsgd3_step"] += 1
+    if not _check("momsgd3_step", p, (m, g), (lrs, betas), block):
+        return ref.momsgd3_step_ref(p, m, g, lrs, betas, block)
+    return _launch("momsgd3_step", p, (m, g), (lrs, betas), block, 2)

@@ -1,9 +1,9 @@
 """Flat-buffer optimizer substrate (counterpart of ``repro/optim/flat.py``).
 
 The (x, y, u) trees and their momenta are flattened once at init into
-contiguous per-dtype buffers; every step then runs one fused STORM kernel
-launch per buffer and one section-masked client mean.  The layout is the JAX
-package's, element for element:
+contiguous per-dtype buffers; every step then runs one fused kernel launch
+per buffer (STORM, plain SGD or heavy-ball SGD) and one section-masked client
+mean.  The layout is the JAX package's, element for element:
 
 * leaves are grouped by dtype (groups ordered by first appearance in
   section order), one 1-D buffer per dtype;
@@ -14,7 +14,8 @@ package's, element for element:
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
 Only the unsharded layout (``shards=1``) and the unweighted, fault-free,
-uncompressed reductions are ported so far.
+uncompressed reductions are ported so far; the fused launches take no
+participation mask yet.
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
 into the buffers it is given (the engine always passes buffers it has just
@@ -27,7 +28,8 @@ from typing import Any, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.tree_util import tree_flatten, tree_map
-from repro_torch.kernels.storm.kernel import BLOCK, storm3_step, storm3_update
+from repro_torch.kernels.storm.kernel import (BLOCK, momsgd3_step, sgd3_step,
+                                              storm3_step, storm3_update)
 
 
 class _Leaf(NamedTuple):
@@ -173,10 +175,12 @@ def _tile_table(grp: _Group, buf, table):
     return row.repeat(reps).to(buf.device)
 
 
-def _launch(kern, grp: _Group, bufs, tables):
-    """One kernel launch on one dtype buffer, flattened client-major."""
+def _launch(kern, grp: _Group, bufs, tables, n_out: int):
+    """One kernel launch on one dtype buffer, flattened client-major; the
+    kernel returns ``n_out`` flat outputs (a bare tensor when 1)."""
     shape = bufs[0].shape
     outs = kern(*[b.reshape(-1) for b in bufs], *tables, block=grp.block)
+    outs = outs if n_out > 1 else (outs,)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -191,7 +195,8 @@ def storm_partial_step(spec: FlatSpec, var_bufs, mom_bufs, g_old_bufs,
     out_v, out_m = [], []
     for grp, v, m, go in zip(spec.groups, var_bufs, mom_bufs, g_old_bufs):
         vn, mn = _launch(storm3_step, grp, (v, m, go),
-                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)))
+                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)),
+                         2)
         out_v.append(vn)
         out_m.append(mn)
     return tuple(out_v), tuple(out_m)
@@ -205,10 +210,37 @@ def storm_full_update(spec: FlatSpec, var_bufs, mom_bufs, g_new_bufs,
     for grp, v, m, gn, go in zip(spec.groups, var_bufs, mom_bufs,
                                  g_new_bufs, g_old_bufs):
         vn, mn = _launch(storm3_update, grp, (v, m, gn, go),
-                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)))
+                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)),
+                         2)
         out_v.append(vn)
         out_m.append(mn)
     return tuple(out_v), tuple(out_m)
+
+
+def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas):
+    """One fused ``momsgd3_step`` launch per dtype buffer:
+
+        m_new = β_sec·m + g        (momentum update, FedAvg's order)
+        v_new = v − lr_sec·m_new   (variable step, updated momentum)
+
+    ``lrs``/``betas``: one f32 scalar per section."""
+    out_v, out_m = [], []
+    for grp, v, m, gb in zip(spec.groups, var_bufs, mom_bufs, g_bufs):
+        vn, mn = _launch(momsgd3_step, grp, (v, m, gb),
+                         (_tile_table(grp, v, lrs), _tile_table(grp, v, betas)),
+                         2)
+        out_v.append(vn)
+        out_m.append(mn)
+    return tuple(out_v), tuple(out_m)
+
+
+def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs):
+    """One fused ``sgd3_step`` launch per dtype buffer: v_new = v − lr_sec·g,
+    for the specs that carry no momentum (no momentum stream is read or
+    written)."""
+    return tuple(_launch(sgd3_step, grp, (v, gb), (_tile_table(grp, v, lrs),),
+                         1)[0]
+                 for grp, v, gb in zip(spec.groups, var_bufs, g_bufs))
 
 
 def buffers_add(a, b):

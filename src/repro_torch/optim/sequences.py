@@ -2,13 +2,17 @@
 
 An algorithm is a tuple of named optimizer sequences — (variable section,
 momentum, lr key, STORM-constant key, communication policy) — compiled onto
-the flat substrate of ``repro_torch.optim.flat``.  One STORM step is
+the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
 
-    old-iterate oracle → fused ``storm3_step`` launch per dtype buffer →
-    section-masked client mean of the variables → new-iterate oracle →
-    correction add → client mean of the momenta
+* ``storm``: old-iterate oracle → fused ``storm3_step`` launch per dtype
+  buffer → section-masked client mean of the variables → new-iterate oracle
+  → correction add → client mean of the momenta (FedBiOAcc);
+* ``sgd``: one oracle → fused ``momsgd3_step`` launch per dtype buffer and
+  the client mean of the momenta (heavy ball, FedAvg), or a fused
+  ``sgd3_step`` launch when the spec carries no momentum (FedBiO,
+  FedBiO-Local) → client mean of the variables.
 
-Ported so far: the STORM kind with the AVERAGED / PRIVATE policies and
+Ported so far: both kinds with the AVERAGED / PRIVATE policies and
 HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging), no
 participation, faults, compression, telemetry, stragglers, sharding or
 per-sequence cadences.
@@ -17,7 +21,8 @@ The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device.  The
 STORM schedule α_t and the per-section (lr, decay) scalars are f32 tensors
 on the CPU, computed with the JAX package's f32 operation order, so the
-per-tile tables agree with the reference's.
+per-tile tables agree with the reference's; the sgd kind's lrs and β are
+the plain config values as f32.
 """
 from __future__ import annotations
 
@@ -44,8 +49,10 @@ class Sequence(NamedTuple):
 class AlgoSpec(NamedTuple):
     """Declarative algorithm description the engine compiles."""
     name: str
-    kind: str                 # "storm" is the only kind ported so far
+    kind: str                 # "storm" (two-oracle STORM) | "sgd" (heavy ball)
     sequences: tuple
+    beta: float = 0.0         # heavy-ball momentum ("sgd" kind; 0 = plain SGD)
+    carry_momentum: bool = False  # keep momentum state even at beta == 0
 
     @property
     def sections(self):
@@ -55,13 +62,30 @@ class AlgoSpec(NamedTuple):
     def policies(self):
         return tuple(s.comm for s in self.sequences)
 
+    @property
+    def has_momentum(self) -> bool:
+        return self.kind == "storm" or self.beta != 0.0 or self.carry_momentum
 
+
+# FedAvg's β is a factory knob, not a cfg field: its maker replaces it.
 SPECS = {
+    "fedbio": AlgoSpec("fedbio", "sgd", (
+        Sequence("x", "nu", "lr_x"),
+        Sequence("y", "omega", "lr_y"),
+        Sequence("u", "q", "lr_u"),
+    )),
     "fedbioacc": AlgoSpec("fedbioacc", "storm", (
         Sequence("x", "nu", "lr_x", "c_nu"),
         Sequence("y", "omega", "lr_y", "c_omega"),
         Sequence("u", "q", "lr_u", "c_u"),
     )),
+    "fedbio_local": AlgoSpec("fedbio_local", "sgd", (
+        Sequence("x", "nu", "lr_x"),
+        Sequence("y", "omega", "lr_y", comm=PRIVATE),
+    )),
+    "fedavg": AlgoSpec("fedavg", "sgd", (
+        Sequence("params", "mom", "lr_x"),
+    ), beta=0.9, carry_momentum=True),
 }
 
 
@@ -102,7 +126,8 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies):
 
 class FlatState(NamedTuple):
     """Train state on the flat substrate: per-dtype [M, N] variable and f32
-    momentum buffers, and the host-side step counter."""
+    momentum buffers (``()`` when the spec carries no momentum), and the
+    host-side step counter."""
     vars: Any
     mom: Any
     step: int
@@ -111,7 +136,7 @@ class FlatState(NamedTuple):
 class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
     step=0)``, ``step(state, batch) -> state`` and ``views(state) ->
-    (var_dict, mom_dict)``."""
+    (var_dict, mom_dict)``, ``mom_dict`` None without momentum."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
     init_state: Any
@@ -125,13 +150,13 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
 
     ``templates``: section → leaf template tree without the client axis
     (meta tensors will do).  ``oracle(views, batch) -> {section: grad tree}``
-    takes and returns [M, ...] trees; its outputs are the momentum targets,
-    evaluated at the old and the new iterate with the same batch."""
-    if aspec.kind != "storm":
-        raise NotImplementedError(
-            f"the {aspec.kind!r} engine kind is not ported yet (ROADMAP "
-            f"queue 1, item 'Remaining algorithms')")
+    takes and returns [M, ...] trees.  Its outputs are the momentum targets
+    of the storm kind, evaluated at the old and the new iterate with the
+    same batch, and the gradients of the sgd kind."""
+    if aspec.kind not in ("storm", "sgd"):
+        raise ValueError(f"unknown engine kind {aspec.kind!r}")
     sections = aspec.sections
+    has_mom = aspec.has_momentum
     spec = flat.make_spec({s: templates[s] for s in sections},
                           sections=sections,
                           block=block if block else flat.BLOCK)
@@ -144,7 +169,9 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
     def init_state(var_trees, mom_trees=None, step: int = 0):
         vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
                                    batch_dims=1)
-        if mom_trees is None:
+        if not has_mom:
+            mom_b = ()
+        elif mom_trees is None:
             # momenta live in f32 buffers whatever the variable dtype
             mom_b = tuple(torch.zeros(b.shape, dtype=torch.float32,
                                       device=b.device) for b in vars_b)
@@ -155,7 +182,7 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 batch_dims=1, dtype=torch.float32)
         return FlatState(vars_b, mom_b, int(step))
 
-    def step(state: FlatState, batch) -> FlatState:
+    def _storm_step(state: FlatState, batch) -> FlatState:
         t = state.step
         a = alpha_schedule(cfg, t)
         lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
@@ -178,8 +205,30 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         mom_b = comm_buffers(spec, cfg, t, mom_b, policies)
         return FlatState(vars_c, mom_b, t + 1)
 
+    def _sgd_step(state: FlatState, batch) -> FlatState:
+        t = state.step
+        lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
+        g = _flatten_grads(oracle(flat.unflatten_tree(spec, state.vars),
+                                  batch))
+        if has_mom:
+            betas = (_f32(aspec.beta),) * len(aspec.sequences)
+            vars_b, mom_b = flat.momentum_sgd_step(spec, state.vars,
+                                                   state.mom, g, lrs, betas)
+            mom_b = comm_buffers(spec, cfg, t, mom_b, policies)
+        else:
+            # no momentum: the plain-SGD launch reads and writes no momentum
+            vars_b = flat.sgd_step(spec, state.vars, g, lrs)
+            mom_b = ()
+        del g
+        vars_b = comm_buffers(spec, cfg, t, vars_b, policies)
+        return FlatState(vars_b, mom_b, t + 1)
+
+    step = _storm_step if aspec.kind == "storm" else _sgd_step
+
     def views(state: FlatState):
         vt = flat.unflatten_tree(spec, state.vars)
+        if not state.mom:
+            return vt, None
         mt = flat.unflatten_tree(spec, state.mom)
         return vt, {q.momentum: mt[q.section] for q in aspec.sequences}
 

@@ -1,6 +1,7 @@
 """The port's package boundary and its spec surface: no file of
 ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the JAX package; every committed experiment
-parses; ``fedbioacc.json`` builds; every other committed spec is refused with
+parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json`` and
+``fedavg.json`` build; every other committed spec is refused with
 ``NotImplementedError`` naming the feature the port does not run yet; and the
 entry points want a card unless the CPU is asked for."""
 import ast
@@ -17,11 +18,11 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 EXPERIMENTS = sorted((ROOT / "experiments").glob("*.json"))
 
-# what each committed spec sets that the port does not run yet
+# committed specs of the engine's sgd kind, and their sections
+SGD_KIND = {"fedavg.json": ("params",), "fedbio.json": ("x", "y", "u"),
+            "fedbio_local.json": ("x", "y")}
+# what each other committed spec sets that the port does not run yet
 REFUSED = {
-    "fedavg.json": ["algorithm 'fedavg'"],
-    "fedbio.json": ["algorithm 'fedbio'"],
-    "fedbio_local.json": ["algorithm 'fedbio_local'"],
     "fedbioacc_faulty.json": ["faults", "robustness"],
     "fedbioacc_int8_topk.json": ["compression"],
     "fedbioacc_local.json": ["algorithm 'fedbioacc_local'",
@@ -51,7 +52,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_committed_specs_are_all_covered():
     assert sorted(p.name for p in EXPERIMENTS) == \
-        sorted(["fedbioacc.json", *REFUSED])
+        sorted(["fedbioacc.json", *SGD_KIND, *REFUSED])
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -71,6 +72,14 @@ def test_fedbioacc_spec_builds_on_cpu():
     # full width is accepted as an edit (built here only as a spec check)
     big = exp.edit(**{"problem.reduced": False, "problem.seq_len": 512})
     assert big.problem.reduced is False
+
+
+@pytest.mark.parametrize("name", sorted(SGD_KIND))
+def test_sgd_kind_spec_builds_on_cpu(name):
+    exp = Experiment.load(str(ROOT / "experiments" / name))
+    run = build(exp, device="cpu")
+    assert run.device == torch.device("cpu") and run.steps == 2
+    assert run.init.spec.sections == SGD_KIND[name]
 
 
 @pytest.mark.parametrize("edit", [{"schedule.hierarchy_period": 2},

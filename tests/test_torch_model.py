@@ -94,3 +94,33 @@ def test_fused_oracles_match_reference(models):
         for a, b in zip(jl, tl):
             np.testing.assert_allclose(f32(b), np.asarray(a), rtol=1e-4,
                                        atol=1e-6, err_msg=name)
+
+
+def test_fused_local_oracles_match_reference(models):
+    """ω and the Neumann hyper-gradient Φ (Q = 2 HVPs, τ 0.5, as the
+    committed specs set them), within the tolerances of the global-lower
+    oracles above."""
+    jm, tm, jp, tp = models
+    (jtr, ttr), (jva, tva) = _batch(4, tm.cfg.vocab_size), _batch(5, tm.cfg.vocab_size)
+    jbatch, tbatch = {"train": jtr, "val": jva}, {"train": ttr, "val": tva}
+    jf, jg = jbilevel(jm, lower_l2=1e-2, remat=False)
+    tf, tg = make_model_bilevel(tm, lower_l2=1e-2)
+    jout = jax.jit(lambda x, y, b: jhg.fused_local_oracles(jg, jf, x, y, b,
+                                                           2, 0.5))(
+        jp["body"], jp["head"], jbatch)
+    tout = hg.fused_local_oracles(tg, tf, tp["body"], tp["head"], tbatch,
+                                  2, 0.5)
+    # the series alone: one HVP against the reference's
+    rng = np.random.default_rng(6)
+    v = jax.tree.map(lambda a: jnp.asarray(
+        0.1 * rng.standard_normal(a.shape).astype(np.float32)), jp["head"])
+    jh = jhg.hvp_yy(jg, jp["body"], jp["head"], jbatch, v)
+    th = hg.hvp_yy(tg, tp["body"], tp["head"], tbatch, to_torch(v))
+    for a, b in zip(jax.tree.leaves(jh), tree_leaves(th)):
+        np.testing.assert_allclose(f32(b), np.asarray(a), rtol=1e-4, atol=1e-6)
+    for name, ja, ta in zip(("omega", "phi"), jout, tout):
+        jl, tl = jax.tree.leaves(ja), tree_leaves(ta)
+        assert len(jl) == len(tl), name
+        for a, b in zip(jl, tl):
+            np.testing.assert_allclose(f32(b), np.asarray(a), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)

@@ -30,15 +30,21 @@ def to_torch(tree, device="cpu"):
     return params_from_numpy(jax.tree.map(np.asarray, tree), device)
 
 
-def assert_contraction_close(out, fused, product):
+def contraction_tol(out, product) -> np.ndarray:
+    """Elementwise: one rounding of ``product`` plus one unit in the last
+    place of ``out`` in its own dtype."""
+    ulp_res = np.spacing(np.abs(f32(out)))
+    if isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16:
+        ulp_res = ulp_res * 2.0 ** 16          # 8 mantissa bits, not 24
+    return np.spacing(np.abs(f32(product))) + ulp_res
+
+
+def assert_contraction_close(out, fused, product, carried=0.0):
     """``out`` (each op rounded) and ``fused`` (a multiply-add contracted
     into one FMA, as XLA's CPU backend does under ``jit``) differ by at most
     one rounding of ``product`` plus one unit in the last place of the
-    result in its own dtype, elementwise."""
-    res = f32(out)
-    ulp_res = np.spacing(np.abs(res))
-    if isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16:
-        ulp_res = ulp_res * 2.0 ** 16          # 8 mantissa bits, not 24
-    tol = np.spacing(np.abs(f32(product))) + ulp_res
-    diff = np.abs(res - f32(fused))
+    result in its own dtype, elementwise.  ``carried`` adds what an input
+    that already differs between the two brings along."""
+    tol = contraction_tol(out, product) + carried
+    diff = np.abs(f32(out) - f32(fused))
     assert np.all(diff <= tol), float(np.max(diff - tol))
