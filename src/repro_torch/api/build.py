@@ -68,7 +68,6 @@ def unported_features(exp: Experiment) -> list:
          part),
         (exp.faults is not None, "faults", guards),
         (exp.robustness is not None, "robustness", guards),
-        (exp.compression is not None, "compression", "queue 1, 'Compression'"),
         (exp.telemetry is not None, "telemetry", "queue 1, 'Telemetry'"),
         (exp.stragglers is not None, "stragglers", "queue 1, 'Stragglers'"),
         (ex.mesh is not None, "execution.mesh", shard),
@@ -139,7 +138,8 @@ def build(experiment: Experiment, *, device=None) -> Run:
         model, fed, n_micro=ex.n_micro, remat=ex.remat,
         use_flash=ex.use_flash, use_lru_kernel=ex.use_lru_kernel,
         fuse_oracles=ex.fuse_oracles, fuse_storm=ex.fuse_storm,
-        storm_block=ex.storm_block, **factory_kw)
+        storm_block=ex.storm_block, compression=exp.compression,
+        **factory_kw)
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

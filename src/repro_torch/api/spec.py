@@ -6,7 +6,8 @@ The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
 reference's declarative tuples — same fields, same defaults — so a spec that
 sets one can be recognised and refused by :func:`repro_torch.api.build`
-until the layer is ported.
+until the layer is ported.  Compression is ported: its block gets the
+reference's cross-field checks here.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import dataclasses
 import json
 from dataclasses import dataclass, field, fields
 from typing import Any, NamedTuple, Optional, Tuple
+
+from repro_torch.federation.compression import QUANTS, CompressionSpec
 
 SPEC_VERSION = 1
 
@@ -57,13 +60,6 @@ class RobustnessSpec(NamedTuple):
     spike_factor: float = 10.0
     retry_budget: int = 3
     ring: int = 2
-
-
-class CompressionSpec(NamedTuple):
-    quant: Optional[str] = None
-    topk_frac: float = 0.0
-    error_feedback: bool = True
-    sections: Optional[Tuple[str, ...]] = None
 
 
 class TelemetrySpec(NamedTuple):
@@ -204,7 +200,63 @@ class Experiment:
                  f"{self.problem.param_dtype!r} not in {PARAM_DTYPES}")
         if self.schedule.steps < 1 or self.schedule.local_steps < 1:
             _err("schedule", "steps and local_steps must be >= 1")
+        if self.compression is not None:
+            self._validate_compression()
         return self
+
+    def _validate_compression(self) -> None:
+        """The compression block's cross-field checks, as the reference's
+        ``Experiment.validate`` makes them."""
+        cp = self.compression
+        if not self.execution.fuse_storm:
+            _err("compression",
+                 "needs execution.fuse_storm=true — the compressed "
+                 "reductions are a feature of the fused sequence-spec engine")
+        if self.faults is not None or self.robustness is not None:
+            _err("compression",
+                 "does not compose with faults/robustness — the robust "
+                 "aggregators and health screens are calibrated on exact "
+                 "sends (drop one layer)")
+        if cp.quant not in QUANTS:
+            _err("compression.quant",
+                 f"unknown quant {cp.quant!r}; choose from {QUANTS}")
+        frac = float(cp.topk_frac)
+        if not 0.0 <= frac < 1.0:
+            _err("compression.topk_frac",
+                 f"{cp.topk_frac} is not in [0, 1) — 1.0 means 'keep "
+                 f"everything'; unset topk_frac instead")
+        if cp.quant is None and not frac > 0.0:
+            _err("compression",
+                 "no compressor selected — set quant ('bf16'|'int8') and/or "
+                 "topk_frac > 0, or drop the compression block")
+        if frac > 0.0 and self.schedule.hierarchy_period > 0:
+            _err("compression.topk_frac",
+                 "top-k sparsification does not compose with the "
+                 "hierarchical grouped mean (schedule.hierarchy_period > 0) "
+                 "— error feedback against two different means is "
+                 "ill-defined; use quant-only compression or a flat schedule")
+        if cp.sections is None:
+            return
+        if len(cp.sections) == 0:
+            _err("compression.sections",
+                 "[] compresses nothing — use null for every communicated "
+                 "section, or drop the block")
+        from repro_torch.optim.sequences import PRIVATE, SPECS
+        aspec = SPECS.get(self.algorithm.name)
+        if aspec is None:       # not ported: build refuses the algorithm
+            return
+        unknown = [s for s in cp.sections if s not in aspec.sections]
+        if unknown:
+            _err("compression.sections",
+                 f"{unknown} are not sections of {self.algorithm.name!r} "
+                 f"(sections: {aspec.sections})")
+        bad = [q.section for q in aspec.sequences
+               if q.comm == PRIVATE and q.section in cp.sections]
+        if bad:
+            _err("compression.sections",
+                 f"{bad} are PRIVATE sections of {self.algorithm.name!r} — "
+                 f"private state never enters a reduction, so it cannot be "
+                 f"compressed")
 
     # -- JSON ---------------------------------------------------------------
 

@@ -10,8 +10,10 @@ per-client results are stacked.  The step is the sequence-spec engine of
 FedBiO and FedBiO-Local its sgd kind through ``sgd3_step``, FedAvg through
 ``momsgd3_step``; each step ends in the section-masked client mean.
 
-Only ``fuse_storm=True`` with ``fuse_oracles=True`` is ported; the unfused
-tree path and FedBiOAcc-Local wait (ROADMAP queue 1).
+Every factory takes ``compression=`` (a ``CompressionSpec``): the engine's
+reductions then move quantized and/or top-k sends with per-client error
+feedback.  Only ``fuse_storm=True`` with ``fuse_oracles=True`` is ported;
+the unfused tree path and FedBiOAcc-Local wait (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -143,11 +145,11 @@ def _require_fused_storm(fuse_storm: bool) -> None:
 
 
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
-                    init_trees, storm_block, to_state):
+                    init_trees, storm_block, to_state, compression=None):
     """The fuse_storm=True (init, train_step) pair over the engine;
     ``to_state(vars, moms or None, step)`` builds the pytree state."""
     engine = seqs.make_engine(cfg, aspec, templates, voracle,
-                              block=storm_block)
+                              block=storm_block, compression=compression)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
@@ -177,7 +179,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               use_lru_kernel: bool = False,
                               fuse_storm: bool = False,
                               fuse_oracles: bool = False,
-                              storm_block: int | None = None):
+                              storm_block: int | None = None,
+                              compression=None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
@@ -193,7 +196,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                                    mt["nu"], mt["q"], step)
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
-                           init_trees, storm_block, to_state)
+                           init_trees, storm_block, to_state, compression)
 
 
 @register("fedbio", sections=("x", "y", "u"))
@@ -203,7 +206,8 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            use_lru_kernel: bool = False,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,
-                           storm_block: int | None = None):
+                           storm_block: int | None = None,
+                           compression=None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
     _require_fused_storm(fuse_storm)
@@ -217,7 +221,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
         return FedBiOTrainState(vt["x"], vt["y"], vt["u"], step)
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
-                           init_trees, storm_block, to_state)
+                           init_trees, storm_block, to_state, compression)
 
 
 @register("fedbio_local", sections=("x", "y"))
@@ -227,7 +231,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  use_lru_kernel: bool = False,
                                  fuse_storm: bool = False,
                                  fuse_oracles: bool = False,
-                                 storm_block: int | None = None):
+                                 storm_block: int | None = None,
+                                 compression=None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
@@ -245,7 +250,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                 step)
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
-                           voracle, init_trees, storm_block, to_state)
+                           voracle, init_trees, storm_block, to_state,
+                           compression)
 
 
 @register("fedavg", hparams={"momentum": 0.9}, sections=("params",))
@@ -255,7 +261,8 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            use_lru_kernel: bool = False,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,   # one oracle: no-op
-                           storm_block: int | None = None):
+                           storm_block: int | None = None,
+                           compression=None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
@@ -278,4 +285,4 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     aspec = seqs.SPECS["fedavg"]._replace(beta=momentum)
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
-                           to_state)
+                           to_state, compression)

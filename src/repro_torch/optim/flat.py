@@ -13,16 +13,20 @@ mean.  The layout is the JAX package's, element for element:
   per-section (lr, decay) scalars become per-tile tables for the kernel);
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
-Only the unsharded layout (``shards=1``) and the unweighted, fault-free,
-uncompressed reductions are ported so far; the fused launches take no
-participation mask yet.
+Only the unsharded layout (``shards=1``) and the unweighted, fault-free
+reductions are ported so far, exact or compressed (:class:`CompressCfg`:
+bf16 or per-tile int8 quantization, per-tile top-k with per-client error
+feedback); the fused launches take no participation mask yet.
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
 into the buffers it is given (the engine always passes buffers it has just
-allocated), which keeps one copy of the buffers alive instead of two.
+allocated), which keeps one copy of the buffers alive instead of two.  The
+error-feedback buffers it is given belong to the caller's state, so it
+writes their updates into copies.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Sequence
 
 import torch
@@ -30,6 +34,8 @@ import torch
 from repro_torch.core.tree_util import tree_flatten, tree_map
 from repro_torch.kernels.storm.kernel import (BLOCK, momsgd3_step, sgd3_step,
                                               storm3_step, storm3_update)
+from repro_torch.kernels.storm.quantpack import (quantpack_flat,
+                                                 quantunpack_flat)
 
 
 class _Leaf(NamedTuple):
@@ -257,29 +263,120 @@ def _bcast_mean(x):
     reference's arithmetic: summed in f32 (``jnp.mean`` upcasts bf16), then
     multiplied by the f32 reciprocal of M (XLA turns the division by the
     constant M into that product), then cast to the buffer dtype."""
-    inv = torch.tensor(1.0 / x.shape[0], dtype=torch.float32, device=x.device)
-    m = x.to(torch.float32).sum(dim=0, keepdim=True) * inv
+    m = x.to(torch.float32).sum(dim=0, keepdim=True) * _inv(x.shape[0],
+                                                            x.device)
     return m.to(x.dtype).expand_as(x)
 
 
-def _section_runs(grp: _Group, modes):
-    """[mode, start, stop] element runs covering the buffer, adjacent runs
-    of the same mode merged (one reduction per communicated run)."""
+def _inv(m: int, device) -> torch.Tensor:
+    return torch.tensor(1.0 / m, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Compressed communication
+# ---------------------------------------------------------------------------
+
+class CompressCfg(NamedTuple):
+    """Compressed-reduction policy of :func:`client_mean_masked` (the
+    substrate half of ``repro_torch.federation.compression.CompressionSpec``,
+    lowered by ``sequences.make_engine``).
+
+    ``quant``: ``None`` | ``"bf16"`` | ``"int8"`` — what each client's send
+    is rounded through: a bf16 cast, or symmetric per-tile int8 with one f32
+    scale per ``block`` elements (the ``quantpack``/``quantunpack`` kernels).
+    ``topk_frac``: every client keeps the ``ceil(topk_frac · block)``
+    largest-magnitude entries of each tile of (row + error feedback).
+    ``error_feedback``: carry the dropped mass per client in f32 buffers
+    shaped like the communicated ones (``FlatState.ef``) and add it back
+    into the next send; active only with ``topk_frac > 0``.
+    ``sections``: section names to compress; () compresses every
+    communicated run."""
+    quant: str | None = None
+    topk_frac: float = 0.0
+    error_feedback: bool = True
+    sections: tuple = ()
+
+    @property
+    def has_ef(self) -> bool:
+        return self.topk_frac > 0 and self.error_feedback
+
+
+def _topk_tiles(x, block: int, frac: float):
+    """Per-tile top-k of f32 ``x`` [..., L]: keep the entries of each
+    ``block``-sized tile whose magnitude reaches the tile's k-th largest
+    (k = ceil(frac · block)), zero the rest.  The threshold is an element
+    value, so ties keep more than k entries, as the reference's
+    ``lax.top_k`` threshold does; a zero tile keeps its zeros."""
+    t = x.reshape(x.shape[:-1] + (-1, block))
+    k = max(1, math.ceil(frac * block))
+    mag = t.abs()
+    thr = torch.topk(mag, k, dim=-1, sorted=False).values.amin(-1, keepdim=True)
+    keep = mag >= thr
+    del mag, thr
+    return torch.where(keep, t, 0.0).reshape(x.shape)
+
+
+def _compressed_mean(seg, eseg, ccfg: CompressCfg, block: int):
+    """Compressed client mean of one run [M, L]: every client sends its
+    compressed (row + EF), the mean of the sends is broadcast back, and the
+    residual ``(row + EF) − send`` becomes the client's new EF (None without
+    ``eseg``).  Returns ``(mean row f32 [1, L], new EF f32 [M, L] | None)``.
+
+    The arithmetic is the reference's as the TPU runs it: the int8 send is
+    what its ``quantunpack_flat`` kernel writes (one rounded f32 product per
+    element), and the mean sums the f32 sends from 0 in client order, then
+    multiplies by ``f32(1/M)``.  Under ``jit`` on the CPU, where no kernel
+    stands between them, XLA fuses the product into the sum and the
+    residual as multiply-adds instead."""
+    m = seg.shape[0]
+    acc = seg.to(torch.float32)
+    if eseg is not None:
+        acc = acc + eseg
+    sent = _topk_tiles(acc, block, ccfg.topk_frac) if ccfg.topk_frac > 0 \
+        else acc
+    if ccfg.quant == "int8":
+        q, s = quantpack_flat(sent.reshape(-1), block=block)
+        sent = quantunpack_flat(q, s, block=block).reshape(acc.shape)
+        del q, s
+    elif ccfg.quant == "bf16":
+        sent = sent.to(torch.bfloat16).to(torch.float32)
+    total = torch.zeros(seg.shape[1:], dtype=torch.float32, device=seg.device)
+    for i in range(m):
+        total += sent[i]
+    new_e = None if eseg is None else acc.sub_(sent)
+    return (total * _inv(m, seg.device))[None], new_e
+
+
+def _section_runs(grp: _Group, modes, comp_of_sec=None):
+    """[mode, start, stop, compressed] element runs covering the buffer;
+    adjacent runs merge when the mode and the compression flag coincide
+    (``"none"`` runs merge whatever the flag: private tiles are never
+    reduced), so there is one reduction per communicated run."""
     runs: list = []
     for s, a, b in grp.extents:
         mode = modes[int(s)]
-        if runs and runs[-1][0] == mode and runs[-1][2] == a:
+        comp = bool(comp_of_sec[int(s)]) if comp_of_sec else False
+        if runs and runs[-1][0] == mode and runs[-1][2] == a and (
+                mode == "none" or runs[-1][3] == comp):
             runs[-1][2] = b
         else:
-            runs.append([mode, a, b])
+            runs.append([mode, a, b, comp])
     return runs
 
 
-def client_mean_masked(spec: FlatSpec, bufs, modes):
+def client_mean_masked(spec: FlatSpec, bufs, modes, *, compress=None,
+                       ef=None):
     """Section-masked client communication over flat [M, N] buffers, in
     place: every ``"mean"`` run is replaced by its client mean, ``"none"``
-    (private) runs are not touched.  Returns ``bufs``.  Participation
-    weights, faults, robust aggregators, compression and sharding are not
+    (private) runs are not touched.  Returns ``bufs``.
+
+    ``compress``: a :class:`CompressCfg`; the runs of the sections it names
+    (every communicated one when ``sections`` is empty) take the compressed
+    mean of :func:`_compressed_mean`, whole-run, and the call returns
+    ``(bufs, ef)``: the updated per-client error-feedback buffers, one f32
+    [M, N] buffer per dtype group (pass the current ones as ``ef=``), or
+    ``()`` when ``compress.has_ef`` is false.  Participation weights,
+    faults, robust aggregators, the grouped mean and sharding are not
     ported yet."""
     n_sections = max(len(spec.sections), 1)
     if len(modes) != n_sections:
@@ -289,11 +386,33 @@ def client_mean_masked(spec: FlatSpec, bufs, modes):
             f"modes {modes}: only 'none' and 'mean' are ported; the grouped "
             f"(hierarchical) mean waits for ROADMAP queue 1, item "
             f"'Participation, staleness and cadence'")
-    for grp, buf in zip(spec.groups, bufs):
+    comp_of_sec = None
+    if compress is not None:
+        names = spec.sections if spec.sections else ("",)
+        comp_of_sec = tuple(not compress.sections or nm in compress.sections
+                            for nm in names)
+    has_ef = compress is not None and compress.has_ef
+    if has_ef and len(ef or ()) != len(spec.groups):
+        raise ValueError("compression with error feedback needs one f32 EF "
+                         "buffer per dtype group (pass ef=)")
+    ef_out = []
+    for gi, (grp, buf) in enumerate(zip(spec.groups, bufs)):
         if buf.dim() < 2:
             raise ValueError("client_mean_masked needs a leading client axis")
-        for mode, start, stop in _section_runs(grp, modes):
-            if mode == "mean":
-                seg = buf[..., start:stop]
+        ebuf = ef[gi].clone() if has_ef else None
+        for mode, start, stop, comp in _section_runs(grp, modes, comp_of_sec):
+            if mode == "none":
+                continue
+            seg = buf[..., start:stop]
+            if not comp:
                 seg.copy_(_bcast_mean(seg))
-    return bufs
+                continue
+            eseg = None if ebuf is None else ebuf[..., start:stop]
+            mean, new_e = _compressed_mean(seg, eseg, compress, grp.block)
+            seg.copy_(mean.expand_as(seg))
+            if new_e is not None:
+                eseg.copy_(new_e)
+        ef_out.append(ebuf)
+    if compress is None:
+        return bufs
+    return bufs, (tuple(ef_out) if has_ef else ())

@@ -13,9 +13,10 @@ the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
   FedBiO-Local) → client mean of the variables.
 
 Ported so far: both kinds with the AVERAGED / PRIVATE policies and
-HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging), no
-participation, faults, compression, telemetry, stragglers, sharding or
-per-sequence cadences.
+HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging), and
+compressed communication (``compression=``: quantized and/or top-k sends,
+per-client error feedback on ``FlatState.ef``); no participation, faults,
+telemetry, stragglers, sharding or per-sequence cadences.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device.  The
@@ -108,10 +109,16 @@ def _round_preds(cfg, step: int):
     return is_comm, is_global
 
 
-def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies):
+def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
+                 compress=None, ef=()):
     """Apply the per-section policies to flat [M, N] buffers at a
     communication step: one masked reduction per communicated run, private
-    sections untouched.  Other steps return ``bufs`` as they are."""
+    sections untouched.  Other steps return ``bufs`` as they are.
+
+    ``compress`` / ``ef``: a :class:`flat.CompressCfg` and the current
+    error-feedback buffers; with ``compress`` set the call returns
+    ``(bufs, ef)``, and a step that does not communicate leaves both as
+    they are."""
     if cfg.hierarchy_period > 0 and HIERARCHICAL in policies:
         raise NotImplementedError(
             "the hierarchical schedule (hierarchy_period > 0) is not ported "
@@ -120,22 +127,27 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies):
     is_comm, _ = _round_preds(cfg, step)
     modes = tuple("none" if p == PRIVATE else "mean" for p in policies)
     if not is_comm or all(m == "none" for m in modes):
-        return bufs
-    return flat.client_mean_masked(spec, bufs, modes)
+        return bufs if compress is None else (bufs, ef)
+    return flat.client_mean_masked(spec, bufs, modes, compress=compress,
+                                   ef=ef)
 
 
 class FlatState(NamedTuple):
     """Train state on the flat substrate: per-dtype [M, N] variable and f32
-    momentum buffers (``()`` when the spec carries no momentum), and the
-    host-side step counter."""
+    momentum buffers (``()`` when the spec carries no momentum), the
+    host-side step counter, and the per-client error-feedback buffers of
+    top-k compressed communication: a ``(vars_ef, mom_ef)`` pair of f32
+    buffer tuples shaped like ``vars``/``mom``, or ``()`` when compression
+    is off or carries no feedback."""
     vars: Any
     mom: Any
     step: int
+    ef: Any = ()
 
 
 class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
-    step=0)``, ``step(state, batch) -> state`` and ``views(state) ->
+    step=0, ef=None)``, ``step(state, batch) -> state`` and ``views(state) ->
     (var_dict, mom_dict)``, ``mom_dict`` None without momentum."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
@@ -144,17 +156,63 @@ class Engine(NamedTuple):
     views: Any
 
 
+def _compress_cfg(cfg, aspec: AlgoSpec, compression):
+    """Check a ``CompressionSpec`` against the spec and lower it to the
+    substrate's :class:`flat.CompressCfg` (the reference's checks)."""
+    quant = compression.quant
+    if quant not in (None, "bf16", "int8"):
+        raise ValueError(f"unknown compression quant {quant!r} "
+                         f"(None | 'bf16' | 'int8')")
+    frac = float(compression.topk_frac)
+    if not 0.0 <= frac < 1.0:
+        raise ValueError(f"compression topk_frac={frac} must be in [0, 1)")
+    if quant is None and frac == 0.0:
+        raise ValueError(
+            "compression enabled but no compressor selected — set quant "
+            "('bf16' | 'int8') and/or topk_frac > 0")
+    comm_secs = tuple(q.section for q in aspec.sequences if q.comm != PRIVATE)
+    csecs = (tuple(compression.sections) if compression.sections
+             else comm_secs)
+    unknown = set(csecs) - set(aspec.sections)
+    if unknown:
+        raise ValueError(
+            f"compression.sections names unknown sections {sorted(unknown)} "
+            f"(spec {aspec.name!r} has {aspec.sections})")
+    private = [s for s in csecs if s not in comm_secs]
+    if private:
+        raise ValueError(
+            f"compression.sections names private sections {private} — "
+            f"private state is never communicated, so it cannot be "
+            f"compressed")
+    if frac > 0 and cfg.hierarchy_period > 0:
+        raise ValueError(
+            "top-k compression (topk_frac > 0) does not compose with the "
+            "hierarchical grouped mean (cfg.hierarchy_period > 0) — error "
+            "feedback against two different means is ill-defined; use "
+            "quant-only compression or set hierarchy_period=0")
+    return flat.CompressCfg(quant=quant, topk_frac=frac,
+                            error_feedback=bool(compression.error_feedback),
+                            sections=csecs)
+
+
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
-                block: int | None = None) -> Engine:
+                block: int | None = None, compression=None) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
     (meta tensors will do).  ``oracle(views, batch) -> {section: grad tree}``
     takes and returns [M, ...] trees.  Its outputs are the momentum targets
     of the storm kind, evaluated at the old and the new iterate with the
-    same batch, and the gradients of the sgd kind."""
+    same batch, and the gradients of the sgd kind.
+
+    ``compression``: a ``CompressionSpec`` (or None): every communicated
+    reduction of the sections it names moves compressed sends, and with
+    top-k error feedback the state carries ``ef``."""
     if aspec.kind not in ("storm", "sgd"):
         raise ValueError(f"unknown engine kind {aspec.kind!r}")
+    ccfg = (None if compression is None
+            else _compress_cfg(cfg, aspec, compression))
+    has_ef = ccfg is not None and ccfg.has_ef
     sections = aspec.sections
     has_mom = aspec.has_momentum
     spec = flat.make_spec({s: templates[s] for s in sections},
@@ -166,7 +224,14 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
                                  batch_dims=1, dtype=torch.float32)
 
-    def init_state(var_trees, mom_trees=None, step: int = 0):
+    def comm(step: int, bufs, ef):
+        """Communicate ``bufs``; returns ``(bufs, ef)``."""
+        if ccfg is None:
+            return comm_buffers(spec, cfg, step, bufs, policies), ef
+        return comm_buffers(spec, cfg, step, bufs, policies, compress=ccfg,
+                            ef=ef)
+
+    def init_state(var_trees, mom_trees=None, step: int = 0, ef=None):
         vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
                                    batch_dims=1)
         if not has_mom:
@@ -180,7 +245,17 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 spec, {q.section: mom_trees[q.momentum]
                        for q in aspec.sequences},
                 batch_dims=1, dtype=torch.float32)
-        return FlatState(vars_b, mom_b, int(step))
+        if not has_ef:
+            ef_b = ()
+        elif ef is None:
+            # one f32 zero buffer per communicated buffer: the mass top-k
+            # drops accumulates here between rounds
+            ef_b = tuple(tuple(torch.zeros(b.shape, dtype=torch.float32,
+                                           device=b.device) for b in bufs)
+                         for bufs in (vars_b, mom_b))
+        else:
+            ef_b = ef
+        return FlatState(vars_b, mom_b, int(step), ef_b)
 
     def _storm_step(state: FlatState, batch) -> FlatState:
         t = state.step
@@ -195,33 +270,37 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         vars_b, mom_b = flat.storm_partial_step(spec, state.vars, state.mom,
                                                 g_old, lrs, decays)
         del g_old
+        efv, efm = state.ef if state.ef else ((), ())
         # 3) communicate the variables
-        vars_c = comm_buffers(spec, cfg, t, vars_b, policies)
+        vars_c, efv = comm(t, vars_b, efv)
         # 4) new-iterate oracle, same batch; the STORM correction is one add
         g_new = _flatten_grads(oracle(flat.unflatten_tree(spec, vars_c),
                                       batch))
         mom_b = flat.buffers_add(mom_b, g_new)
         del g_new
-        mom_b = comm_buffers(spec, cfg, t, mom_b, policies)
-        return FlatState(vars_c, mom_b, t + 1)
+        mom_b, efm = comm(t, mom_b, efm)
+        return FlatState(vars_c, mom_b, t + 1,
+                         (efv, efm) if state.ef else ())
 
     def _sgd_step(state: FlatState, batch) -> FlatState:
         t = state.step
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
         g = _flatten_grads(oracle(flat.unflatten_tree(spec, state.vars),
                                   batch))
+        efv, efm = state.ef if state.ef else ((), ())
         if has_mom:
             betas = (_f32(aspec.beta),) * len(aspec.sequences)
             vars_b, mom_b = flat.momentum_sgd_step(spec, state.vars,
                                                    state.mom, g, lrs, betas)
-            mom_b = comm_buffers(spec, cfg, t, mom_b, policies)
+            mom_b, efm = comm(t, mom_b, efm)
         else:
             # no momentum: the plain-SGD launch reads and writes no momentum
             vars_b = flat.sgd_step(spec, state.vars, g, lrs)
             mom_b = ()
         del g
-        vars_b = comm_buffers(spec, cfg, t, vars_b, policies)
-        return FlatState(vars_b, mom_b, t + 1)
+        vars_b, efv = comm(t, vars_b, efv)
+        return FlatState(vars_b, mom_b, t + 1,
+                         (efv, efm) if state.ef else ())
 
     step = _storm_step if aspec.kind == "storm" else _sgd_step
 

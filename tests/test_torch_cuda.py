@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.storm import kernel as tk
+from repro_torch.kernels.storm import quantpack as tqp
 from repro_torch.kernels.storm import ref as tref
+from repro_torch.testing import halfway_tiles
 from torch_parity import bits
 
 torch.set_num_threads(1)
@@ -102,3 +104,68 @@ def test_cuda_sgd_wrappers_raise_instead_of_falling_back(card):
         tk.momsgd3_step(tp, tm, tg, tl, tb.cpu(), block=BLOCK)
     with pytest.raises(ValueError, match="several devices"):
         tk.sgd3_step(tp.cpu(), tg, tl, block=BLOCK)
+
+
+def _quant_buffer(seed: int, block: int, tiles: int) -> torch.Tensor:
+    """Lognormal tiles, half-way tiles and an all-zero tile last."""
+    rng = np.random.default_rng(seed)
+    logn = (rng.lognormal(0.0, 2.0, tiles * block)
+            * rng.choice([-1.0, 1.0], tiles * block)).astype(np.float32)
+    return torch.from_numpy(np.concatenate(
+        [logn, halfway_tiles(rng, 2, block), np.zeros(block, np.float32)]))
+
+
+def _assert_quant_roundtrip(x, block: int):
+    """Pack and unpack on the card against the plain versions, bit for bit;
+    the unpack also against the one library call that computes it."""
+    q, s = tqp.quantpack_flat(x, block=block)
+    want_q, want_s = tref.quantpack_ref(x, block)
+    _assert_bits((q, s), (want_q, want_s))
+    out = tqp.quantunpack_flat(q, s, block=block)
+    _assert_bits((out,), (tref.quantunpack_ref(q, s, block),))
+    _assert_bits((out,), (torch.mul(q.view(-1, block), s.view(-1, 1))
+                          .reshape(-1),))
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1024, 64 * 1024])
+def test_cuda_quant_kernels_bitwise_vs_plain(block, card):
+    """``quantpack``/``quantunpack`` equal their plain versions bit for bit
+    on the card: lognormal tiles, values one ulp either side of the
+    rounding half-way points, and a zero tile (scale 0, q 0)."""
+    x = _quant_buffer(7, block, 3).to(card)
+    tqp.reset_counts()
+    q, s = _assert_quant_roundtrip(x, block)
+    torch.cuda.synchronize()
+    assert tqp.LAUNCHES == {"quantpack": 1, "quantunpack": 1}
+    assert float(s[-1]) == 0.0 and not torch.any(q[-block:])
+    # one tile alone
+    _assert_quant_roundtrip(x[:block].clone(), block)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_kernels_scalar_paths(card):
+    """Lengths and starts that bar the vector paths: a tile of 13 and a
+    buffer that starts one element in."""
+    x = _quant_buffer(8, 1024, 1).to(card)
+    _assert_quant_roundtrip(x[:3 * 13].clone(), 13)
+    _assert_quant_roundtrip(x[1:1 + 2 * 1024], 1024)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_wrappers_raise_instead_of_falling_back(card):
+    x = _quant_buffer(9, 1024, 1).to(card)
+    q, s = tqp.quantpack_flat(x, block=1024)
+    with pytest.raises(TypeError, match="int8"):
+        tqp.quantunpack_flat(s, s, block=1024)
+    with pytest.raises(TypeError, match="int8"):
+        tqp.quantunpack_flat(q, q, block=1024)
+    with pytest.raises(TypeError, match="float32"):
+        tqp.quantpack_flat(q, block=1024)
+    with pytest.raises(ValueError, match="contiguous"):
+        tqp.quantpack_flat(x.reshape(-1, 2)[:, 0], block=1024)
+    with pytest.raises(ValueError, match="multiple of block"):
+        tqp.quantpack_flat(x[:-1], block=1024)
+    with pytest.raises(ValueError, match="several devices"):
+        tqp.quantunpack_flat(q, s.cpu(), block=1024)
