@@ -30,7 +30,26 @@ Phases, each of which stops the script with a non-zero exit on failure:
    tokens each — two SSD chunks), four steps (two communication rounds),
    with the kernels' launch counts taken over that path's run alone (as
    ``PATHS`` lists them, every other kernel never) and a finite validation
-   loss.
+   loss;
+6. the model kernels against their plain versions at the serving path's
+   shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
+   scan at [2, 4096, 4096] f32 bit for bit, plus an odd shape with h0;
+   the flash attention at q [2, 4096, 16, 256], k/v [2, 4096, 1, 256],
+   causal, window 2048, in bf16 (2e-2) and f32 (2e-5), plus a window-0,
+   soft-capped case in each dtype; median CUDA-event times, the bound, and
+   for the attention ``scaled_dot_product_attention`` with the band as a
+   boolean mask (``library_ms``, never on the path);
+7. a reduced serving cross-check: the reduced RecurrentGemma (f32, 3
+   layers) prefills a prompt of 100 and decodes 8 teacher-forced tokens on
+   the card with both kernels and on the CPU with both plain versions, from
+   the same params; every step's logits agree within 1e-4 of the largest;
+8. the serving path, last: ``repro_torch.launch.serve.main`` on full-width
+   RecurrentGemma-9B (10.44 B parameters, bf16, seeded init on the card),
+   batch 2, prompt 4096, 16 generated tokens, with the launch counts over
+   that run alone
+   (``SERVE_LAUNCHES``: the scan once per ``rec`` layer, the attention once
+   per ``local`` layer, every other kernel never), finite logits, and its
+   prefill time, decode time per step and peak memory.
 
 The line before the last is one JSON object describing each kernel, its
 ``launches`` summed over the paths; the last line is
@@ -55,16 +74,26 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 
 from repro_torch.api import Experiment, build  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.tree_util import tree_map  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash.ref import (band_mask,  # noqa: E402
+                                           flash_attention_ref)
+from repro_torch.kernels.lru import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.lru.ref import lru_scan_ref  # noqa: E402
 from repro_torch.kernels.storm import kernel as storm  # noqa: E402
 from repro_torch.kernels.storm import quantpack as qp  # noqa: E402
 from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import flat  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
 from repro_torch.testing import int8_flips, topk_flips  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
 # path (committed spec) → what its four full-width steps launch over its two
 # dtype buffers: the update kernel once per buffer per step; the compressed
 # path also packs and unpacks the variables and the momenta of each buffer
@@ -76,6 +105,13 @@ PATHS = {"fedbioacc": {"storm3_step": 8}, "fedbio": {"sgd3_step": 8},
 COMPRESSED = "fedbioacc_int8_topk"
 CLIENTS = 2
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
+# the serving path: full-width RecurrentGemma-9B prefill and greedy decode
+SERVE_ARCH = "recurrentgemma-9b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 16
+# its 26 rec layers scan once each and its 12 local layers attend once
+# each, all in the prefill; decode runs neither kernel
+SERVE_LAUNCHES = {"lru_scan": 26, "flash_attention": 12}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def log(msg: str) -> None:
@@ -114,10 +150,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def reset_counts() -> None:
     storm.reset_counts()
     qp.reset_counts()
+    lru_ops.reset_counts()
+    flash_ops.reset_counts()
 
 
 def launch_counts() -> dict:
-    return {**storm.LAUNCHES, **qp.LAUNCHES}
+    return {**storm.LAUNCHES, **qp.LAUNCHES, **lru_ops.LAUNCHES,
+            **flash_ops.LAUNCHES}
 
 
 def full_width_experiment(exp: Experiment) -> Experiment:
@@ -407,6 +446,205 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 6 to 8: the model kernels and the serving path
+# ---------------------------------------------------------------------------
+
+def _entry(name: str, source: str, replaces: str, err: float, ms: float,
+           plain_ms: float, moved: int, ops_ms: float, library_ms) -> dict:
+    """A kernel's line: its bound is the larger of the bytes these inputs
+    and outputs take over the memory rate and ``ops_ms``, its operations
+    each over the peak rate of their type."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def lru_phase(dev) -> dict:
+    """The RG-LRU scan at the serving path's shape, [batch, prompt, LRU
+    width] f32 without h0 (as a prefill calls it), bit for bit; then an odd
+    shape with h0."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (SERVE_BATCH, SERVE_PROMPT, get_config(SERVE_ARCH).resolved_lru_width)
+    a = 0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)
+    b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    out, want = lru_ops.lru_scan(a, b), lru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    if not same_bits(out, want):
+        raise SystemExit(f"lru_scan: kernel differs from the plain version "
+                         f"at {list(shape)}")
+    err = float((out - want).abs().max())
+    oa, ob = (t[:, :1001, :77].contiguous() for t in (a, b))
+    h0 = torch.randn(shape[0], 77, generator=gen, device=dev)
+    if not same_bits(lru_ops.lru_scan(oa, ob, h0), lru_scan_ref(oa, ob, h0)):
+        raise SystemExit("lru_scan: kernel differs from the plain version "
+                         "at [2, 1001, 77] with h0")
+    moved = sum(t.numel() * t.element_size() for t in (a, b, out))
+    del out, want, oa, ob
+    k_ms = timed_ms(lambda: lru_ops.lru_scan(a, b), KERNEL_RUNS)
+    p_ms = timed_ms(lambda: lru_scan_ref(a, b), 3)
+    entry = _entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
+                   "src/repro/kernels/lru/kernel.py:48", err, k_ms, p_ms,
+                   moved, 2 * a.numel() / F32_FLOPS_PER_S * 1e3, None)
+    log(f"lru_scan f32 {list(shape)} (serving path, per rec layer): bitwise "
+        f"equal (and at [2, 1001, 77] with h0), kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, {moved} B, bound {entry['bound_ms']:.4f} ms "
+        f"({moved / k_ms / 1e6:.1f} GB/s)")
+    log("lru_scan: library none: no single PyTorch call computes a linear "
+        "recurrence")
+    return entry
+
+
+def flash_phase(dev) -> dict:
+    """The attention at the serving path's shapes (one local layer's
+    prefill) in bf16 and f32, and a window-0, soft-capped GQA case in each,
+    within the reference's kernel-test tolerances; times at the path's
+    bf16, beside SDPA with the band as a boolean mask."""
+    cfg = get_config(SERVE_ARCH)
+    B, S, H, hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.resolved_head_dim)
+    kw = dict(causal=cfg.causal, window=cfg.window_size,
+              softcap=cfg.attn_softcap, scale=1.0 / math.sqrt(D))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    path = (torch.randn(B, S, H, D, generator=gen, device=dev),
+            *(torch.randn(B, S, hkv, D, generator=gen, device=dev)
+              for _ in range(2)))
+    capped = (torch.randn(1, 1000, 8, 128, generator=gen, device=dev),
+              *(torch.randn(1, 1000, 2, 128, generator=gen, device=dev)
+                for _ in range(2)))
+    cap_kw = dict(causal=True, window=0, softcap=50.0)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, ins, kwargs in (("path", path, kw), ("capped", capped,
+                                                       cap_kw)):
+            args = tuple(t.to(dtype) for t in ins)
+            got = flash_ops.flash_attention(*args, **kwargs)
+            want = flash_attention_ref(*args, **kwargs)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            log(f"flash_attention {str(dtype).replace('torch.', '')} {what} "
+                f"{[list(t.shape) for t in args]} {kwargs}: max abs err "
+                f"{err:.3e} (limit {FLASH_TOL[dtype]})")
+            if not err <= FLASH_TOL[dtype]:
+                raise SystemExit(f"flash_attention differs from the plain "
+                                 f"version ({dtype}, {what})")
+            errs[dtype, what] = err
+            del got, want, args
+    q, k, v = (t.to(torch.bfloat16) for t in path)
+    del path, capped
+    want = flash_attention_ref(q, k, v, **kw)
+    out = flash_ops.flash_attention(q, k, v, **kw)
+    mask = band_mask(S, causal=kw["causal"], window=kw["window"], device=dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - want.float())
+                    .abs().max())
+    if not lib_err <= FLASH_TOL[torch.bfloat16]:
+        raise SystemExit(f"the library call differs from the plain version "
+                         f"({lib_err})")
+    moved = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    # each (query, key) pair in the band costs D multiply-adds for q.k and D
+    # for p.v; q.k multiplies bf16 inputs, whose products f32 holds exactly,
+    # so its least time is at the bf16 tensor-core rate; p.v multiplies f32
+    # probabilities and is held to the f32 rate
+    pairs = int(mask.sum())
+    half = 2 * D * pairs * B * H
+    ops_ms = (half / BF16_TC_FLOPS_PER_S + half / F32_FLOPS_PER_S) * 1e3
+    del want, out
+    torch.cuda.empty_cache()
+    k_ms = timed_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
+                    KERNEL_RUNS)
+    p_ms = timed_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
+    l_ms = timed_ms(library, KERNEL_RUNS)
+    entry = _entry("flash_attention",
+                   "src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash/kernel.py:91",
+                   errs[torch.bfloat16, "path"], k_ms, p_ms, moved, ops_ms,
+                   l_ms)
+    log(f"flash_attention bf16 q {list(q.shape)} kv {list(k.shape)} causal "
+        f"window {kw['window']} (serving path, per local layer): kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (SDPA, boolean band "
+        f"mask, enable_gqa; max abs err {lib_err:.3e}) {l_ms:.4f} ms; "
+        f"{pairs} (query, key) pairs per head, {half} operations each for "
+        f"q.k (bf16 rate) and p.v (f32 rate), {moved} B: bound "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+        f"({2 * half / k_ms / 1e9:.2f} TFLOP/s); all at the f32 rate "
+        f"{2 * half / F32_FLOPS_PER_S * 1e3:.4f} ms, all at the bf16 "
+        f"tensor-core rate {2 * half / BF16_TC_FLOPS_PER_S * 1e3:.4f} ms")
+    return entry
+
+
+def serve_cross_check(dev) -> None:
+    """The reduced RecurrentGemma: prompt 100 (ragged tiles; the window of
+    64 bites) and 8 teacher-forced decode steps, on the card through both
+    kernels and on the CPU through their plain versions, from the same
+    params."""
+    cfg = get_config(SERVE_ARCH).reduced()
+    model = build_model(cfg, dtype=torch.float32)
+    B, S, gen = 2, 100, 8
+    tok = torch.randint(0, cfg.vocab_size, (B, S + gen),
+                        generator=torch.Generator().manual_seed(1))
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    steps = {}
+    reset_counts()
+    with torch.no_grad():
+        for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            params = tree_map(lambda t: t.to(d), cpu_params)
+            t = tok.to(d)
+            last, caches = model.prefill(params, {"tokens": t[:, :S]},
+                                         cache_len=S + gen, use_flash=True,
+                                         use_lru_kernel=True)
+            steps[side] = [last.cpu()]
+            for i in range(gen):
+                last, caches = model.decode_step(params, caches,
+                                                 t[:, S + i:S + i + 1], S + i)
+                steps[side].append(last.cpu())
+    launches = launch_counts()
+    if (launches["lru_scan"], launches["flash_attention"]) != (2, 1):
+        raise SystemExit(f"reduced serving cross-check launched {launches}")
+    worst = max(float((g - c).abs().max() / c.abs().max())
+                for g, c in zip(steps["card"], steps["cpu"]))
+    log(f"reduced serving cross-check ({cfg.num_layers} layers, f32): card "
+        f"(kernels) vs CPU (plain versions), prefill {S} + {gen} decode "
+        f"steps, worst logit difference {worst:.3e} of the largest (limit "
+        f"1e-4)")
+    if not worst <= 1e-4:
+        raise SystemExit("reduced serving cross-check failed")
+
+
+def serving_path(dev) -> dict:
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
+                      "--prompt-len", str(SERVE_PROMPT), "--gen",
+                      str(SERVE_GEN), "--seed", "0"])
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"serving path: full-width {SERVE_ARCH}, bf16, batch {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: prefill "
+        f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_step']:.3f} "
+        f"ms per step ({SERVE_BATCH} tokens), peak memory {peak} B, "
+        f"launches {launches}")
+    want = {**dict.fromkeys(launches, 0), **SERVE_LAUNCHES}
+    if launches != want:
+        raise SystemExit(f"serving path launched {launches}, expected {want}")
+    if tuple(out["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) or \
+            not bool(torch.isfinite(out["logits"]).all()):
+        raise SystemExit("serving path: wrong token shape or non-finite "
+                         "logits")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -441,6 +679,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         for kname, k in kernels.items():
             k["launches"] += launches[kname]
+
+    kernels["lru_scan"] = lru_phase(dev)
+    kernels["flash_attention"] = flash_phase(dev)
+    torch.cuda.empty_cache()
+    serve_cross_check(dev)
+    launches = serving_path(dev)
+    for kname, k in kernels.items():
+        k["launches"] += launches[kname]
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,13 +53,19 @@ def unported_features(exp: Experiment) -> list:
     """What ``exp`` asks for that the port does not run yet, each with the
     ROADMAP item that ports it."""
     from repro_torch.api import registry
+    from repro_torch.configs import ARCHS
 
     ex, sch = exp.execution, exp.schedule
+    arch = ARCHS.get(exp.problem.arch)
     algos, part = "queue 1, 'Remaining algorithms'", \
         "queue 1, 'Participation, staleness and cadence'"
     guards, shard = "queue 1, 'Faults, robustness and checkpoint " \
         "hardening'", "queue 1, 'Sharded substrate'"
     model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
+    kernel_training = "queue 1, 'Training through the model kernels'"
+    no_grad = ("the reference's train step cannot differentiate through its "
+               "Pallas {} kernel: pallas_call has no reverse-mode rule and "
+               "the kernel no custom_vjp")
     checks = [
         (exp.algorithm.name not in registry.names(),
          f"algorithm {exp.algorithm.name!r}", algos),
@@ -75,8 +81,16 @@ def unported_features(exp: Experiment) -> list:
         (ex.scatter_comm, "execution.scatter_comm", shard),
         (sch.hierarchy_period > 0, "schedule.hierarchy_period > 0", part),
         (bool(sch.comm_every), "schedule.comm_every", part),
-        (ex.use_flash, "execution.use_flash", "queue 2, kernel 8"),
-        (ex.use_lru_kernel, "execution.use_lru_kernel", "queue 2, kernel 9"),
+        (arch is None, f"arch {exp.problem.arch!r}",
+         "queue 1, 'Other model families and serving'"),
+        (arch is not None and arch.family != "ssm",
+         f"training arch {exp.problem.arch!r} (family "
+         f"{getattr(arch, 'family', None)!r}: no slice holds its training "
+         f"to the reference yet)", kernel_training),
+        (ex.use_flash, "execution.use_flash (" + no_grad.format("flash") +
+         ")", kernel_training),
+        (ex.use_lru_kernel, "execution.use_lru_kernel (" +
+         no_grad.format("LRU-scan") + ")", kernel_training),
         (not ex.fuse_storm, "execution.fuse_storm=false (the unfused tree "
          "path)", model_scale),
         (not ex.fuse_oracles, "execution.fuse_oracles=false",

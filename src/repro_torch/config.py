@@ -21,7 +21,7 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "ssm" is the only family ported so far
+    family: str                      # "ssm" and "hybrid" are ported so far
     num_layers: int
     d_model: int
     num_heads: int
@@ -50,13 +50,28 @@ class ModelConfig:
     scale_embed: bool = False
     source: str = ""
 
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer mixer kind, length == num_layers."""
         if self.family == "ssm":
             return ("ssm",) * self.num_layers
-        raise NotImplementedError(
-            f"model family {self.family!r} is not ported yet "
-            f"(ROADMAP queue 1, item 'Other model families and serving')")
+        if self.family == "hybrid":
+            # recurrentgemma: repeating (recurrent, recurrent, local attention)
+            pat = ("rec", "rec", "local")
+            return tuple(pat[i % 3] for i in range(self.num_layers))
+        if self.attention_pattern == "local_global":
+            return tuple("local" if i % 2 == 0 else "attn"
+                         for i in range(self.num_layers))
+        return ("attn",) * self.num_layers
 
     def reduced(self, num_layers: int = 2, d_model: int = 256, d_ff: int = 512,
                 vocab_size: int = 512, num_experts: int = 4) -> "ModelConfig":

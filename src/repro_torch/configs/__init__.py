@@ -1,9 +1,10 @@
 """Ported architectures: ``get_config(arch)`` resolves here.  Only the
 architectures whose model family the port runs are listed."""
-from repro_torch.configs import mamba2_130m
+from repro_torch.configs import mamba2_130m, recurrentgemma_9b
 
 ARCHS = {
     "mamba2-130m": mamba2_130m.CONFIG,
+    "recurrentgemma-9b": recurrentgemma_9b.CONFIG,
 }
 
 

@@ -28,8 +28,10 @@ def check_model_options(n_micro: int = 1, remat: bool = False,
             "runs one microbatch per step without rematerialisation")
     if use_flash or use_lru_kernel:
         raise NotImplementedError(
-            "use_flash / use_lru_kernel select kernels that are not ported "
-            "yet (ROADMAP queue 2, kernels 8 and 9)")
+            "use_flash / use_lru_kernel: the kernels run forward only (the "
+            "reference cannot differentiate through them either); training "
+            "through them waits for ROADMAP queue 1, item 'Training through "
+            "the model kernels'")
 
 
 def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,

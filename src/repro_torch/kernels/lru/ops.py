@@ -1,0 +1,73 @@
+"""The RG-LRU scan ``h_t = a_t ⊙ h_{t−1} + b_t``: the wrapper around
+``kernels/csrc/lru_scan.cu``, which replaces ``repro/kernels/lru/kernel.py``
+``lru_scan_padded`` (with the padding of ``repro/kernels/lru/ops.py``).
+
+Dispatch is by device and nothing else: tensors on the CPU go to the plain
+PyTorch version in ``ref.py``; tensors on a CUDA device launch the kernel on
+the current stream, or raise if the kernel cannot take them.
+
+``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls on
+any device; :func:`reset_counts` zeroes both.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.lru.ref import lru_scan_ref
+
+LAUNCHES = {"lru_scan": 0}
+CALLS = {"lru_scan": 0}
+
+_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+
+
+def reset_counts() -> None:
+    LAUNCHES["lru_scan"] = CALLS["lru_scan"] = 0
+
+
+def _lib():
+    from repro_torch.kernels.build import load
+    lib = load("lru_scan")
+    lib.lru_scan.argtypes = [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP]
+    lib.lru_scan.restype = ctypes.c_int
+    return lib
+
+
+def lru_scan(a, b, h0=None):
+    """``h_t = a_t·h_{t−1} + b_t`` along axis 1.  a, b: [B, S, C] f32;
+    h0: [B, C] f32 or None (zeros).  Returns h: [B, S, C] f32."""
+    CALLS["lru_scan"] += 1
+    tensors = (a, b) if h0 is None else (a, b, h0)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"lru_scan: a, b and h0 must be float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"lru_scan: a and b must be [B, S, C] of one shape, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    B, S, C = a.shape
+    if h0 is not None and tuple(h0.shape) != (B, C):
+        raise ValueError(f"lru_scan: h0 must be [{B}, {C}], got "
+                         f"{tuple(h0.shape)}")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"lru_scan: tensors on several devices {devices}")
+    dev = a.device
+    if dev.type == "cpu":
+        return lru_scan_ref(a, b, h0)
+    if dev.type != "cuda":
+        raise ValueError(f"lru_scan: no kernel for device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("lru_scan: tensors must be contiguous")
+    out = torch.empty_like(a)
+    with torch.cuda.device(dev):
+        err = _lib().lru_scan(a.data_ptr(), b.data_ptr(),
+                              None if h0 is None else h0.data_ptr(),
+                              out.data_ptr(), B, S, C,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES["lru_scan"] += 1
+    return out

@@ -6,10 +6,20 @@ nested-dict params ``{"body": ..., "head": ...}``:
 * ``init(gen)``              -> params drawn from a ``torch.Generator``, on
   its device; ``init(None)`` -> the same tree as empty ``meta`` tensors;
 * ``forward(params, batch)`` -> logits ``[B, S, V]`` in f32;
-* ``loss(params, batch)``    -> (masked CE, aux dict).
+* ``loss(params, batch)``    -> (masked CE, aux dict);
+* ``prefill(params, batch, cache_len)`` -> (last logits ``[B, V]``, caches);
+* ``decode_step(params, caches, tokens, pos)`` -> (logits ``[B, V]``,
+  caches);
+* ``init_cache(batch, cache_len, device)`` -> zeroed caches.
+
+``forward``, ``loss`` and ``prefill`` take the reference's ``use_flash`` and
+``use_lru_kernel`` switches: the attention layers' prefill then runs the
+flash-attention kernel and the recurrent layers' scan the RG-LRU kernel.
+The ``ssm`` and ``hybrid`` families are ported; the Mamba-2 decode cache is
+not, so ``prefill``/``decode_step`` of an ``ssm`` model raise.
 
 The body/head split is the bilevel split: the upper variable x is the body,
-the lower variable y is the output head.  Prefill and decode are not ported.
+the lower variable y is the output head.
 """
 from __future__ import annotations
 
@@ -22,9 +32,9 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.tree_util import tree_map
 from repro_torch.models import stack as stk
-from repro_torch.models.layers import (embed, embedding_init, head_init,
-                                       rmsnorm, rmsnorm_init, device_of)
-
+from repro_torch.models.layers import (_softcap, device_of, embed,
+                                       embedding_init, head_init, rmsnorm,
+                                       rmsnorm_init)
 
 @dataclass(frozen=True)
 class Model:
@@ -32,13 +42,29 @@ class Model:
     init: Callable
     forward: Callable
     loss: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+
+
+def _embed_inputs(body, batch: Dict[str, Any], cfg: ModelConfig):
+    """Returns ``(x [B, S, d], positions [B, S])`` (the token path: the
+    audio and VLM front ends are not ported)."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"the {cfg.family} front end is not ported "
+                                  f"yet ({stk.FAMILIES_ITEM})")
+    x = embed(body["embed"], batch["tokens"])
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    return x, positions
 
 
 def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"item 'Other model families and serving')")
+            f"model family {cfg.family!r} is not ported yet ({stk.FAMILIES_ITEM})")
 
     def init(gen):
         body: Dict[str, Any] = {
@@ -48,16 +74,27 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
         }
         return {"body": body, "head": head_init(gen, cfg, dtype)}
 
-    def forward(params, batch):
+    def _run(params, x, positions, *, caches=None, cache_index=None,
+             use_flash=False, use_lru_kernel=False):
         body, head = params["body"], params["head"]
-        x = embed(body["embed"], batch["tokens"])
-        x = stk.apply_stack(body["stages"], x, cfg)
+        x, new_caches, aux = stk.apply_stack(
+            body["stages"], x, cfg, positions=positions, caches=caches,
+            cache_index=cache_index, use_flash=use_flash,
+            use_lru_kernel=use_lru_kernel)
         x = rmsnorm(body["final_ln"], x, cfg.norm_eps)
-        return (x @ head["w"]).to(torch.float32)
+        logits = _softcap((x @ head["w"]).to(torch.float32),
+                          cfg.logit_softcap)
+        return logits, new_caches, aux
 
-    def loss(params, batch):
+    def forward(params, batch, *, use_flash=False, use_lru_kernel=False):
+        x, positions = _embed_inputs(params["body"], batch, cfg)
+        return _run(params, x, positions, use_flash=use_flash,
+                    use_lru_kernel=use_lru_kernel)[0]
+
+    def loss(params, batch, *, use_flash=False, use_lru_kernel=False):
         """Masked CE: positions with ``labels < 0`` are ignored."""
-        logits = forward(params, batch)
+        logits = forward(params, batch, use_flash=use_flash,
+                         use_lru_kernel=use_lru_kernel)
         labels = batch["labels"]
         mask = (labels >= 0).to(torch.float32)
         safe = torch.clamp(labels, min=0).long()
@@ -66,7 +103,63 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
         ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
         return ce, {"ce": ce}
 
-    return Model(cfg=cfg, init=init, forward=forward, loss=loss)
+    def init_cache(batch_size: int, cache_len: int, device=None):
+        return stk.init_cache(cfg, batch_size, cache_len, dtype, device)
+
+    def prefill(params, batch, cache_len: int, *, use_flash=False,
+                use_lru_kernel=False):
+        """Run the prompt; return its last logits and the decode caches:
+        each attention layer's full-sequence k/v become ring buffers of
+        ``min(window, cache_len)`` slots (the reference's pad and roll)."""
+        x, positions = _embed_inputs(params["body"], batch, cfg)
+        B, S = positions.shape
+        logits, seq_caches, _ = _run(params, x, positions, use_flash=use_flash,
+                                     use_lru_kernel=use_lru_kernel)
+        caches = init_cache(B, cache_len, x.device)
+        new = []
+        for (unit, reps), zero_stage, seq_stage in zip(
+                stk.stages_for(cfg), caches, seq_caches):
+            stage_out = {}
+            for i, kind in enumerate(unit):
+                name = f"{i}_{kind}"
+                if kind == "rec":
+                    stage_out[name] = seq_stage[name]
+                    continue
+                zk, _ = zero_stage[name]
+                sk, sv = seq_stage[name]          # [reps, B, S, hkv, hd]
+                L = zk.shape[2]
+                Lt = min(S, L)
+                tail_k, tail_v = sk[:, :, S - Lt:], sv[:, :, S - Lt:]
+                pad = L - Lt
+                if pad:
+                    tail_k = torch.nn.functional.pad(tail_k,
+                                                     (0, 0, 0, 0, 0, pad))
+                    tail_v = torch.nn.functional.pad(tail_v,
+                                                     (0, 0, 0, 0, 0, pad))
+                shift = (S - Lt) % L
+                stage_out[name] = (torch.roll(tail_k, shift, dims=2),
+                                   torch.roll(tail_v, shift, dims=2))
+            new.append(stage_out)
+        return logits[:, -1, :], new
+
+    def decode_step(params, caches, tokens, pos):
+        """tokens: [B, 1]; pos: a scalar or a [B] vector of 0-based next
+        positions (continuous batching).  Runs neither kernel: the
+        recurrence takes one step and attention reads the ring buffers."""
+        x = embed(params["body"]["embed"], tokens)
+        if cfg.scale_embed:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        B = x.shape[0]
+        pos = torch.as_tensor(pos, device=x.device)
+        positions = (pos.reshape(1, 1).expand(B, 1) if pos.dim() == 0
+                     else pos[:, None])
+        logits, new_caches, _ = _run(params, x, positions, caches=caches,
+                                     cache_index=pos)
+        return logits[:, 0, :], new_caches
+
+    return Model(cfg=cfg, init=init, forward=forward, loss=loss,
+                 prefill=prefill, decode_step=decode_step,
+                 init_cache=init_cache)
 
 
 def _to_torch(a, device) -> torch.Tensor:

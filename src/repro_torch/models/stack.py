@@ -1,24 +1,48 @@
-"""Layer stack, ssm family (counterpart of ``repro/models/stack.py``).
+"""Generic layer stack (counterpart of ``repro/models/stack.py``).
 
 A model is a list of stages; each stage repeats a unit of layer kinds
 ``reps`` times, its parameters stacked on a leading ``[reps, ...]`` axis
 exactly as the reference lays them out.  The reference's ``lax.scan`` over
 the stack is a Python loop over layers here.
+
+Layer kinds:
+    local  sliding-window GQA attention + FFN
+    attn   full-context GQA attention + FFN
+    rec    Griffin RG-LRU recurrent block + FFN
+    ssm    Mamba-2 SSD block (self-contained, no FFN; no decode cache yet)
+
+``stages_for`` keeps the reference's units, ``("rec", "rec", "attn")`` for
+the hybrid family among them, although ``ModelConfig.layer_kinds`` names the
+hybrid's attention layers ``"local"``: the unit never matches, so
+RecurrentGemma-9B's 38 layers fall into 25 stages of alternating runs
+(``rec`` ×2, ``local`` ×1, …, ``rec`` ×2), as in the reference; its params
+and caches follow that layout.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Any, Dict, List, Tuple
+
+import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.tree_util import tree_map, tree_stack
-from repro_torch.models import ssm
+from repro_torch.models import griffin, ssm
+from repro_torch.models.layers import (attention, attn_init, device_of, mlp,
+                                       mlp_init, rmsnorm, rmsnorm_init)
 
 Stage = Tuple[Tuple[str, ...], int]
+
+FAMILIES_ITEM = "ROADMAP queue 1, item 'Other model families and serving'"
 
 
 def stages_for(cfg: ModelConfig) -> List[Stage]:
     kinds = list(cfg.layer_kinds())
-    unit = (kinds[0],)
+    if cfg.family == "hybrid":
+        unit: Tuple[str, ...] = ("rec", "rec", "attn")
+    elif cfg.attention_pattern == "local_global":
+        unit = ("local", "attn")
+    else:
+        unit = (kinds[0],)
     stages: List[Stage] = []
     i, u = 0, len(unit)
     full = 0
@@ -27,6 +51,7 @@ def stages_for(cfg: ModelConfig) -> List[Stage]:
         i += u
     if full:
         stages.append((unit, full))
+    # remainder: consecutive same-kind runs
     while i < len(kinds):
         j = i
         while j < len(kinds) and kinds[j] == kinds[i]:
@@ -36,13 +61,31 @@ def stages_for(cfg: ModelConfig) -> List[Stage]:
     return stages
 
 
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen, kind: str, cfg: ModelConfig, dtype):
+    if kind == "ssm":
+        return {"ssm": ssm.init_ssm(gen, cfg, dtype)}
+    if cfg.num_experts:
+        raise NotImplementedError(f"MoE layers are not ported yet "
+                                  f"({FAMILIES_ITEM})")
+    dev = device_of(gen)
+    p: Dict[str, Any] = {}
+    if kind == "rec":
+        p["mix"] = griffin.init_rec(gen, cfg, dtype)
+    else:
+        p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
+        p["mix"] = attn_init(gen, cfg, dtype)
+    p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
+    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
 def _init_unit(gen, unit: Tuple[str, ...], cfg: ModelConfig, dtype):
-    out = {}
-    for i, kind in enumerate(unit):
-        if kind != "ssm":
-            raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-        out[f"{i}_{kind}"] = {"ssm": ssm.init_ssm(gen, cfg, dtype)}
-    return out
+    return {f"{i}_{kind}": _init_layer(gen, kind, cfg, dtype)
+            for i, kind in enumerate(unit)}
 
 
 def init_stack(gen, cfg: ModelConfig, dtype):
@@ -50,10 +93,89 @@ def init_stack(gen, cfg: ModelConfig, dtype):
             for unit, reps in stages_for(cfg)]
 
 
-def apply_stack(params, x, cfg: ModelConfig):
-    for (unit, reps), stage in zip(stages_for(cfg), params):
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _layer_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
+                 dtype, device):
+    if kind == "ssm":
+        raise NotImplementedError(f"the Mamba-2 decode cache is not ported "
+                                  f"yet ({FAMILIES_ITEM})")
+    if kind == "rec":
+        return griffin.init_rec_cache(cfg, batch, dtype, device)
+    length = cache_len
+    if kind == "local" and cfg.window_size:
+        length = min(cfg.window_size, cache_len)
+    shape = (batch, length, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+               device=None):
+    caches = []
+    for unit, reps in stages_for(cfg):
+        unit_cache = {f"{i}_{kind}": _layer_cache(kind, cfg, batch, cache_len,
+                                                  dtype, device)
+                      for i, kind in enumerate(unit)}
+        caches.append(tree_map(
+            lambda x: x[None].expand((reps,) + tuple(x.shape)).clone(),
+            unit_cache))
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def _apply_layer(kind, p, x, cfg, positions, cache, cache_index, use_flash,
+                 use_lru_kernel):
+    """Returns ``(x, new_cache)``."""
+    if kind == "ssm":
+        if cache is not None:
+            raise NotImplementedError(f"the Mamba-2 decode cache is not "
+                                      f"ported yet ({FAMILIES_ITEM})")
+        return x + ssm.apply_ssm(p["ssm"], x, cfg), None
+    if kind == "rec":
+        out, nc = griffin.apply_rec(p["mix"], x, cfg, cache,
+                                    use_kernel=use_lru_kernel)
+    else:
+        window = cfg.window_size if kind == "local" else 0
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        out, nc = attention(p["mix"], h, cfg, window=window,
+                            positions=positions, kv_cache=cache,
+                            cache_index=cache_index, use_flash=use_flash)
+    x = x + out
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    act = "gelu" if cfg.logit_softcap else "silu"
+    return x + mlp(p["ffn"], h, activation=act), nc
+
+
+def apply_stack(params, x, cfg: ModelConfig, *, positions=None, caches=None,
+                cache_index=None, use_flash: bool = False,
+                use_lru_kernel: bool = False):
+    """Run all stages.  Returns ``(x, new_caches, aux)``: per stage a dict of
+    each unit layer's new cache stacked over ``reps`` (``None`` for the
+    ``ssm`` kind, which keeps no state yet), and the auxiliary loss (0: no
+    MoE layer is ported)."""
+    new_caches = []
+    for si, ((unit, reps), stage) in enumerate(zip(stages_for(cfg), params)):
+        per_rep = []
         for r in range(reps):
             layer = tree_map(lambda v: v[r], stage)
+            ncs = {}
             for i, kind in enumerate(unit):
-                x = x + ssm.apply_ssm(layer[f"{i}_{kind}"]["ssm"], x, cfg)
-    return x
+                name = f"{i}_{kind}"
+                lcache = None if caches is None else \
+                    tree_map(lambda v: v[r], caches[si][name])
+                x, ncs[name] = _apply_layer(
+                    kind, layer[name], x, cfg, positions, lcache, cache_index,
+                    use_flash, use_lru_kernel)
+            per_rep.append(ncs)
+        new_caches.append(
+            {name: (None if per_rep[0][name] is None
+                    else tree_stack([c[name] for c in per_rep]))
+             for name in per_rep[0]})
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_caches, aux

@@ -3,8 +3,9 @@
 parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
 ``fedavg.json`` and ``fedbioacc_int8_topk.json`` build; every other
 committed spec is refused with
-``NotImplementedError`` naming the feature the port does not run yet; and the
-entry points want a card unless the CPU is asked for."""
+``NotImplementedError`` naming the feature the port does not run yet (so is
+training through the model kernels, or of the hybrid family); and the entry
+points want a card unless the CPU is asked for."""
 import ast
 from pathlib import Path
 
@@ -150,6 +151,24 @@ def test_single_feature_edits_are_refused(edit):
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc.json"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(exp.edit(**edit), device="cpu")
+
+
+@pytest.mark.parametrize("edit,why", [
+    ({"execution.use_flash": True}, "differentiate through its Pallas flash"),
+    ({"execution.use_lru_kernel": True},
+     "differentiate through its Pallas LRU-scan"),
+    ({"problem.arch": "recurrentgemma-9b"}, "family 'hybrid'"),
+])
+def test_training_through_model_kernels_is_refused_by_name(edit, why):
+    """The model kernels run forward only (serving): a training spec that
+    turns them on, or trains the hybrid family, is refused with its reason
+    and its ROADMAP item."""
+    exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc.json"))
+    with pytest.raises(NotImplementedError) as err:
+        build(exp.edit(**edit), device="cpu")
+    assert why in str(err.value)
+    assert "ROADMAP queue 1, 'Training through the model kernels'" in \
+        str(err.value)
 
 
 def test_entry_points_default_to_the_card():

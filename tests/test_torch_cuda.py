@@ -169,3 +169,57 @@ def test_cuda_quant_wrappers_raise_instead_of_falling_back(card):
         tqp.quantpack_flat(x[:-1], block=1024)
     with pytest.raises(ValueError, match="several devices"):
         tqp.quantunpack_flat(q, s.cpu(), block=1024)
+
+
+@pytest.mark.cuda
+def test_cuda_lru_scan_bitwise_vs_plain(card):
+    """The RG-LRU scan kernel equals its sequential plain version bit for
+    bit: S and C that are multiples of nothing, with and without h0, and a
+    length shorter than the kernel's unrolled chunk."""
+    from repro_torch.kernels.lru import ops as lru_ops
+    from repro_torch.kernels.lru.ref import lru_scan_ref
+    g = torch.Generator(device=card).manual_seed(10)
+    lru_ops.reset_counts()
+    for B, S, C in [(3, 1001, 77), (1, 5, 1)]:
+        a = 0.7 + 0.299 * torch.rand(B, S, C, generator=g, device=card)
+        b = 0.1 * torch.randn(B, S, C, generator=g, device=card)
+        h0 = torch.randn(B, C, generator=g, device=card)
+        for h in (h0, None):
+            _assert_bits((lru_ops.lru_scan(a, b, h),), (lru_scan_ref(a, b, h),))
+    torch.cuda.synchronize()
+    assert lru_ops.LAUNCHES["lru_scan"] == 4
+    wide = torch.zeros(2, 8, 6, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        lru_ops.lru_scan(wide[:, :, ::2], wide[:, :, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_cuda_flash_attention_vs_plain(dtype, tol, card):
+    """The flash-attention kernel against its dense plain version within the
+    reference's kernel-test tolerance: ragged lengths, GQA, windows, soft
+    caps, causal and not, each head dim the kernel is built for."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+    g = torch.Generator(device=card).manual_seed(11)
+    cases = [(2, 100, 4, 64, 1, True, 64, 0.0),
+             (1, 130, 2, 16, 1, True, 32, 0.0),
+             (1, 200, 4, 32, 2, False, 0, 30.0),
+             (2, 257, 8, 128, 2, True, 0, 50.0),
+             (1, 77, 2, 256, 2, False, 20, 0.0)]
+    flash_ops.reset_counts()
+    for B, S, H, D, hkv, causal, window, cap in cases:
+        q = torch.randn(B, S, H, D, generator=g, device=card).to(getattr(torch, dtype))
+        k, v = (torch.randn(B, S, hkv, D, generator=g, device=card)
+                .to(q.dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        assert got.dtype == q.dtype
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, ((B, S, H, D, hkv), err)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == len(cases)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(1, 8, 1, 48, device=card)
+        flash_ops.flash_attention(x, x, x)
