@@ -15,6 +15,14 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``quantunpack``), bit for bit, with median times over CUDA events; then
    the times of the compressed path's top-k and of its whole compressed
    reduction at the bf16 buffer's shape;
+3b. the pytree ``storm_update`` (``repro_torch.kernels.storm``) over the
+   full-width Mamba-2-130M parameter tree (seeded on the card, bf16 and f32
+   leaves) with f32 momentum and gradient trees, then with bf16 momentum,
+   then over an odd tree (a leaf of 70,001 elements, a bf16/bf16 group):
+   every leaf bit for bit against the plain version, the launches counted
+   over each run alone (one per dtype group, every other kernel never),
+   median CUDA-event times of the kernel over the tree's concatenated
+   groups and of the whole entry point (concatenation plus launches);
 4. a reduced-model cross-check of each path: two steps on the card against
    two on the CPU from the same initial state and batches (within 1e-4 of
    each buffer's norm: reduction orders differ between the two devices).
@@ -35,7 +43,8 @@ Phases, each of which stops the script with a non-zero exit on failure:
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit, plus an odd shape with h0;
    the flash attention at q [2, 4096, 16, 256], k/v [2, 4096, 1, 256],
-   causal, window 2048, in bf16 (2e-2) and f32 (2e-5), plus a window-0,
+   causal, window 2048, in bf16 (2e-2, the tensor-core kernel
+   ``flash_fwd_tc``) and f32 (2e-5, ``flash_fwd``), plus a window-0,
    soft-capped case in each dtype; median CUDA-event times, the bound, and
    for the attention ``scaled_dot_product_attention`` with the band as a
    boolean mask (``library_ms``, never on the path);
@@ -75,7 +84,7 @@ import torch  # noqa: E402
 
 from repro_torch.api import Experiment, build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.tree_util import tree_map  # noqa: E402
+from repro_torch.core.tree_util import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash.ref import (band_mask,  # noqa: E402
@@ -83,6 +92,7 @@ from repro_torch.kernels.flash.ref import (band_mask,  # noqa: E402
 from repro_torch.kernels.lru import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.lru.ref import lru_scan_ref  # noqa: E402
 from repro_torch.kernels.storm import kernel as storm  # noqa: E402
+from repro_torch.kernels.storm import storm_update  # noqa: E402
 from repro_torch.kernels.storm import quantpack as qp  # noqa: E402
 from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -98,10 +108,12 @@ BF16_TC_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 tensor cores
 # dtype buffers: the update kernel once per buffer per step; the compressed
 # path also packs and unpacks the variables and the momenta of each buffer
 # at both communication steps
-PATHS = {"fedbioacc": {"storm3_step": 8}, "fedbio": {"sgd3_step": 8},
-         "fedbio_local": {"sgd3_step": 8}, "fedavg": {"momsgd3_step": 8},
+PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
+         "fedbio": {"sgd3_step": 8, "storm_update": 0},
+         "fedbio_local": {"sgd3_step": 8, "storm_update": 0},
+         "fedavg": {"momsgd3_step": 8, "storm_update": 0},
          "fedbioacc_int8_topk": {"storm3_step": 8, "quantpack": 8,
-                                 "quantunpack": 8}}
+                                 "quantunpack": 8, "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
 CLIENTS = 2
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
@@ -110,7 +122,10 @@ SERVE_ARCH = "recurrentgemma-9b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 16
 # its 26 rec layers scan once each and its 12 local layers attend once
 # each, all in the prefill; decode runs neither kernel
-SERVE_LAUNCHES = {"lru_scan": 26, "flash_attention": 12}
+SERVE_LAUNCHES = {"lru_scan": 26, "flash_attention": 12, "storm_update": 0}
+# the pytree storm_update over the Mamba-2-130M tree: one launch per
+# (param dtype, momentum dtype) group, bf16 and f32 leaves
+TREE_ARCH, TREE_LR, TREE_DECAY = "mamba2-130m", 0.05, 0.9
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -322,6 +337,111 @@ def compression_phase(groups, dev) -> None:
         f"reduction {mean_ms:.4f} ms, its transient memory {extra} B")
     del seg, eseg
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the pytree storm_update over a whole model's parameter tree
+# ---------------------------------------------------------------------------
+
+def _update_tree(params, m_dtype, gen):
+    """Momentum (``m_dtype``) and two f32 gradient trees shaped as
+    ``params``."""
+    def draw(dtype):
+        return tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                              device=t.device).to(dtype),
+                        params)
+    return draw(m_dtype), draw(torch.float32), draw(torch.float32)
+
+
+def _tree_update_checked(what: str, params, mom, g_new, g_old,
+                         groups: int) -> dict:
+    """One ``storm_update`` over the tree with its launches counted alone,
+    every leaf held bit for bit to the plain version; returns the
+    launches."""
+    reset_counts()
+    p_new, m_new = storm_update(params, mom, g_new, g_old, TREE_LR,
+                                TREE_DECAY)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {**dict.fromkeys(launches, 0), "storm_update": groups}
+    if launches != want:
+        raise SystemExit(f"storm_update over {what} launched {launches}, "
+                         f"expected {want}")
+    for p, m, gn, go, pn, mn in zip(*(tree_leaves(t) for t in (
+            params, mom, g_new, g_old, p_new, m_new))):
+        want_p, want_m = storm_ref.storm_update_ref(
+            p, m, gn.to(m.dtype), go.to(m.dtype), TREE_LR, TREE_DECAY)
+        if not (same_bits(pn, want_p) and same_bits(mn, want_m)):
+            raise SystemExit(f"storm_update over {what}: a leaf of shape "
+                             f"{list(p.shape)} differs from the plain "
+                             f"version")
+    return launches
+
+
+def storm_update_phase(dev) -> dict:
+    """The library's pytree entry point over the full-width Mamba-2-130M
+    tree: f32 momentum (the path whose launches and times are reported),
+    bf16 momentum, and an odd tree; then the times of the kernel over the
+    f32-momentum run's concatenated groups, of its plain version, and of
+    the whole entry point."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = build_model(get_config(TREE_ARCH)).init(gen)
+    leaves = tree_leaves(params)
+    pairs = {t.dtype for t in leaves}
+    count = sum(t.numel() for t in leaves)
+    mom, g_new, g_old = _update_tree(params, torch.float32, gen)
+    launches = _tree_update_checked(f"{TREE_ARCH} (f32 momentum)", params,
+                                    mom, g_new, g_old, len(pairs))
+    _tree_update_checked(f"{TREE_ARCH} (bf16 momentum)", params,
+                         *_update_tree(params, torch.bfloat16, gen),
+                         len(pairs))
+    odd = {"w": torch.randn(70001, generator=gen, device=dev).bfloat16(),
+           "b": {"x": torch.randn(3, 5, generator=gen, device=dev),
+                 "y": torch.randn(1, generator=gen, device=dev).bfloat16()}}
+    odd_mom = {"w": torch.randn(70001, generator=gen, device=dev).bfloat16(),
+               "b": {"x": torch.randn(3, 5, generator=gen, device=dev),
+                     "y": torch.randn(1, generator=gen, device=dev)}}
+    _tree_update_checked("an odd tree", odd, odd_mom,
+                         *_update_tree(odd, torch.float32, gen)[1:], 3)
+
+    # the kernel's own inputs: the f32-momentum run's groups, concatenated
+    groups = {}
+    for p, m, gn, go in zip(*(tree_leaves(t) for t in (params, mom, g_new,
+                                                       g_old))):
+        groups.setdefault((p.dtype, m.dtype), []).append((p, m, gn, go))
+    bufs = [tuple(torch.cat([leaf[i].reshape(-1) for leaf in grp])
+                  for i in range(4)) for grp in groups.values()]
+    moved = sum(t.numel() * t.element_size() for b in bufs
+                for t in (*b, b[0], b[1]))
+    group_ms = [timed_ms(lambda b=b: storm.storm_update_flat(
+        *b, TREE_LR, TREE_DECAY), KERNEL_RUNS) for b in bufs]
+    k_ms = sum(group_ms)
+    p_ms = sum(timed_ms(lambda b=b: storm_ref.storm_update_ref(
+        *b, TREE_LR, TREE_DECAY), PLAIN_RUNS) for b in bufs)
+    w_ms = timed_ms(lambda: storm_update(params, mom, g_new, g_old, TREE_LR,
+                                         TREE_DECAY), KERNEL_RUNS)
+    n = sum(b[0].numel() for b in bufs)
+    sizes = [(str(p).replace("torch.", ""), str(m).replace("torch.", ""),
+              sum(leaf[0].numel() for leaf in grp))
+             for (p, m), grp in groups.items()]
+    entry = _entry("storm_update", "src/repro_torch/kernels/csrc/storm3.cu",
+                   "src/repro/kernels/storm/kernel.py:76", 0.0, k_ms, p_ms,
+                   moved, 5 * n / F32_FLOPS_PER_S * 1e3, None)
+    entry["launches"] = launches["storm_update"]
+    log(f"storm_update over {TREE_ARCH} ({count} parameters in "
+        f"{len(leaves)} leaves; groups (p, m, elements) {sizes}), f32 and "
+        f"bf16 momentum and an odd tree: bitwise equal, "
+        f"{launches['storm_update']} launches a call; kernel {k_ms:.4f} ms "
+        f"(by group {[round(t, 4) for t in group_ms]}), "
+        f"plain {p_ms:.4f} ms, whole entry point (concatenation and "
+        f"launches) {w_ms:.4f} ms, {moved} B, bound "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+        f"({moved / k_ms / 1e6:.1f} GB/s)")
+    log("storm_update: library none: no single PyTorch call computes this "
+        "pair of outputs")
+    del params, mom, g_new, g_old, bufs
+    torch.cuda.empty_cache()
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -552,12 +672,17 @@ def flash_phase(dev) -> dict:
                          f"({lib_err})")
     moved = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     # each (query, key) pair in the band costs D multiply-adds for q.k and D
-    # for p.v; q.k multiplies bf16 inputs, whose products f32 holds exactly,
-    # so its least time is at the bf16 tensor-core rate; p.v multiplies f32
-    # probabilities and is held to the f32 rate
+    # for p.v.  q.k multiplies bf16 inputs, whose products f32 holds
+    # exactly, so bf16 tensor cores compute the reference's products; p.v
+    # multiplies the f32 p by bf16 v, and p splits exactly into three bf16
+    # terms (p0 = bf16(p), p1 = bf16(p - p0), p2 = bf16(p - p0 - p1)), each
+    # of whose products with v f32 holds exactly: one q.k and three p.v
+    # products at the bf16 tensor-core rate.  (Pricing p.v at the f32 rate,
+    # as before the tensor-core kernel, is logged for comparison.)
     pairs = int(mask.sum())
     half = 2 * D * pairs * B * H
-    ops_ms = (half / BF16_TC_FLOPS_PER_S + half / F32_FLOPS_PER_S) * 1e3
+    ops_ms = 4 * half / BF16_TC_FLOPS_PER_S * 1e3
+    old_ms = (half / BF16_TC_FLOPS_PER_S + half / F32_FLOPS_PER_S) * 1e3
     del want, out
     torch.cuda.empty_cache()
     k_ms = timed_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
@@ -570,15 +695,16 @@ def flash_phase(dev) -> dict:
                    errs[torch.bfloat16, "path"], k_ms, p_ms, moved, ops_ms,
                    l_ms)
     log(f"flash_attention bf16 q {list(q.shape)} kv {list(k.shape)} causal "
-        f"window {kw['window']} (serving path, per local layer): kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (SDPA, boolean band "
-        f"mask, enable_gqa; max abs err {lib_err:.3e}) {l_ms:.4f} ms; "
-        f"{pairs} (query, key) pairs per head, {half} operations each for "
-        f"q.k (bf16 rate) and p.v (f32 rate), {moved} B: bound "
+        f"window {kw['window']} (serving path, per local layer; "
+        f"flash_fwd_tc): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+        f"(SDPA, boolean band mask, enable_gqa; max abs err {lib_err:.3e}) "
+        f"{l_ms:.4f} ms; {pairs} (query, key) pairs per head, {half} "
+        f"operations a product, one q.k and three p.v (the exact bf16 split "
+        f"of p) at the bf16 tensor-core rate, {moved} B: bound "
         f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
-        f"({2 * half / k_ms / 1e9:.2f} TFLOP/s); all at the f32 rate "
-        f"{2 * half / F32_FLOPS_PER_S * 1e3:.4f} ms, all at the bf16 "
-        f"tensor-core rate {2 * half / BF16_TC_FLOPS_PER_S * 1e3:.4f} ms")
+        f"({entry['bound_ms'] / k_ms:.1%} of it; {4 * half / k_ms / 1e9:.2f} "
+        f"TFLOP/s of tensor-core work); the earlier pricing (q.k at the "
+        f"bf16 rate, p.v at the f32 rate) {old_ms:.4f} ms")
     return entry
 
 
@@ -671,6 +797,7 @@ def main() -> None:
     kernels = kernel_phase(groups_of, dev)
     compression_phase(groups_of[COMPRESSED], dev)
     torch.cuda.empty_cache()
+    kernels["storm_update"] = storm_update_phase(dev)
 
     for name, base in bases.items():
         cross_check(name, base, dev)

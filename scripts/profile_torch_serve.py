@@ -14,7 +14,7 @@ generated tokens, ``use_flash`` and ``use_lru_kernel`` on), then:
    ``torch.profiler`` (CPU + CUDA): the summed device time of all kernels
    against the wall time (the device's busy share), the number of kernel
    launches, the two hand-written kernels' share of the prefill's device
-   time, and the top operators by device time.
+   time, and the top operators by their own device time.
 
 Prints the profiler tables and a summary line per phase.
 """
@@ -52,7 +52,10 @@ def _summary(prof, wall_ms: float, what: str) -> None:
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     mine = sum(e.device_time_total for e in events
                if any(k in e.name for k in KERNELS)) / 1e3
-    print(prof.key_averages().table(sort_by="device_time_total",
+    # by each operator's own device time: an aten operator's total also
+    # holds CUPTI's "Command Buffer Full" records (the host blocked on a
+    # full launch queue), which are no device work and are not in busy_ms
+    print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=20), flush=True)
     print(f"{what}: wall {wall_ms:.3f} ms, {len(events)} device activities "
           f"summing to {busy_ms:.3f} ms (busy {100 * busy_ms / wall_ms:.1f} "

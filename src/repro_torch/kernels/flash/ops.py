@@ -10,8 +10,9 @@ reference's padded path masks with the padded length instead: see ROADMAP
 queue 3.)
 
 Dispatch is by device and nothing else: tensors on the CPU go to the plain
-PyTorch version in ``ref.py``; tensors on a CUDA device launch the kernel on
-the current stream, or raise if the kernel cannot take them.
+PyTorch version in ``ref.py``; tensors on a CUDA device launch a kernel on
+the current stream (bf16: ``flash_fwd_tc``, on the tensor cores; f32:
+``flash_fwd``), or raise if the kernels cannot take them.
 
 ``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls on
 any device; :func:`reset_counts` zeroes both.
@@ -25,9 +26,9 @@ import torch
 
 from repro_torch.kernels.flash.ref import flash_attention_ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0}      # both kernels count here
 CALLS = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernels' instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,

@@ -1,0 +1,1 @@
+from repro_torch.kernels.storm.ops import storm_update  # noqa: F401

@@ -8,6 +8,9 @@
 * :func:`sgd3_step`     replaces ``sgd3_step_flat``: ``p' = p − lr[t]·g``.
 * :func:`momsgd3_step`  replaces ``momsgd3_step_flat``:
   ``m' = β[t]·m + g``, ``p' = p − lr[t]·m'``.
+* :func:`storm_update_flat` replaces ``storm_update_flat``: ``p' = p − lr·m``,
+  ``m' = g_new + decay·(m − g_old)`` with one scalar ``(lr, decay)``, over
+  buffers of any length (the pytree entry point is ``ops.storm_update``).
 
 ``t = i // block`` indexes the per-tile (lr, decay|β) tables of the flat
 layout (``block`` = :data:`BLOCK` unless the spec says otherwise).
@@ -30,11 +33,14 @@ from repro_torch.kernels.storm import ref
 
 BLOCK = 64 * 1024      # the flat layout's tile; the JAX package's default
 
-_NAMES = ("storm3_step", "storm3_update", "sgd3_step", "momsgd3_step")
+_NAMES = ("storm3_step", "storm3_update", "sgd3_step", "momsgd3_step",
+          "storm_update")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
 CALLS = dict.fromkeys(_NAMES, 0)
 
-_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+_VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_counts() -> None:
@@ -50,8 +56,11 @@ def _lib():
     for name, n_ptrs in (("storm3_step", 7), ("storm3_update", 8),
                          ("sgd3_step", 4), ("momsgd3_step", 7)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int] + [_VP] * n_ptrs + [_I64, _I64, _VP]
+        fn.argtypes = [_INT] + [_VP] * n_ptrs + [_I64, _I64, _VP]
         fn.restype = ctypes.c_int
+    lib.storm_update.argtypes = [_INT, _INT] + [_VP] * 4 + [_F32, _F32, _VP,
+                                                            _VP, _I64, _VP]
+    lib.storm_update.restype = ctypes.c_int
     return lib
 
 
@@ -137,3 +146,50 @@ def momsgd3_step(p, m, g, lrs, betas, *, block: int = BLOCK):
     if not _check("momsgd3_step", p, (m, g), (lrs, betas), block):
         return ref.momsgd3_step_ref(p, m, g, lrs, betas, block)
     return _launch("momsgd3_step", p, (m, g), (lrs, betas), block, 2)
+
+
+def storm_update_flat(p, m, g_new, g_old, lr, decay):
+    """Single-sequence update over flat ``[N]`` buffers of any length:
+    ``(p − lr·m, g_new + decay·(m − g_old))``.  ``p`` is float32 or bfloat16;
+    ``m``, ``g_new`` and ``g_old`` share one dtype (float32 or bfloat16),
+    which ``m'`` takes.  Python floats ``lr`` and ``decay`` are rounded to
+    f32 once, as the reference's ``jnp.asarray(lr, float32)``."""
+    name = "storm_update"
+    CALLS[name] += 1
+    tensors = (p, m, g_new, g_old)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    if any(t.dim() != 1 for t in tensors) or \
+            any(t.numel() != p.numel() for t in tensors):
+        raise ValueError(f"{name}: needs flat [N] buffers of one length, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if p.dtype not in _DTYPES or m.dtype not in _DTYPES:
+        raise TypeError(f"{name}: p and m must be float32 or bfloat16, got "
+                        f"{p.dtype}, {m.dtype}")
+    if g_new.dtype != m.dtype or g_old.dtype != m.dtype:
+        raise TypeError(f"{name}: g_new and g_old must have m's dtype "
+                        f"{m.dtype}, got {g_new.dtype}, {g_old.dtype}")
+    dev = p.device
+    if dev.type == "cpu":
+        return ref.storm_update_ref(p, m, g_new, g_old, lr, decay)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    p_out, m_out = torch.empty_like(p), torch.empty_like(m)
+    if p.numel() == 0:
+        return p_out, m_out
+    lr32, decay32 = (float(torch.tensor(float(x), dtype=torch.float32))
+                     for x in (lr, decay))
+    with torch.cuda.device(dev):
+        err = _lib().storm_update(
+            int(p.dtype == torch.bfloat16), int(m.dtype == torch.bfloat16),
+            *(t.data_ptr() for t in tensors), lr32, decay32,
+            p_out.data_ptr(), m_out.data_ptr(), p.numel(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return p_out, m_out

@@ -17,6 +17,20 @@ def _expand(table: torch.Tensor, block: int) -> torch.Tensor:
     return torch.repeat_interleave(table.to(torch.float32), block)
 
 
+def storm_update_ref(p, m, g_new, g_old, lr, decay):
+    """Single-sequence update with one ``(lr, decay)`` pair, op by op as
+    ``repro/kernels/storm/ref.py:storm_update_ref``: ``p' = p − lr·m`` in
+    ``p``'s dtype and ``m' = g_new + decay·(m − g_old)`` in ``m``'s, in f32.
+    Python floats ``lr`` and ``decay`` are rounded to f32 once."""
+    lr, decay = (torch.as_tensor(x, dtype=torch.float32, device=p.device)
+                 for x in (lr, decay))
+    m32 = m.to(torch.float32)
+    p_new = (p.to(torch.float32) - lr * m32).to(p.dtype)
+    m_new = (g_new.to(torch.float32)
+             + decay * (m32 - g_old.to(torch.float32))).to(m.dtype)
+    return p_new, m_new
+
+
 def storm3_step_ref(p, m, g_old, lrs, decays, block: int):
     """Half step: ``p − lr·m`` and the partial momentum ``decay·(m − g_old)``
     (the correction add happens after communication)."""

@@ -59,6 +59,39 @@ def test_cuda_kernels_bitwise_vs_plain(p_dtype, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,m_dtype", [("float32", "float32"),
+                                             ("bfloat16", "float32"),
+                                             ("float32", "bfloat16"),
+                                             ("bfloat16", "bfloat16")])
+def test_cuda_storm_update_bitwise_vs_plain(p_dtype, m_dtype, card):
+    """``storm_update`` equals its plain version bit for bit for the four
+    dtype pairs at a ragged length, also from a start that breaks 16-byte
+    alignment (the scalar path); the pytree entry point launches once per
+    dtype group."""
+    from repro_torch.kernels.storm import storm_update
+    g = torch.Generator(device=card).manual_seed(12)
+    n = 70001
+    p = torch.randn(n, generator=g, device=card).to(getattr(torch, p_dtype))
+    m, gn, go = (torch.randn(n, generator=g, device=card)
+                 .to(getattr(torch, m_dtype)) for _ in range(3))
+    tk.reset_counts()
+    for sl in (slice(None), slice(1, None)):
+        args = (p[sl], m[sl], gn[sl], go[sl])
+        _assert_bits(tk.storm_update_flat(*args, 0.05, 0.9),
+                     tref.storm_update_ref(*args, 0.05, 0.9))
+    tree = {"a": p[:1000].view(10, 100), "b": p[1000:1007]}
+    mom = {"a": m[:1000].view(10, 100), "b": m[1000:1007]}
+    grads = {"a": gn[:1000].float().view(10, 100), "b": gn[1000:1007].float()}
+    pn, mn = storm_update(tree, mom, grads, grads, 0.05, 0.9)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["storm_update"] == 3
+    for k in tree:
+        _assert_bits((pn[k], mn[k]), tref.storm_update_ref(
+            tree[k], mom[k], grads[k].to(m.dtype), grads[k].to(m.dtype),
+            0.05, 0.9))
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_raises_instead_of_falling_back(card):
     tp, tm, _, tgo, tl, td = _inputs(4, torch.float32, card)
     with pytest.raises(TypeError, match="float32"):
@@ -223,3 +256,46 @@ def test_cuda_flash_attention_vs_plain(dtype, tol, card):
     with pytest.raises(ValueError, match="head dim"):
         x = torch.zeros(1, 8, 1, 48, device=card)
         flash_ops.flash_attention(x, x, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S", [100, 1000])
+def test_cuda_flash_attention_bf16_tensor_cores_vs_plain(D, S, card):
+    """The bf16 tensor-core kernel against the dense plain version within
+    the reference's bf16 kernel-test tolerance (2e-2): GQA 8:2 and MQA
+    16:1, window 0 and 64, soft cap 0 and 50, causal and not, at a ragged
+    S (TMA's zero fill past S and the kernel's k < S mask)."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+    g = torch.Generator(device=card).manual_seed(13)
+    flash_ops.reset_counts()
+    calls = 0
+    for H, hkv in ((8, 2), (16, 1)):
+        q = torch.randn(1, S, H, D, generator=g, device=card).bfloat16()
+        k, v = (torch.randn(1, S, hkv, D, generator=g, device=card)
+                .bfloat16() for _ in range(2))
+        for causal in (True, False):
+            for window in (0, 64):
+                for cap in (0.0, 50.0):
+                    kw = dict(causal=causal, window=window, softcap=cap)
+                    got = flash_ops.flash_attention(q, k, v, **kw)
+                    want = flash_attention_ref(q, k, v, **kw)
+                    calls += 1
+                    assert got.dtype == torch.bfloat16
+                    err = float((got.float() - want.float()).abs().max())
+                    assert err <= 2e-2, ((H, hkv), kw, err)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == calls
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_raises_for_unbuilt_head_dim(card):
+    """A bf16 call whose head dim the kernels are not built for raises; it
+    does not fall back to the plain version."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    flash_ops.reset_counts()
+    x = torch.zeros(1, 8, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(x, x, x)
+    assert flash_ops.LAUNCHES["flash_attention"] == 0
