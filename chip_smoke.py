@@ -43,9 +43,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit, plus an odd shape with h0;
    the flash attention at q [2, 4096, 16, 256], k/v [2, 4096, 1, 256],
-   causal, window 2048, in bf16 (2e-2, the tensor-core kernel
-   ``flash_fwd_tc``) and f32 (2e-5, ``flash_fwd``), plus a window-0,
-   soft-capped case in each dtype; median CUDA-event times, the bound, and
+   causal, window 2048, in bf16 (2e-2 and 2 bf16 ulps, the tensor-core
+   kernel ``flash_fwd_tc``; two plain versions with a kernel's fault, p
+   rounded to bf16 before p.v and a key tile skipped, must break the ulp
+   limit) and f32 (2e-5, ``flash_fwd``), plus a window-0, soft-capped case
+   in each dtype; median CUDA-event times, the bound, and
    for the attention ``scaled_dot_product_attention`` with the band as a
    boolean mask (``library_ms``, never on the path);
 7. a reduced serving cross-check: the reduced RecurrentGemma (f32, 3
@@ -99,7 +101,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import flat  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
-from repro_torch.testing import int8_flips, topk_flips  # noqa: E402
+from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
+                                 bf16_ulps, flash_attention_fault,
+                                 int8_flips, topk_flips)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -354,10 +358,11 @@ def _update_tree(params, m_dtype, gen):
 
 
 def _tree_update_checked(what: str, params, mom, g_new, g_old,
-                         groups: int) -> dict:
+                         groups: int) -> tuple:
     """One ``storm_update`` over the tree with its launches counted alone,
     every leaf held bit for bit to the plain version; returns the
-    launches."""
+    launches and the largest |p' - p_ref| and |m' - m_ref| over the
+    leaves."""
     reset_counts()
     p_new, m_new = storm_update(params, mom, g_new, g_old, TREE_LR,
                                 TREE_DECAY)
@@ -367,6 +372,7 @@ def _tree_update_checked(what: str, params, mom, g_new, g_old,
     if launches != want:
         raise SystemExit(f"storm_update over {what} launched {launches}, "
                          f"expected {want}")
+    err = 0.0
     for p, m, gn, go, pn, mn in zip(*(tree_leaves(t) for t in (
             params, mom, g_new, g_old, p_new, m_new))):
         want_p, want_m = storm_ref.storm_update_ref(
@@ -375,7 +381,9 @@ def _tree_update_checked(what: str, params, mom, g_new, g_old,
             raise SystemExit(f"storm_update over {what}: a leaf of shape "
                              f"{list(p.shape)} differs from the plain "
                              f"version")
-    return launches
+        err = max(err, *(float((a.float() - b.float()).abs().max())
+                         for a, b in ((pn, want_p), (mn, want_m))))
+    return launches, err
 
 
 def storm_update_phase(dev) -> dict:
@@ -390,19 +398,21 @@ def storm_update_phase(dev) -> dict:
     pairs = {t.dtype for t in leaves}
     count = sum(t.numel() for t in leaves)
     mom, g_new, g_old = _update_tree(params, torch.float32, gen)
-    launches = _tree_update_checked(f"{TREE_ARCH} (f32 momentum)", params,
-                                    mom, g_new, g_old, len(pairs))
-    _tree_update_checked(f"{TREE_ARCH} (bf16 momentum)", params,
-                         *_update_tree(params, torch.bfloat16, gen),
-                         len(pairs))
+    launches, err = _tree_update_checked(f"{TREE_ARCH} (f32 momentum)",
+                                         params, mom, g_new, g_old,
+                                         len(pairs))
+    errs = [err, _tree_update_checked(
+        f"{TREE_ARCH} (bf16 momentum)", params,
+        *_update_tree(params, torch.bfloat16, gen), len(pairs))[1]]
     odd = {"w": torch.randn(70001, generator=gen, device=dev).bfloat16(),
            "b": {"x": torch.randn(3, 5, generator=gen, device=dev),
                  "y": torch.randn(1, generator=gen, device=dev).bfloat16()}}
     odd_mom = {"w": torch.randn(70001, generator=gen, device=dev).bfloat16(),
                "b": {"x": torch.randn(3, 5, generator=gen, device=dev),
                      "y": torch.randn(1, generator=gen, device=dev)}}
-    _tree_update_checked("an odd tree", odd, odd_mom,
-                         *_update_tree(odd, torch.float32, gen)[1:], 3)
+    errs.append(_tree_update_checked(
+        "an odd tree", odd, odd_mom,
+        *_update_tree(odd, torch.float32, gen)[1:], 3)[1])
 
     # the kernel's own inputs: the f32-momentum run's groups, concatenated
     groups = {}
@@ -425,12 +435,13 @@ def storm_update_phase(dev) -> dict:
               sum(leaf[0].numel() for leaf in grp))
              for (p, m), grp in groups.items()]
     entry = _entry("storm_update", "src/repro_torch/kernels/csrc/storm3.cu",
-                   "src/repro/kernels/storm/kernel.py:76", 0.0, k_ms, p_ms,
-                   moved, 5 * n / F32_FLOPS_PER_S * 1e3, None)
+                   "src/repro/kernels/storm/kernel.py:76", max(errs), k_ms,
+                   p_ms, moved, 5 * n / F32_FLOPS_PER_S * 1e3, None)
     entry["launches"] = launches["storm_update"]
     log(f"storm_update over {TREE_ARCH} ({count} parameters in "
         f"{len(leaves)} leaves; groups (p, m, elements) {sizes}), f32 and "
-        f"bf16 momentum and an odd tree: bitwise equal, "
+        f"bf16 momentum and an odd tree: bitwise equal (max abs err "
+        f"{max(errs):.3e}), "
         f"{launches['storm_update']} launches a call; kernel {k_ms:.4f} ms "
         f"(by group {[round(t, 4) for t in group_ms]}), "
         f"plain {p_ms:.4f} ms, whole entry point (concatenation and "
@@ -622,8 +633,11 @@ def lru_phase(dev) -> dict:
 def flash_phase(dev) -> dict:
     """The attention at the serving path's shapes (one local layer's
     prefill) in bf16 and f32, and a window-0, soft-capped GQA case in each,
-    within the reference's kernel-test tolerances; times at the path's
-    bf16, beside SDPA with the band as a boolean mask."""
+    within the reference's kernel-test tolerances; in bf16 also within
+    ``BF16_ULPS`` bf16 ulps of the plain version, a limit that two plain
+    versions with a kernel's fault (p rounded to bf16 before p.v, a key
+    tile skipped) must break in the same cases; times at the path's bf16,
+    beside SDPA with the band as a boolean mask."""
     cfg = get_config(SERVE_ARCH)
     B, S, H, hkv, D = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads,
                        cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -646,14 +660,33 @@ def flash_phase(dev) -> dict:
             want = flash_attention_ref(*args, **kwargs)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
+            note = ""
+            if dtype == torch.bfloat16:
+                # the exact split's claim: the kernel's f32 output is the
+                # reference's to f32 rounding, so the two bf16 roundings
+                # differ by at most an ulp; each fault breaks that
+                ulps = bf16_ulps(got, want)
+                faults = {f: bf16_ulps(flash_attention_fault(
+                    *args, f, **kwargs), want) for f in ("p0", "tile")}
+                note = (f", {ulps:.4g} bf16 ulps (limit {BF16_ULPS}, floor "
+                        f"{BF16_FLOOR}; faults: p0 only {faults['p0']:.4g}, "
+                        f"a key tile skipped {faults['tile']:.4g})")
+                if not ulps <= BF16_ULPS:
+                    raise SystemExit(f"flash_attention is more than "
+                                     f"{BF16_ULPS} bf16 ulps from the plain "
+                                     f"version ({what})")
+                if not min(faults.values()) > BF16_ULPS:
+                    raise SystemExit(f"the bf16 ulp check passes a faulty "
+                                     f"plain version ({what}: {faults})")
             log(f"flash_attention {str(dtype).replace('torch.', '')} {what} "
                 f"{[list(t.shape) for t in args]} {kwargs}: max abs err "
-                f"{err:.3e} (limit {FLASH_TOL[dtype]})")
+                f"{err:.3e} (limit {FLASH_TOL[dtype]}){note}")
             if not err <= FLASH_TOL[dtype]:
                 raise SystemExit(f"flash_attention differs from the plain "
                                  f"version ({dtype}, {what})")
             errs[dtype, what] = err
             del got, want, args
+            torch.cuda.empty_cache()
     q, k, v = (t.to(torch.bfloat16) for t in path)
     del path, capped
     want = flash_attention_ref(q, k, v, **kw)
@@ -665,8 +698,10 @@ def flash_phase(dev) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True)
 
-    lib_err = float((library().transpose(1, 2).float() - want.float())
-                    .abs().max())
+    lib_out = library().transpose(1, 2)
+    lib_err = float((lib_out.float() - want.float()).abs().max())
+    lib_ulps = bf16_ulps(lib_out, want)
+    del lib_out
     if not lib_err <= FLASH_TOL[torch.bfloat16]:
         raise SystemExit(f"the library call differs from the plain version "
                          f"({lib_err})")
@@ -697,7 +732,8 @@ def flash_phase(dev) -> dict:
     log(f"flash_attention bf16 q {list(q.shape)} kv {list(k.shape)} causal "
         f"window {kw['window']} (serving path, per local layer; "
         f"flash_fwd_tc): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-        f"(SDPA, boolean band mask, enable_gqa; max abs err {lib_err:.3e}) "
+        f"(SDPA, boolean band mask, enable_gqa; max abs err {lib_err:.3e}, "
+        f"{lib_ulps:.4g} bf16 ulps) "
         f"{l_ms:.4f} ms; {pairs} (query, key) pairs per head, {half} "
         f"operations a product, one q.k and three p.v (the exact bf16 split "
         f"of p) at the bf16 tensor-core rate, {moved} B: bound "

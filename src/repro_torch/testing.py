@@ -2,14 +2,64 @@
 runs of the compressed reduction cannot be fed bit-identical inputs (the
 port against the JAX package, or the card against the CPU), per-tile top-k
 and int8 rounding are discontinuous, and these helpers find and bound the
-entries that the two runs decided differently.  Imports neither JAX nor the
-JAX package, so the card's machine can run it."""
+entries that the two runs decided differently.  For the bf16 attention,
+a limit in bf16 ulps that the exact kernel meets and a kernel that rounds
+p to bf16 or skips a key tile does not, and plain versions of those two
+faults to show it.  Imports neither JAX nor the JAX package, so the card's
+machine can run it."""
+import math
+
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash.ref import NEG_INF, band_mask
 from repro_torch.kernels.storm.ref import quantpack_ref
 
 INV127 = np.float32(1.0) / np.float32(127.0)
+# two bf16 outputs rounded from f32 values that agree to f32 rounding differ
+# by at most one ulp of the larger binade, two of the smaller; the floor
+# stands for f32 rounding where cancellation leaves an output near zero
+BF16_ULPS, BF16_FLOOR = 2.0, 1e-6
+
+
+def bf16_ulps(got, want, floor: float = BF16_FLOOR) -> float:
+    """The largest ``|got - want| / (ulp(want) + floor)``, ulp being the
+    spacing of bf16 values in the binade of ``want`` (0 at zero)."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    return float(((got.float() - w).abs() / (ulp + floor)).max())
+
+
+def flash_attention_fault(q, k, v, fault: str, *, causal: bool = True,
+                          window: int = 0, softcap: float = 0.0,
+                          scale: float = None):
+    """The plain attention (``kernels/flash/ref.py``) with one fault of a
+    flash kernel: ``"p0"`` multiplies v by bf16(p) alone, the unnormalised
+    p without its split's p1 and p2 (the sum l stays the f32 one);
+    ``"tile"`` leaves out the 64 keys from S // 2, one key tile in the
+    middle of the band."""
+    B, S, H, D = q.shape
+    hkv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.to(torch.float32).reshape(B, S, hkv, H // hkv, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32)) * scale
+    if softcap and softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    ok = band_mask(S, causal=causal, window=window, device=q.device)
+    if fault == "tile":
+        ok[:, S // 2:S // 2 + 64] = False
+    elif fault != "p0":
+        raise ValueError(f"unknown fault {fault!r}")
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if fault == "p0":
+        p = p.to(torch.bfloat16).to(torch.float32)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p / l, v.to(torch.float32))
+    return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def topk_flips(acc_a, sent_a, acc_b, sent_b, block: int, frac: float):

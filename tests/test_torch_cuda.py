@@ -10,7 +10,8 @@ import torch
 from repro_torch.kernels.storm import kernel as tk
 from repro_torch.kernels.storm import quantpack as tqp
 from repro_torch.kernels.storm import ref as tref
-from repro_torch.testing import halfway_tiles
+from repro_torch.testing import (BF16_ULPS, bf16_ulps, flash_attention_fault,
+                                 halfway_tiles)
 from torch_parity import bits
 
 torch.set_num_threads(1)
@@ -230,8 +231,9 @@ def test_cuda_lru_scan_bitwise_vs_plain(card):
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
 def test_cuda_flash_attention_vs_plain(dtype, tol, card):
     """The flash-attention kernel against its dense plain version within the
-    reference's kernel-test tolerance: ragged lengths, GQA, windows, soft
-    caps, causal and not, each head dim the kernel is built for."""
+    reference's kernel-test tolerance (in bf16 also within ``BF16_ULPS``
+    bf16 ulps, see ``repro_torch.testing``): ragged lengths, GQA, windows,
+    soft caps, causal and not, each head dim the kernel is built for."""
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash.ref import flash_attention_ref
     g = torch.Generator(device=card).manual_seed(11)
@@ -251,6 +253,8 @@ def test_cuda_flash_attention_vs_plain(dtype, tol, card):
         assert got.dtype == q.dtype
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol, ((B, S, H, D, hkv), err)
+        if q.dtype == torch.bfloat16:
+            assert bf16_ulps(got, want) <= BF16_ULPS, (B, S, H, D, hkv)
     torch.cuda.synchronize()
     assert flash_ops.LAUNCHES["flash_attention"] == len(cases)
     with pytest.raises(ValueError, match="head dim"):
@@ -263,9 +267,11 @@ def test_cuda_flash_attention_vs_plain(dtype, tol, card):
 @pytest.mark.parametrize("S", [100, 1000])
 def test_cuda_flash_attention_bf16_tensor_cores_vs_plain(D, S, card):
     """The bf16 tensor-core kernel against the dense plain version within
-    the reference's bf16 kernel-test tolerance (2e-2): GQA 8:2 and MQA
-    16:1, window 0 and 64, soft cap 0 and 50, causal and not, at a ragged
-    S (TMA's zero fill past S and the kernel's k < S mask)."""
+    the reference's bf16 kernel-test tolerance (2e-2) and within
+    ``BF16_ULPS`` bf16 ulps, which the plain version with p rounded to bf16
+    before p.v (the kernel without p1 and p2) breaks in every case: GQA 8:2
+    and MQA 16:1, window 0 and 64, soft cap 0 and 50, causal and not, at a
+    ragged S (TMA's zero fill past S and the kernel's k < S mask)."""
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash.ref import flash_attention_ref
     g = torch.Generator(device=card).manual_seed(13)
@@ -285,6 +291,9 @@ def test_cuda_flash_attention_bf16_tensor_cores_vs_plain(D, S, card):
                     assert got.dtype == torch.bfloat16
                     err = float((got.float() - want.float()).abs().max())
                     assert err <= 2e-2, ((H, hkv), kw, err)
+                    assert bf16_ulps(got, want) <= BF16_ULPS, ((H, hkv), kw)
+                    p0 = flash_attention_fault(q, k, v, "p0", **kw)
+                    assert bf16_ulps(p0, want) > BF16_ULPS, ((H, hkv), kw)
     torch.cuda.synchronize()
     assert flash_ops.LAUNCHES["flash_attention"] == calls
 
