@@ -12,9 +12,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    buffer; the FedBiOAcc buffers for the STORM pair, FedBiO's for
    ``sgd3_step``, FedAvg's for ``momsgd3_step``, the f32 inputs of the
    compressed reductions of ``fedbioacc_int8_topk`` for ``quantpack`` and
-   ``quantunpack``), bit for bit, with median times over CUDA events; then
-   the times of the compressed path's top-k and of its whole compressed
-   reduction at the bf16 buffer's shape;
+   ``quantunpack``), bit for bit, with median times over CUDA events (for
+   ``quantpack`` also the two-pass kernel's time on the same inputs,
+   called past the wrapper); then tiles holding NaN, +Inf and -Inf through
+   each pack kernel, bit for bit, unpacking to all NaN as the reference's
+   do; then the times of the compressed path's top-k and of its whole
+   compressed reduction at the bf16 buffer's shape;
 3b. the pytree ``storm_update`` (``repro_torch.kernels.storm``) over the
    full-width Mamba-2-130M parameter tree (seeded on the card, bf16 and f32
    leaves) with f32 momentum and gradient trees, then with bf16 momentum,
@@ -37,11 +40,14 @@ Phases, each of which stops the script with a non-zero exit on failure:
    each at full Mamba-2-130M width (bf16, 2 clients, 1 sequence of 512
    tokens each — two SSD chunks), four steps (two communication rounds),
    with the kernels' launch counts taken over that path's run alone (as
-   ``PATHS`` lists them, every other kernel never) and a finite validation
-   loss;
+   ``PATHS`` lists them, every other kernel never; the compressed path's
+   packs all on the cluster kernel, counted per step) and a finite
+   validation loss;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
-   scan at [2, 4096, 4096] f32 bit for bit, plus an odd shape with h0;
+   scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
+   the lanes kernel on the same inputs, called past the wrapper), plus a
+   ragged shape with h0 on each kernel;
    the flash attention at q [2, 4096, 16, 256], k/v [2, 4096, 1, 256],
    causal, window 2048, in bf16 (2e-2 and 2 bf16 ulps, the tensor-core
    kernel ``flash_fwd_tc``; two plain versions with a kernel's fault, p
@@ -58,8 +64,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    RecurrentGemma-9B (10.44 B parameters, bf16, seeded init on the card),
    batch 2, prompt 4096, 16 generated tokens, with the launch counts over
    that run alone
-   (``SERVE_LAUNCHES``: the scan once per ``rec`` layer, the attention once
-   per ``local`` layer, every other kernel never), finite logits, and its
+   (``SERVE_LAUNCHES``: the scan once per ``rec`` layer, all on the TMA
+   kernel, the attention once per ``local`` layer, every other kernel
+   never), finite logits, and its
    prefill time, decode time per step and peak memory.
 
 The line before the last is one JSON object describing each kernel, its
@@ -178,6 +185,21 @@ def launch_counts() -> dict:
             **flash_ops.LAUNCHES}
 
 
+def variant_counts() -> dict:
+    """Launches per kernel of the wrappers that choose between two."""
+    return {**qp.VARIANTS, **lru_ops.VARIANTS}
+
+
+def raw_ms(fn_name: str, lib, *args) -> float:
+    """Median time of one kernel of ``lib`` called past its wrapper (no
+    launch counted), on the current stream; raises if it fails."""
+    def call():
+        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise SystemExit(f"{fn_name} failed with CUDA error {err}")
+    return timed_ms(call, KERNEL_RUNS)
+
+
 def full_width_experiment(exp: Experiment) -> Experiment:
     return exp.edit(**{"problem.reduced": False,
                        "problem.num_clients": CLIENTS,
@@ -282,6 +304,16 @@ def kernel_phase(groups_of: dict, dev) -> dict:
                 max_err = max(max_err, float((o.double() - w.double())
                                              .abs().max()))
             moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+            probe = ""
+            if name == "quantpack":
+                x, (q, s) = args[0], out
+                variant = qp.pack_variant(grp.block, x.data_ptr(),
+                                          q.data_ptr())
+                two = raw_ms("quantpack_tiles", qp._lib(), x.data_ptr(),
+                             q.data_ptr(), s.data_ptr(), n, grp.block)
+                probe = (f", {variant} (cluster of "
+                         f"{qp.cluster_size(grp.block)}); the two-pass "
+                         f"kernel on the same inputs {two:.4f} ms")
             del out, want
             k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block),
                             KERNEL_RUNS)
@@ -300,7 +332,8 @@ def kernel_phase(groups_of: dict, dev) -> dict:
             log(f"{name} {str(grp.dtype).replace('torch.', '')} group "
                 f"[{CLIENTS}, {grp.padded}] ({k.path} path): bitwise equal, "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, {moved} B, "
-                f"bound {bound:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s)")
+                f"bound {bound:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s, "
+                f"{bound / k_ms:.1%} of the bound){probe}")
             ms += k_ms
             plain_ms += p_ms
             bound_bytes += moved
@@ -318,6 +351,39 @@ def kernel_phase(groups_of: dict, dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if k.library is None else lib_ms}
     return results
+
+
+def non_finite_phase(dev) -> None:
+    """Tiles holding a NaN, +Inf and -Inf and a clean tile, through each
+    pack kernel: q and scales bit for bit the plain version's, and the
+    reference's semantics (scales NaN, Inf, Inf, finite; q 0 at the
+    non-finite elements; the three bad tiles unpack to all NaN)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for block, start in ((65536, 0), (1024, 0), (65536, 1), (262144, 0)):
+        buf = torch.randn(start + 4 * block, generator=gen, device=dev)
+        x = buf[start:]
+        bad = torch.tensor([3, block + 5, 2 * block + 7], device=dev)
+        x[bad] = torch.tensor([math.nan, math.inf, -math.inf], device=dev)
+        qp.reset_counts()
+        q, s = qp.quantpack_flat(x, block=block)
+        want_q, want_s = storm_ref.quantpack_ref(x, block)
+        out = qp.quantunpack_flat(q, s, block=block)
+        torch.cuda.synchronize()
+        variant = [k for k, v in qp.VARIANTS.items() if v]
+        ok = (same_bits(q, want_q) and same_bits(s, want_s)
+              and same_bits(out, storm_ref.quantunpack_ref(q, s, block))
+              and bool(torch.isnan(s[0])) and bool((s[1:3] == math.inf).all())
+              and bool(torch.isfinite(s[3])) and not bool(q[bad].any())
+              and bool(torch.isnan(out[:3 * block]).all())
+              and bool(torch.isfinite(out[3 * block:]).all()))
+        log(f"quantpack non-finite tiles (block {block}, start {start}, "
+            f"{variant}): scales {s.tolist()}, q at the bad elements "
+            f"{q[bad].tolist()}, NaN values unpacked per tile "
+            f"{torch.isnan(out).view(4, block).sum(1).tolist()}: "
+            f"{'as the plain version and the reference' if ok else 'WRONG'}")
+        if not ok:
+            raise SystemExit("quantpack: non-finite tiles differ from the "
+                             "plain version or the reference's semantics")
 
 
 def compression_phase(groups, dev) -> None:
@@ -552,13 +618,15 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    step_ms = []
+    step_ms, packs = [], []
     for batch in batches:
         t0 = time.perf_counter()
+        before = qp.LAUNCHES["quantpack"]
         state, _ = run.step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = launch_counts()
+        packs.append(qp.LAUNCHES["quantpack"] - before)
+    launches, variants = launch_counts(), variant_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     val = run.eval_fn(state)
     sizes = [f"{str(g.dtype).replace('torch.', '')}[{CLIENTS}, {g.padded}]"
@@ -566,6 +634,13 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     log(f"path {name}: full-width {run.model_cfg.name}, buffers {sizes}, "
         f"steps {len(step_ms)}, step ms {[round(t, 3) for t in step_ms]}, "
         f"peak memory {peak} B, launches {launches}, val_loss {val}")
+    if launches["quantpack"]:
+        log(f"path {name}: quantpack launches per step {packs} "
+            f"({exp.schedule.local_steps} local steps a communication "
+            f"round), by kernel {qp.VARIANTS}")
+        if variants["quantpack_cluster"] != launches["quantpack"]:
+            raise SystemExit(f"path {name}: not every pack ran the cluster "
+                             f"kernel ({qp.VARIANTS})")
     want = {**dict.fromkeys(launches, 0), **PATHS[name]}
     if len(run.init.spec.groups) != 2 or exp.schedule.steps != 4:
         raise SystemExit(f"path {name}: PATHS counts launches for 4 steps "
@@ -603,28 +678,40 @@ def lru_phase(dev) -> dict:
     shape = (SERVE_BATCH, SERVE_PROMPT, get_config(SERVE_ARCH).resolved_lru_width)
     a = 0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)
     b = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    lru_ops.reset_counts()
     out, want = lru_ops.lru_scan(a, b), lru_scan_ref(a, b)
     torch.cuda.synchronize()
-    if not same_bits(out, want):
-        raise SystemExit(f"lru_scan: kernel differs from the plain version "
-                         f"at {list(shape)}")
+    variant = [k for k, v in lru_ops.VARIANTS.items() if v]
+    if not same_bits(out, want) or variant != ["lru_scan_tma"]:
+        raise SystemExit(f"lru_scan: {variant} differs from the plain "
+                         f"version at {list(shape)}, or is not the TMA "
+                         f"kernel")
     err = float((out - want).abs().max())
-    oa, ob = (t[:, :1001, :77].contiguous() for t in (a, b))
-    h0 = torch.randn(shape[0], 77, generator=gen, device=dev)
-    if not same_bits(lru_ops.lru_scan(oa, ob, h0), lru_scan_ref(oa, ob, h0)):
-        raise SystemExit("lru_scan: kernel differs from the plain version "
-                         "at [2, 1001, 77] with h0")
+    odd = {}
+    for B, S, C in ((2, 1001, 77), (2, 1000, 100)):
+        oa, ob = (t[:B, :S, :C].contiguous() for t in (a, b))
+        h0 = torch.randn(B, C, generator=gen, device=dev)
+        lru_ops.reset_counts()
+        if not same_bits(lru_ops.lru_scan(oa, ob, h0),
+                         lru_scan_ref(oa, ob, h0)):
+            raise SystemExit(f"lru_scan: kernel differs from the plain "
+                             f"version at {[B, S, C]} with h0")
+        odd[f"{[B, S, C]}"] = [k for k, v in lru_ops.VARIANTS.items() if v]
     moved = sum(t.numel() * t.element_size() for t in (a, b, out))
+    lanes_ms = raw_ms("lru_scan_lanes", lru_ops._lib(), a.data_ptr(),
+                      b.data_ptr(), None, out.data_ptr(), *shape)
     del out, want, oa, ob
     k_ms = timed_ms(lambda: lru_ops.lru_scan(a, b), KERNEL_RUNS)
     p_ms = timed_ms(lambda: lru_scan_ref(a, b), 3)
     entry = _entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
                    "src/repro/kernels/lru/kernel.py:48", err, k_ms, p_ms,
                    moved, 2 * a.numel() / F32_FLOPS_PER_S * 1e3, None)
-    log(f"lru_scan f32 {list(shape)} (serving path, per rec layer): bitwise "
-        f"equal (and at [2, 1001, 77] with h0), kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, {moved} B, bound {entry['bound_ms']:.4f} ms "
-        f"({moved / k_ms / 1e6:.1f} GB/s)")
+    log(f"lru_scan f32 {list(shape)} (serving path, per rec layer; "
+        f"{variant[0]}): bitwise equal (and with h0 at {odd}), kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {moved} B, bound "
+        f"{entry['bound_ms']:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s, "
+        f"{entry['bound_ms'] / k_ms:.1%} of the bound); the lanes kernel on "
+        f"the same inputs {lanes_ms:.4f} ms")
     log("lru_scan: library none: no single PyTorch call computes a linear "
         "recurrence")
     return entry
@@ -790,16 +877,19 @@ def serving_path(dev) -> dict:
     out = serve.main(["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH),
                       "--prompt-len", str(SERVE_PROMPT), "--gen",
                       str(SERVE_GEN), "--seed", "0"])
-    launches = launch_counts()
+    launches, variants = launch_counts(), variant_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"serving path: full-width {SERVE_ARCH}, bf16, batch {SERVE_BATCH}, "
         f"prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: prefill "
         f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_step']:.3f} "
         f"ms per step ({SERVE_BATCH} tokens), peak memory {peak} B, "
-        f"launches {launches}")
+        f"launches {launches}, scans by kernel {lru_ops.VARIANTS}")
     want = {**dict.fromkeys(launches, 0), **SERVE_LAUNCHES}
     if launches != want:
         raise SystemExit(f"serving path launched {launches}, expected {want}")
+    if variants["lru_scan_tma"] != SERVE_LAUNCHES["lru_scan"]:
+        raise SystemExit(f"serving path: not every scan ran the TMA kernel "
+                         f"({lru_ops.VARIANTS})")
     if tuple(out["tokens"].shape) != (SERVE_BATCH, SERVE_GEN) or \
             not bool(torch.isfinite(out["logits"]).all()):
         raise SystemExit("serving path: wrong token shape or non-finite "
@@ -831,6 +921,7 @@ def main() -> None:
     groups_of = {name: build(f, device=dev).init.spec.groups
                  for name, f in fulls.items()}
     kernels = kernel_phase(groups_of, dev)
+    non_finite_phase(dev)
     compression_phase(groups_of[COMPRESSED], dev)
     torch.cuda.empty_cache()
     kernels["storm_update"] = storm_update_phase(dev)

@@ -35,7 +35,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
 B, S, GEN = 2, 4096, 16
-KERNELS = ("flash_fwd", "rg_lru_scan")   # the two kernels' entry points
+# the model kernels' entry points: the attention (flash_fwd, flash_fwd_tc)
+# and the scan (tma_ring_scan; rg_lru_scan where C % 4 != 0)
+KERNELS = {"flash-attention": ("flash_fwd",),
+           "LRU-scan": ("tma_ring_scan", "rg_lru_scan")}
 
 
 def _timed(fn):
@@ -50,8 +53,9 @@ def _summary(prof, wall_ms: float, what: str) -> None:
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    mine = sum(e.device_time_total for e in events
-               if any(k in e.name for k in KERNELS)) / 1e3
+    mine = {what: sum(e.device_time_total for e in events
+                      if any(k in e.name for k in names)) / 1e3
+            for what, names in KERNELS.items()}
     # by each operator's own device time: an aten operator's total also
     # holds CUPTI's "Command Buffer Full" records (the host blocked on a
     # full launch queue), which are no device work and are not in busy_ms
@@ -59,9 +63,10 @@ def _summary(prof, wall_ms: float, what: str) -> None:
                                     row_limit=20), flush=True)
     print(f"{what}: wall {wall_ms:.3f} ms, {len(events)} device activities "
           f"summing to {busy_ms:.3f} ms (busy {100 * busy_ms / wall_ms:.1f} "
-          f"%), of which the flash-attention and LRU-scan kernels "
-          f"{mine:.3f} ms ({100 * mine / max(busy_ms, 1e-9):.1f} %)",
-          flush=True)
+          f"%), of which " + ", ".join(
+              f"the {k} kernels {ms:.3f} ms "
+              f"({100 * ms / max(busy_ms, 1e-9):.1f} %)"
+              for k, ms in mine.items()), flush=True)
 
 
 def main() -> None:

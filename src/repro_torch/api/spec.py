@@ -6,8 +6,9 @@ The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
 reference's declarative tuples — same fields, same defaults — so a spec that
 sets one can be recognised and refused by :func:`repro_torch.api.build`
-until the layer is ported.  Compression is ported: its block gets the
-reference's cross-field checks here.
+until the layer is ported.  :meth:`Experiment.validate` makes every check
+of the reference's, in its order, for ported and unported layers alike, so
+a spec the reference refuses never reaches the feature refusals of build.
 """
 from __future__ import annotations
 
@@ -21,6 +22,38 @@ from repro_torch.federation.compression import QUANTS, CompressionSpec
 SPEC_VERSION = 1
 
 PARAM_DTYPES = ("auto", "float32", "bfloat16")
+
+
+class KnownAlgorithm(NamedTuple):
+    hparams: Tuple[str, ...]
+    sections: Tuple[str, ...]
+    private: Tuple[str, ...] = ()     # sections that never enter a reduction
+
+
+# The reference's name lists, copied (the port imports nothing of it):
+# its registered model-scale trainers with their hyperparameters and
+# sections (repro/api/registry.py, filled by repro/federation/trainer.py),
+# the PRIVATE sections of its SPECS (repro/optim/sequences.py), its
+# architectures (repro/configs ARCHS), samplers, robust aggregators,
+# late-arrival policies and telemetry metric groups.  What the port runs
+# of them is decided by build, not here.
+ALGORITHMS = {
+    "fedavg": KnownAlgorithm(("momentum",), ("params",)),
+    "fedbio": KnownAlgorithm((), ("x", "y", "u")),
+    "fedbio_local": KnownAlgorithm((), ("x", "y"), ("y",)),
+    "fedbioacc": KnownAlgorithm(
+        ("alpha_delta", "alpha_u0", "c_nu", "c_omega", "c_u"),
+        ("x", "y", "u")),
+    "fedbioacc_local": KnownAlgorithm(
+        ("alpha_delta", "alpha_u0", "c_nu", "c_omega"), ("x", "y"), ("y",)),
+}
+ARCH_NAMES = ("recurrentgemma-9b", "gemma2-2b", "mamba2-130m", "llama3-405b",
+              "olmoe-1b-7b", "granite-3-8b", "hubert-xlarge",
+              "granite-moe-1b-a400m", "internvl2-76b", "granite-8b")
+SAMPLERS = ("full", "uniform", "weighted", "trace")
+AGGREGATORS = ("mean", "clip", "trim")
+LATE_POLICIES = ("drop", "carry", "cancel")
+METRIC_GROUPS = ("norms", "drift", "compression", "health", "stragglers")
 
 
 class SpecError(ValueError):
@@ -188,26 +221,154 @@ class Experiment:
         return self
 
     def validate(self) -> "Experiment":
-        """Schema-level checks (the algorithm and the layers are checked
-        against what is ported by :func:`repro_torch.api.build`)."""
+        """The reference's ``Experiment.validate``, check for check and in
+        its order, against the port's copies of the reference's name lists
+        (``ALGORITHMS``, ``ARCH_NAMES``, ``SAMPLERS``, ...): a spec the
+        reference refuses raises :class:`SpecError` naming the same field.
+        What the reference accepts and the port does not run yet passes here
+        and is refused by :func:`repro_torch.api.build`."""
         if self.version != SPEC_VERSION:
             _err("version", f"unsupported spec version {self.version!r} "
                  f"(this build reads version {SPEC_VERSION})")
-        if self.problem.num_clients < 1:
+        name = self.algorithm.name
+        if name not in ALGORITHMS:
+            _err("algorithm.name",
+                 f"unknown algorithm {name!r}; registered: "
+                 f"{sorted(ALGORITHMS)}")
+        algo = ALGORITHMS[name]
+        unknown = set(self.algorithm.params_dict) - set(algo.hparams)
+        if unknown:
+            _err("algorithm.params",
+                 f"{sorted(unknown)} are not hyperparams of {name!r} (it "
+                 f"takes {sorted(algo.hparams)})")
+
+        prob = self.problem
+        if prob.arch not in ARCH_NAMES:
+            _err("problem.arch", f"unknown arch {prob.arch!r}; choose from "
+                 f"{sorted(ARCH_NAMES)}")
+        if prob.num_clients < 1:
             _err("problem.num_clients", "need at least one client")
-        if self.problem.param_dtype not in PARAM_DTYPES:
+        if prob.param_dtype not in PARAM_DTYPES:
             _err("problem.param_dtype",
-                 f"{self.problem.param_dtype!r} not in {PARAM_DTYPES}")
-        if self.schedule.steps < 1 or self.schedule.local_steps < 1:
+                 f"{prob.param_dtype!r} not in {PARAM_DTYPES}")
+        cs = prob.client_sizes
+        if cs is not None and len(cs) != prob.num_clients:
+            _err("problem.client_sizes",
+                 f"{len(cs)} sizes for num_clients={prob.num_clients}")
+
+        self._validate_participation()
+        self._validate_execution()
+        sch = self.schedule
+        if sch.steps < 1 or sch.local_steps < 1:
             _err("schedule", "steps and local_steps must be >= 1")
+        for sec, k in sch.comm_every:
+            if sec not in algo.sections:
+                _err("schedule.comm_every",
+                     f"{sec!r} is not a section of {name!r} (sections: "
+                     f"{algo.sections})")
+            if int(k) < 1:
+                _err("schedule.comm_every", f"cadence for {sec!r} must be "
+                     f">= 1, got {k}")
+        self._validate_guards()
         if self.compression is not None:
             self._validate_compression()
+        if self.telemetry is not None:
+            self._validate_telemetry()
+        if self.stragglers is not None:
+            self._validate_stragglers()
         return self
 
+    def _validate_participation(self) -> None:
+        p = self.normalize().participation
+        m = self.problem.num_clients
+        if p.sampler not in SAMPLERS:
+            _err("participation.sampler",
+                 f"unknown sampler {p.sampler!r}; choose from {SAMPLERS}")
+        if (p.sampler == "weighted" and p.client_weights is None
+                and self.problem.client_sizes is None):
+            _err("participation",
+                 "sampler='weighted' needs client_weights (or "
+                 "problem.client_sizes to inherit from)")
+        if p.clients_per_round > m:
+            _err("participation.clients_per_round",
+                 f"{p.clients_per_round} > num_clients={m}")
+        if p.trace_path is not None and p.sampler != "trace":
+            _err("participation.trace_path",
+                 f"a recorded availability log is a sampler='trace' knob — "
+                 f"it conflicts with sampler={p.sampler!r} (drop one)")
+        if p.sampler == "trace" and p.clients_per_round:
+            _err("participation.clients_per_round",
+                 "the trace sampler draws participation from the "
+                 "availability process/log — clients_per_round has no "
+                 "effect; unset it or use uniform/weighted")
+
+    def _validate_execution(self) -> None:
+        ex = self.execution
+        if (ex.mesh is not None or ex.overlap) and not ex.fuse_storm:
+            _err("execution",
+                 "mesh/overlap need fuse_storm=true — the sharded substrate "
+                 "and the overlap schedule are fused-engine features")
+        if ex.overlap and ex.mesh is None:
+            _err("execution.overlap",
+                 "overlap needs a mesh: the schedule exists to hide the "
+                 "data-axis collective behind the new-iterate oracle")
+        if ex.scatter_comm and ex.mesh is None:
+            _err("execution.scatter_comm", "scatter_comm needs a mesh")
+        if ex.mesh is not None and not (
+                ex.mesh == "production"
+                or (isinstance(ex.mesh, tuple) and len(ex.mesh) == 2
+                    and all(int(v) >= 1 for v in ex.mesh))):
+            _err("execution.mesh",
+                 f"{ex.mesh!r} is neither [data, model] sizes nor "
+                 f"'production'")
+        if isinstance(ex.mesh, tuple) \
+                and self.problem.num_clients % ex.mesh[0]:
+            _err("execution.mesh",
+                 f"num_clients={self.problem.num_clients} not divisible by "
+                 f"the mesh data axis ({ex.mesh[0]})")
+
+    def _validate_guards(self) -> None:
+        """The faults and robustness blocks."""
+        fl, rb = self.faults, self.robustness
+        if fl is not None or rb is not None:
+            which = "faults" if fl is not None else "robustness"
+            if not self.execution.fuse_storm:
+                _err(which, "needs execution.fuse_storm=true — fault "
+                     "injection and the robust reductions are features of "
+                     "the fused sequence-spec engine")
+            if self.schedule.hierarchy_period > 0:
+                _err(which, "does not compose with the hierarchical grouped "
+                     "mean (schedule.hierarchy_period > 0) — the robust "
+                     "reductions and the fault model are global")
+        if fl is not None:
+            for rate in ("dropout_rate", "nan_rate", "byzantine_rate"):
+                r = getattr(fl, rate)
+                if not 0.0 <= float(r) <= 1.0:
+                    _err(f"faults.{rate}", f"{r} is not in [0, 1]")
+            if fl.start_round < 0:
+                _err("faults.start_round", f"{fl.start_round} must be >= 0")
+        if rb is not None:
+            if rb.aggregator not in AGGREGATORS:
+                _err("robustness.aggregator",
+                     f"unknown aggregator {rb.aggregator!r}; choose from "
+                     f"{AGGREGATORS}")
+            if not 0.0 <= float(rb.trim_frac) < 0.5:
+                _err("robustness.trim_frac",
+                     f"{rb.trim_frac} is not in [0, 0.5) — trimming both "
+                     f"ends must leave at least one row")
+            if float(rb.clip_factor) <= 0:
+                _err("robustness.clip_factor",
+                     f"{rb.clip_factor} must be > 0")
+            if float(rb.spike_factor) <= 1.0:
+                _err("robustness.spike_factor",
+                     f"{rb.spike_factor} must be > 1 (a loss equal to the "
+                     f"last good one is healthy)")
+            if rb.retry_budget < 0 or rb.ring < 1:
+                _err("robustness",
+                     "retry_budget must be >= 0 and ring >= 1")
+
     def _validate_compression(self) -> None:
-        """The compression block's cross-field checks, as the reference's
-        ``Experiment.validate`` makes them."""
-        cp = self.compression
+        cp, sch = self.compression, self.schedule
         if not self.execution.fuse_storm:
             _err("compression",
                  "needs execution.fuse_storm=true — the compressed "
@@ -229,7 +390,7 @@ class Experiment:
             _err("compression",
                  "no compressor selected — set quant ('bf16'|'int8') and/or "
                  "topk_frac > 0, or drop the compression block")
-        if frac > 0.0 and self.schedule.hierarchy_period > 0:
+        if frac > 0.0 and sch.hierarchy_period > 0:
             _err("compression.topk_frac",
                  "top-k sparsification does not compose with the "
                  "hierarchical grouped mean (schedule.hierarchy_period > 0) "
@@ -241,22 +402,100 @@ class Experiment:
             _err("compression.sections",
                  "[] compresses nothing — use null for every communicated "
                  "section, or drop the block")
-        from repro_torch.optim.sequences import PRIVATE, SPECS
-        aspec = SPECS.get(self.algorithm.name)
-        if aspec is None:       # not ported: build refuses the algorithm
-            return
-        unknown = [s for s in cp.sections if s not in aspec.sections]
+        name, algo = self.algorithm.name, ALGORITHMS[self.algorithm.name]
+        unknown = [s for s in cp.sections if s not in algo.sections]
         if unknown:
             _err("compression.sections",
-                 f"{unknown} are not sections of {self.algorithm.name!r} "
-                 f"(sections: {aspec.sections})")
-        bad = [q.section for q in aspec.sequences
-               if q.comm == PRIVATE and q.section in cp.sections]
+                 f"{unknown} are not sections of {name!r} (sections: "
+                 f"{algo.sections})")
+        bad = [s for s in cp.sections if s in algo.private]
         if bad:
             _err("compression.sections",
-                 f"{bad} are PRIVATE sections of {self.algorithm.name!r} — "
-                 f"private state never enters a reduction, so it cannot be "
-                 f"compressed")
+                 f"{bad} are PRIVATE sections of {name!r} — private state "
+                 f"never enters a reduction, so it cannot be compressed")
+
+    def _validate_telemetry(self) -> None:
+        tl = self.telemetry
+        if tl.sink is not None and not isinstance(tl.sink, str):
+            _err("telemetry.sink",
+                 f"{tl.sink!r} is not a path (string) or null")
+        if tl.metrics is None:
+            return
+        unknown = [g for g in tl.metrics if g not in METRIC_GROUPS]
+        if unknown:
+            _err("telemetry.metrics",
+                 f"unknown metric groups {unknown}; choose from "
+                 f"{METRIC_GROUPS}")
+        if tl.metrics and not self.execution.fuse_storm:
+            _err("telemetry.metrics",
+                 "in-band metrics need execution.fuse_storm=true — they are "
+                 "a side output of the fused sequence-spec engine; use "
+                 "metrics=[] for an events-only stream")
+        if "compression" in tl.metrics and self.compression is None:
+            _err("telemetry.metrics",
+                 "the 'compression' group needs a compression block — there "
+                 "is no EF residual or quantization error to report")
+        if "health" in tl.metrics and (
+                self.faults is None and self.robustness is None
+                and self.normalize().participation.sampler == "full"):
+            _err("telemetry.metrics",
+                 "the 'health' group needs faults, robustness or a non-full "
+                 "participation sampler — there is nothing to screen")
+        if "stragglers" in tl.metrics and self.stragglers is None:
+            _err("telemetry.metrics",
+                 "the 'stragglers' group needs a stragglers block — there is "
+                 "no deadline or arrival set to report")
+
+    def _validate_stragglers(self) -> None:
+        sg = self.stragglers
+        if not self.execution.fuse_storm:
+            _err("stragglers",
+                 "needs execution.fuse_storm=true — deadline-driven elastic "
+                 "rounds are a feature of the fused sequence-spec engine")
+        if self.schedule.hierarchy_period > 0:
+            _err("stragglers",
+                 "does not compose with the hierarchical grouped mean "
+                 "(schedule.hierarchy_period > 0) — the deadline/quorum "
+                 "decision is global; set hierarchy_period=0")
+        if sg.late_policy not in LATE_POLICIES:
+            _err("stragglers.late_policy",
+                 f"unknown policy {sg.late_policy!r}; choose from "
+                 f"{LATE_POLICIES}")
+        if not float(sg.base_time) > 0.0:
+            _err("stragglers.base_time", f"{sg.base_time} must be > 0")
+        if float(sg.tail) < 0.0:
+            _err("stragglers.tail", f"{sg.tail} must be >= 0")
+        if not float(sg.deadline) > 0.0:
+            _err("stragglers.deadline", f"{sg.deadline} must be > 0 "
+                 f"(simulated seconds)")
+        if int(sg.over_provision) < 0:
+            _err("stragglers.over_provision",
+                 f"{sg.over_provision} must be >= 0")
+        if int(sg.over_provision) > 0 and (
+                self.normalize().participation.sampler
+                not in ("uniform", "weighted")):
+            _err("stragglers.over_provision",
+                 "needs a counted (uniform/weighted) m-of-M sampler to "
+                 "request extra clients — the full/trace samplers do not "
+                 "take a count; set over_provision=0 or switch samplers")
+        if not 0.0 < float(sg.quorum) <= 1.0:
+            _err("stragglers.quorum",
+                 f"{sg.quorum} must be in (0, 1] — a fraction of the round's "
+                 f"sampled clients")
+        if float(sg.backoff) < 1.0:
+            _err("stragglers.backoff", f"{sg.backoff} must be >= 1")
+        if int(sg.max_extensions) < 0:
+            _err("stragglers.max_extensions",
+                 f"{sg.max_extensions} must be >= 0")
+        if not 0.0 < float(sg.target_percentile) <= 1.0:
+            _err("stragglers.target_percentile",
+                 f"{sg.target_percentile} must be in (0, 1]")
+        if not 0.0 <= float(sg.adapt_rate) <= 1.0:
+            _err("stragglers.adapt_rate",
+                 f"{sg.adapt_rate} must be in [0, 1]")
+        if int(sg.start_round) < 0:
+            _err("stragglers.start_round",
+                 f"{sg.start_round} must be >= 0")
 
     # -- JSON ---------------------------------------------------------------
 

@@ -4,7 +4,8 @@ Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds).  Builds happen at first use, into ``_build/`` beside this file (a
 directory ``.gitignore`` lists); a library's file name carries a hash of its
-source and flags, so an edited source is never served by a stale build.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is never served by a stale build.
 :func:`build_all` starts one ``nvcc`` per source at once.  A failed build
 raises with the compiler's output.
 """
@@ -43,6 +44,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

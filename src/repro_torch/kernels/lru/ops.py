@@ -6,12 +6,16 @@ Dispatch is by device and nothing else: tensors on the CPU go to the plain
 PyTorch version in ``ref.py``; tensors on a CUDA device launch the kernel on
 the current stream, or raise if the kernel cannot take them.
 
-``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls on
-any device; :func:`reset_counts` zeroes both.
+Two kernels: ``lru_scan_tma`` (a TMA ring of [64 time steps × 64
+channels] tiles) where TMA can read the tensors (``C % 4 == 0``, a and b
+16-byte aligned), else ``lru_scan_lanes``; :func:`scan_variant` picks.
+``LAUNCHES`` counts kernel launches on the card, ``VARIANTS`` each kernel's,
+``CALLS`` calls on any device; :func:`reset_counts` zeroes all three.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,20 +23,36 @@ from repro_torch.kernels.lru.ref import lru_scan_ref
 
 LAUNCHES = {"lru_scan": 0}
 CALLS = {"lru_scan": 0}
+VARIANTS = {"lru_scan_tma": 0, "lru_scan_lanes": 0}
+# lru_scan_tma's tile: time steps by channels (lru_scan.cu kTT, kCB)
+TIME_TILE, CHANNEL_BLOCK = 64, 64
 
 _VP, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 
 def reset_counts() -> None:
-    LAUNCHES["lru_scan"] = CALLS["lru_scan"] = 0
+    for d in (LAUNCHES, CALLS, VARIANTS):
+        for k in d:
+            d[k] = 0
 
 
+@functools.cache
 def _lib():
     from repro_torch.kernels.build import load
     lib = load("lru_scan")
-    lib.lru_scan.argtypes = [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP]
-    lib.lru_scan.restype = ctypes.c_int
+    for fn in (lib.lru_scan_tma, lib.lru_scan_lanes):
+        fn.argtypes = [_VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def scan_variant(B: int, S: int, C: int, a_ptr: int, b_ptr: int) -> str:
+    """The kernel that scans [B, S, C] tensors at addresses ``a_ptr`` and
+    ``b_ptr``: TMA needs 16-byte global strides and addresses."""
+    if C % 4 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0 and \
+            B <= 65535 and S < 2 ** 31 and C < 2 ** 31:
+        return "lru_scan_tma"
+    return "lru_scan_lanes"
 
 
 def lru_scan(a, b, h0=None):
@@ -61,13 +81,14 @@ def lru_scan(a, b, h0=None):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lru_scan: tensors must be contiguous")
     out = torch.empty_like(a)
+    variant = scan_variant(B, S, C, a.data_ptr(), b.data_ptr())
     with torch.cuda.device(dev):
-        err = _lib().lru_scan(a.data_ptr(), b.data_ptr(),
-                              None if h0 is None else h0.data_ptr(),
-                              out.data_ptr(), B, S, C,
-                              torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(_lib(), variant)(
+            a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+            out.data_ptr(), B, S, C, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lru_scan: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{variant}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES["lru_scan"] += 1
+    VARIANTS[variant] += 1
     return out

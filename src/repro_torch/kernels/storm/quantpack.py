@@ -12,12 +12,17 @@ Dispatch is by device and nothing else: tensors on the CPU go to the plain
 PyTorch versions in ``ref.py``; tensors on a CUDA device launch the kernel on
 the current stream, or raise if the kernel cannot take them.
 
-``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls of
-each wrapper on any device; :func:`reset_counts` zeroes both.
+The pack has two kernels: ``pack_cluster`` reads each tile once, shared
+over a thread-block cluster of :func:`cluster_size` CTAs; the two-pass
+``pack_tiles`` takes the tiles it cannot (too large, a part that is not a
+multiple of 4 elements, unaligned pointers).  ``LAUNCHES`` counts kernel
+launches on the card per wrapper, ``VARIANTS`` per pack kernel, ``CALLS``
+calls of each wrapper on any device; :func:`reset_counts` zeroes all three.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -26,23 +31,51 @@ from repro_torch.kernels.storm import ref
 _NAMES = ("quantpack", "quantunpack")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
 CALLS = dict.fromkeys(_NAMES, 0)
+VARIANTS = {"quantpack_cluster": 0, "quantpack_tiles": 0}
+MAX_PART, MAX_CLUSTER = 8192, 8      # elements a CTA holds; CTAs a cluster
+PART_MULTIPLE = 4                    # a part's bulk copy: 16-byte multiples
 
 _VP, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, CALLS):
+    for d in (LAUNCHES, CALLS, VARIANTS):
         for k in d:
             d[k] = 0
 
 
+@functools.cache
 def _lib():
     from repro_torch.kernels.build import load
     lib = load("quantpack")
-    lib.quantpack.argtypes = [_VP, _VP, _VP, _I64, _I64, _VP]
+    lib.quantpack_cluster.argtypes = [_VP, _VP, _VP, _I64, _I64, _I64, _VP]
+    lib.quantpack_tiles.argtypes = [_VP, _VP, _VP, _I64, _I64, _VP]
     lib.quantunpack.argtypes = [_VP, _VP, _VP, _I64, _I64, _VP]
-    lib.quantpack.restype = lib.quantunpack.restype = ctypes.c_int
+    for fn in (lib.quantpack_cluster, lib.quantpack_tiles, lib.quantunpack):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def cluster_size(block: int) -> int:
+    """CTAs of the cluster that ``pack_cluster`` shares a tile of ``block``
+    elements over: the smallest of 1, 2, 4, 8 that leaves each CTA at most
+    ``MAX_PART`` elements, a multiple of ``PART_MULTIPLE``; 0 when none
+    does and the tile goes to the two-pass kernel."""
+    cl = 1
+    while cl <= MAX_CLUSTER:
+        if block % cl == 0 and block // cl <= MAX_PART and \
+                (block // cl) % PART_MULTIPLE == 0:
+            return cl
+        cl *= 2
+    return 0
+
+
+def pack_variant(block: int, x_ptr: int, q_ptr: int) -> str:
+    """The pack kernel that takes a tile of ``block`` elements from ``x``
+    at address ``x_ptr`` into ``q`` at ``q_ptr``."""
+    if cluster_size(block) and x_ptr % 16 == 0 and q_ptr % 4 == 0:
+        return "quantpack_cluster"
+    return "quantpack_tiles"
 
 
 def _check(name, tensors, n: int, block: int) -> bool:
@@ -64,12 +97,12 @@ def _check(name, tensors, n: int, block: int) -> bool:
     return True
 
 
-def _run(name, dev, *args) -> None:
-    fn = getattr(_lib(), name)
+def _run(name, fn_name, dev, *args) -> None:
+    fn = getattr(_lib(), fn_name)
     with torch.cuda.device(dev):
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{fn_name}: kernel launch failed with CUDA error "
                            f"{err}")
     LAUNCHES[name] += 1
 
@@ -85,8 +118,14 @@ def quantpack_flat(x, *, block: int):
         return ref.quantpack_ref(x, block)
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
-    _run("quantpack", x.device, x.data_ptr(), q.data_ptr(), scales.data_ptr(),
-         n, block)
+    ptrs = (x.data_ptr(), q.data_ptr(), scales.data_ptr())
+    variant = pack_variant(block, ptrs[0], ptrs[1])
+    if variant == "quantpack_cluster":
+        _run("quantpack", variant, x.device, *ptrs, n, block,
+             cluster_size(block))
+    else:
+        _run("quantpack", variant, x.device, *ptrs, n, block)
+    VARIANTS[variant] += 1
     return q, scales
 
 
@@ -104,6 +143,6 @@ def quantunpack_flat(q, scales, *, block: int):
     if not on_card:
         return ref.quantunpack_ref(q, scales, block)
     out = torch.empty(n, dtype=torch.float32, device=q.device)
-    _run("quantunpack", q.device, q.data_ptr(), scales.data_ptr(),
+    _run("quantunpack", "quantunpack", q.device, q.data_ptr(), scales.data_ptr(),
          out.data_ptr(), n, block)
     return out

@@ -77,12 +77,17 @@ def quantpack_ref(x, block: int):
     rewrites the division by the constant 127 into that product),
     ``q = clamp(rint(x / safe), −127, 127)`` with a true division and
     half-to-even rounding, where ``safe`` is 1 for a zero tile (whose scale
-    stays 0).  Returns ``(q int8 [N], scales f32 [N // block])``."""
+    stays 0).  Non-finite inputs as in the reference: the max propagates a
+    NaN (scale NaN, then ``safe`` 1), a NaN quotient quantizes to 0 (made
+    explicit here: a float → int8 cast of NaN is not defined to give 0, on
+    the card least of all).  Returns ``(q int8 [N], scales f32 [N //
+    block])``."""
     t = x.to(torch.float32).reshape(-1, block)
     amax = t.abs().amax(dim=-1)
     scale = amax * _inv127().to(x.device)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.round(t / safe[:, None]).clamp_(-127.0, 127.0).to(torch.int8)
+    r = torch.round(t / safe[:, None]).clamp_(-127.0, 127.0)
+    q = torch.where(r.isnan(), torch.zeros_like(r), r).to(torch.int8)
     return q.reshape(x.shape), scale
 
 

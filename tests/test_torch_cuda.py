@@ -163,19 +163,54 @@ def _assert_quant_roundtrip(x, block: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [1024, 64 * 1024])
+@pytest.mark.parametrize("block", [1024, 64 * 1024, 3 * 16384, 128 * 1024,
+                                   256 * 1024])
 def test_cuda_quant_kernels_bitwise_vs_plain(block, card):
     """``quantpack``/``quantunpack`` equal their plain versions bit for bit
     on the card: lognormal tiles, values one ulp either side of the
-    rounding half-way points, and a zero tile (scale 0, q 0)."""
+    rounding half-way points, and a zero tile (scale 0, q 0).  The blocks
+    take the cluster kernel with clusters of 1 and 8 (the path's tile; and
+    parts of 6,144), and the two-pass kernel (tiles of 512 KB and 1 MB)."""
     x = _quant_buffer(7, block, 3).to(card)
     tqp.reset_counts()
     q, s = _assert_quant_roundtrip(x, block)
     torch.cuda.synchronize()
     assert tqp.LAUNCHES == {"quantpack": 1, "quantunpack": 1}
+    variant = "quantpack_cluster" if tqp.cluster_size(block) \
+        else "quantpack_tiles"
+    assert tqp.VARIANTS[variant] == 1
     assert float(s[-1]) == 0.0 and not torch.any(q[-block:])
     # one tile alone
     _assert_quant_roundtrip(x[:block].clone(), block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,start", [(1024, 0), (64 * 1024, 0),
+                                         (128 * 1024, 0), (256 * 1024, 0),
+                                         (1024, 1), (13, 0)])
+def test_cuda_quant_kernels_non_finite_tiles(block, start, card):
+    """Tiles holding a NaN, +Inf and -Inf and a clean tile, through each
+    pack kernel (a start one element in is unaligned: the two-pass kernel):
+    q and scales bit for bit the plain version's (scales NaN, Inf, Inf,
+    finite; q 0 at the non-finite elements), and every value of the three
+    bad tiles unpacks to NaN, as the reference's do."""
+    g = torch.Generator(device=card).manual_seed(14)
+    buf = torch.randn(start + 4 * block, generator=g, device=card)
+    x = buf[start:]
+    bad = torch.tensor([3, block + 5, 2 * block + 7], device=card)
+    x[bad] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                          device=card)
+    tqp.reset_counts()
+    q, s = tqp.quantpack_flat(x, block=block)
+    _assert_bits((q, s), tref.quantpack_ref(x, block))
+    assert tqp.VARIANTS["quantpack_cluster" if start == 0 and
+                        tqp.cluster_size(block) else "quantpack_tiles"] == 1
+    assert torch.isnan(s[0]) and bool((s[1:3] == float("inf")).all())
+    assert bool(torch.isfinite(s[3])) and not torch.any(q[bad])
+    out = tqp.quantunpack_flat(q, s, block=block)
+    _assert_bits((out,), (tref.quantunpack_ref(q, s, block),))
+    assert bool(torch.isnan(out[:3 * block]).all())
+    assert bool(torch.isfinite(out[3 * block:]).all())
 
 
 @pytest.mark.cuda
@@ -207,21 +242,30 @@ def test_cuda_quant_wrappers_raise_instead_of_falling_back(card):
 
 @pytest.mark.cuda
 def test_cuda_lru_scan_bitwise_vs_plain(card):
-    """The RG-LRU scan kernel equals its sequential plain version bit for
-    bit: S and C that are multiples of nothing, with and without h0, and a
-    length shorter than the kernel's unrolled chunk."""
+    """Both RG-LRU scan kernels equal the sequential plain version bit for
+    bit, with and without h0: the TMA kernel at S not a multiple of its
+    64-step tile and C not a multiple of its 64-channel block, B from 1 to
+    3, and the serving shape [2, 4096, 4096]; the lanes kernel where C % 4
+    != 0 (and a length shorter than its unrolled chunk)."""
     from repro_torch.kernels.lru import ops as lru_ops
     from repro_torch.kernels.lru.ref import lru_scan_ref
     g = torch.Generator(device=card).manual_seed(10)
     lru_ops.reset_counts()
-    for B, S, C in [(3, 1001, 77), (1, 5, 1)]:
-        a = 0.7 + 0.299 * torch.rand(B, S, C, generator=g, device=card)
-        b = 0.1 * torch.randn(B, S, C, generator=g, device=card)
-        h0 = torch.randn(B, C, generator=g, device=card)
-        for h in (h0, None):
-            _assert_bits((lru_ops.lru_scan(a, b, h),), (lru_scan_ref(a, b, h),))
+    shapes = {"lru_scan_tma": [(1, 1000, 100), (2, 64, 64), (3, 129, 132),
+                               (2, 4096, 4096)],
+              "lru_scan_lanes": [(3, 1001, 77), (1, 5, 1)]}
+    for variant, cases in shapes.items():
+        for B, S, C in cases:
+            assert lru_ops.scan_variant(B, S, C, 0, 0) == variant
+            a = 0.7 + 0.299 * torch.rand(B, S, C, generator=g, device=card)
+            b = 0.1 * torch.randn(B, S, C, generator=g, device=card)
+            h0 = torch.randn(B, C, generator=g, device=card)
+            for h in (h0, None):
+                _assert_bits((lru_ops.lru_scan(a, b, h),),
+                             (lru_scan_ref(a, b, h),))
     torch.cuda.synchronize()
-    assert lru_ops.LAUNCHES["lru_scan"] == 4
+    assert lru_ops.VARIANTS == {k: 2 * len(v) for k, v in shapes.items()}
+    assert lru_ops.LAUNCHES["lru_scan"] == 12
     wide = torch.zeros(2, 8, 6, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         lru_ops.lru_scan(wide[:, :, ::2], wide[:, :, ::2])

@@ -112,3 +112,47 @@ def test_wrappers_count_calls_and_reject_bad_inputs():
         tqp.quantunpack_flat(q, s[:-1], block=128)
     with pytest.raises(ValueError, match="flat"):
         tqp.quantpack_flat(x.reshape(2, -1), block=128)
+
+
+def _non_finite_tiles(block: int) -> np.ndarray:
+    """Four tiles: a NaN in the first, +Inf in the second, -Inf in the
+    third (each at another position), the fourth clean."""
+    x = np.random.default_rng(block).standard_normal(4 * block) \
+        .astype(np.float32)
+    x[5], x[block + 7], x[2 * block + 9] = np.nan, np.inf, -np.inf
+    return x
+
+
+@pytest.mark.parametrize("block", [256, 1024])
+def test_non_finite_tiles_follow_the_reference(block):
+    """The reference's Pallas kernels (interpret mode) and the plain
+    versions agree on tiles holding NaN, +Inf and -Inf: scales NaN, Inf,
+    Inf and finite; q bit for bit, 0 at every non-finite element; every
+    value of the three bad tiles unpacks to NaN, the clean tile stays
+    finite."""
+    x = _non_finite_tiles(block)
+    jq, js = jqp.quantpack_flat(jnp.asarray(x), block=block, interpret=True)
+    tq, ts = tqp.quantpack_flat(torch.from_numpy(x), block=block)
+    np.testing.assert_array_equal(bits(tq), bits(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))  # NaN == NaN
+    assert np.isnan(ts[0]) and ts[1] == ts[2] == np.inf and np.isfinite(ts[3])
+    assert not tq[[5, block + 7, 2 * block + 9]].any()
+    jd = np.asarray(jqp.quantunpack_flat(jq, js, block=block, interpret=True))
+    td = tqp.quantunpack_flat(tq, ts, block=block).numpy()
+    np.testing.assert_array_equal(td, jd)
+    assert np.isnan(td[:3 * block]).all() and np.isfinite(td[3 * block:]).all()
+
+
+@pytest.mark.parametrize("block,cl", [(65536, 8), (131072, 0), (262144, 0),
+                                      (49152, 8), (1024, 1), (100, 1),
+                                      (102, 0), (13, 0)])
+def test_pack_kernel_choice(block, cl):
+    """Which pack kernel takes a tile: the cluster kernel with the smallest
+    cluster that leaves each CTA at most 8,192 elements, a multiple of 4
+    (the path's f32 tile of 65,536: 8 CTAs); else, and for unaligned
+    pointers, the two-pass kernel."""
+    assert tqp.cluster_size(block) == cl
+    want = "quantpack_cluster" if cl else "quantpack_tiles"
+    assert tqp.pack_variant(block, 4096, 4096) == want
+    assert tqp.pack_variant(block, 4100, 4096) == "quantpack_tiles"
+    assert tqp.pack_variant(block, 4096, 4098) == "quantpack_tiles"
