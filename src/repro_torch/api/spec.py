@@ -36,7 +36,10 @@ class KnownAlgorithm(NamedTuple):
 # the PRIVATE sections of its SPECS (repro/optim/sequences.py), its
 # architectures (repro/configs ARCHS), samplers, robust aggregators,
 # late-arrival policies and telemetry metric groups.  What the port runs
-# of them is decided by build, not here.
+# of them is decided by build, not here.  ALGORITHMS is the port's one
+# table of these names: api/registry.py takes each ported trainer's
+# sections from it and refuses one whose hyperparameters, sequence
+# sections or PRIVATE sections disagree.
 ALGORITHMS = {
     "fedavg": KnownAlgorithm(("momentum",), ("params",)),
     "fedbio": KnownAlgorithm((), ("x", "y", "u")),

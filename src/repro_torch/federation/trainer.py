@@ -168,11 +168,10 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
     return init, train_step
 
 
-@register("fedbioacc",
+@register("fedbioacc", seqs.SPECS["fedbioacc"],
           hparams={"c_nu": 1.0, "c_omega": 1.0, "c_u": 1.0,
                    "alpha_delta": 1.0, "alpha_u0": 8.0},
-          cfg_fields=("c_nu", "c_omega", "c_u", "alpha_delta", "alpha_u0"),
-          sections=("x", "y", "u"))
+          cfg_fields=("c_nu", "c_omega", "c_u", "alpha_delta", "alpha_u0"))
 def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               n_micro: int = 1, remat: bool = False,
                               use_flash: bool = False,
@@ -199,7 +198,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                            init_trees, storm_block, to_state, compression)
 
 
-@register("fedbio", sections=("x", "y", "u"))
+@register("fedbio", seqs.SPECS["fedbio"])
 def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            n_micro: int = 1, remat: bool = False,
                            use_flash: bool = False,
@@ -224,7 +223,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            init_trees, storm_block, to_state, compression)
 
 
-@register("fedbio_local", sections=("x", "y"))
+@register("fedbio_local", seqs.SPECS["fedbio_local"])
 def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  n_micro: int = 1, remat: bool = False,
                                  use_flash: bool = False,
@@ -254,7 +253,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                            compression)
 
 
-@register("fedavg", hparams={"momentum": 0.9}, sections=("params",))
+@register("fedavg", seqs.SPECS["fedavg"], hparams={"momentum": 0.9})
 def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            n_micro: int = 1, remat: bool = False,
                            momentum: float = 0.9, use_flash: bool = False,

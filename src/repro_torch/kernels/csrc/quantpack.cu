@@ -35,8 +35,9 @@
 // moves 9 B an element against the bound's 5 B.  pack_cluster reads it
 // once.  An f32 tile of the path (65,536 elements, 256 KB) does not fit
 // one CTA's 227 KB of shared memory, so a thread-block cluster of CL CTAs
-// shares it: CL = the smallest of 1, 2, 4, 8 that leaves each CTA a part
-// of at most 8,192 elements (32 KB; CL = 8 on the path).  Each CTA of 128
+// shares it.  The wrapper picks CL (quantpack.py:cluster_size: 8 CTAs of
+// 8,192 elements, 32 KB, on the path); the launch checks that a part fits
+// the shared memory a CTA takes by default.  Each CTA of 128
 // threads pulls its part into shared memory with one 1-D bulk copy
 // (cp.async.bulk, completion on an mbarrier), takes the part's max and
 // publishes it; after a cluster barrier every CTA reads the CL partials
@@ -46,11 +47,11 @@
 // the others at a second cluster barrier, so no CTA leaves while another
 // may still read its partial.  Small CTAs are the point: six fit an SM,
 // so while some wait at their barriers or quantize, others' copies are in
-// flight.  The shape was chosen by scripts/probe_quantpack.py (CTAs of 64
-// to 256 threads, parts of 32 or 64 KB, the second barrier's arrival
-// before or after the stores; PERF.md §6); persistent clusters walking
-// many tiles through a ring of parts, clusters of 16 and four copies a
-// part were slower in earlier probes.  pack_tiles, the two-pass kernel,
+// flight.  The shape was chosen by timing variants (CTAs of 64 to 256
+// threads, parts of 32 or 64 KB, the second barrier's arrival before or
+// after the stores, persistent clusters walking many tiles through a ring
+// of parts, clusters of 16, four copies a part; PERF.md §6): each of the
+// others was slower.  pack_tiles, the two-pass kernel,
 // takes the tiles the cluster cannot (more than 8 x 8,192 elements, a part
 // that is not a multiple of 4 elements, x not 16-byte or q not 4-byte
 // aligned): one CUDA block per tile, pass 1 a block-stride max with
@@ -69,23 +70,10 @@
 
 namespace {
 
-// pack_cluster's shape.  The defaults are what the path runs; a build may
-// override them for a probe (scripts/probe_quantpack.py times several).
-#ifndef QP_THREADS
-#define QP_THREADS 128
-#endif
-#ifndef QP_MAX_PART
-#define QP_MAX_PART 8192
-#endif
-#ifndef QP_EARLY_ARRIVE
-#define QP_EARLY_ARRIVE 0
-#endif
-
 constexpr int kPackThreads = 512;
-constexpr int kClusterThreads = QP_THREADS;
+constexpr int kClusterThreads = 128;
 constexpr int kUnpackThreads = 256;
-constexpr int64_t kMaxPart = QP_MAX_PART;  // elements of a CTA's part
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 8;   // the portable cluster size
 
 bool aligned(const void* ptr, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
@@ -121,11 +109,7 @@ __device__ __forceinline__ float block_max(float v, float* partial) {
 }
 
 __device__ __forceinline__ int8_t quantize(float x, float safe) {
-#ifdef QP_RECIPROCAL   // a probe of the division's cost; not the reference's
-  const float r = rintf(__fmul_rn(x, __frcp_rn(safe)));
-#else
   const float r = rintf(__fdiv_rn(x, safe));
-#endif
   if (r != r) return 0;                  // a NaN quotient, as the reference
   return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(r, -127.f), 127.f)));
 }
@@ -240,16 +224,15 @@ pack_cluster(const float* __restrict__ x, int8_t* __restrict__ q,
     if (threadIdx.x == 0) tile_max = m;
   }
   __syncthreads();
-  // the second barrier keeps every CTA until the others have read its
-  // partial; arriving at it here, before the stores, measured slower
-  if (QP_EARLY_ARRIVE) cluster_arrive();
   const float scale = scale_of(tile_max);
   if (rank == 0 && threadIdx.x == 0) scales[tile] = scale;
   const float safe = scale > 0.f ? scale : 1.f;
   char4* q4 = reinterpret_cast<char4*>(q + base);
   for (int64_t g = threadIdx.x; g < groups; g += kClusterThreads)
     q4[g] = quantize4(xs[g], safe);
-  if (!QP_EARLY_ARRIVE) cluster_arrive();
+  // the second barrier keeps every CTA until the others have read its
+  // partial; arriving at it before the stores measured slower
+  cluster_arrive();
   cluster_wait();
 }
 
@@ -294,26 +277,22 @@ extern "C" {
 
 // x f32 [n] -> q int8 [n], scales f32 [n / block]; n a multiple of block,
 // one cluster of `cl` CTAs (1, 2, 4 or 8) per tile, each CTA a part of
-// block / cl <= 8,192 elements, a multiple of 4 (a bulk copy's 16 bytes);
-// x 16-byte and q 4-byte aligned.  The wrapper picks cl
-// (quantpack.py:cluster_size).
+// block / cl elements, a multiple of 4 (a bulk copy's 16 bytes), held in
+// the shared memory a CTA takes without opting in to more; x 16-byte and
+// q 4-byte aligned.  The wrapper picks cl (quantpack.py:cluster_size).
 int quantpack_cluster(const float* x, int8_t* q, float* scales, int64_t n,
                       int64_t block, int64_t cl, void* stream) {
   if (cl < 1 || cl > kMaxCluster || (cl & (cl - 1)) != 0 || block % cl != 0 ||
-      block / cl > kMaxPart || (block / cl) % 4 != 0 || !aligned(x, 16) ||
-      !aligned(q, 4))
+      (block / cl) % 4 != 0 || !aligned(x, 16) || !aligned(q, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t part = block / cl;
+  cudaFuncAttributes fa;
+  const cudaError_t got = cudaFuncGetAttributes(&fa, pack_cluster);
+  if (got != cudaSuccess) return static_cast<int>(got);
+  if (part * static_cast<int64_t>(sizeof(float)) > fa.maxDynamicSharedSizeBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = n / block;
   if (tiles == 0) return static_cast<int>(cudaGetLastError());
-  const int64_t part = block / cl;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pack_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxPart * sizeof(float)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(tiles * cl));
   cfg.blockDim = dim3(kClusterThreads);

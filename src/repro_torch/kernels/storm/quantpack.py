@@ -32,6 +32,8 @@ _NAMES = ("quantpack", "quantunpack")
 LAUNCHES = dict.fromkeys(_NAMES, 0)
 CALLS = dict.fromkeys(_NAMES, 0)
 VARIANTS = {"quantpack_cluster": 0, "quantpack_tiles": 0}
+# The cluster kernel's layout, owned here: quantpack.cu checks that the
+# cluster size it is given is portable and that a part fits shared memory.
 MAX_PART, MAX_CLUSTER = 8192, 8      # elements a CTA holds; CTAs a cluster
 PART_MULTIPLE = 4                    # a part's bulk copy: 16-byte multiples
 

@@ -187,3 +187,24 @@ def test_name_lists_equal_the_reference():
     assert (tspec.SAMPLERS, tspec.AGGREGATORS, tspec.LATE_POLICIES,
             tspec.METRIC_GROUPS) == (SAMPLERS, AGGREGATORS, LATE_POLICIES,
                                      METRIC_GROUPS)
+
+
+@pytest.mark.parametrize("name, change", [
+    ("fedavg", {"hparams": {}}),                       # a missing hparam
+    ("fedbio", {"hparams": {"momentum": 0.9}}),        # an unknown one
+    ("fedbio", {"sequences": "fedbio_local"}),         # other sections
+    ("fedbio_local", {"sequences": "no_private"}),     # y not PRIVATE
+])
+def test_register_refuses_a_trainer_that_disagrees(name, change):
+    from repro_torch.api import registry as tregistry
+    from repro_torch.optim import sequences as tseqs
+    aspec = tseqs.SPECS[name]
+    if change.get("sequences") == "no_private":
+        aspec = aspec._replace(sequences=tuple(
+            q._replace(comm=tseqs.AVERAGED) for q in aspec.sequences))
+    elif "sequences" in change:
+        aspec = tseqs.SPECS[change["sequences"]]
+    hparams = change.get("hparams",
+                         {k: 1.0 for k in tspec.ALGORITHMS[name].hparams})
+    with pytest.raises(ValueError, match="disagrees with spec.ALGORITHMS"):
+        tregistry.register(name, aspec, hparams=hparams)
