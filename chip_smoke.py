@@ -67,11 +67,32 @@ Phases, each of which stops the script with a non-zero exit on failure:
    (``SERVE_LAUNCHES``: the scan once per ``rec`` layer, all on the TMA
    kernel, the attention once per ``local`` layer, every other kernel
    never), finite logits, and its
-   prefill time, decode time per step and peak memory.
+   prefill time, decode time per step and peak memory;
+9. the paper's problems (``repro_torch.core``): the Threefry generator on
+   the card against the CPU (keys, bits, integers, uniforms, permutations
+   bit for bit, normals within 4 ulps); (a) two rounds of each of the
+   eight algorithms (Algorithms 1-4 and the Table-1 baselines) on the
+   quadratic (M 8, dx = dy = 10), data cleaning (n_train 256) and
+   hyper-representation (defaults), card against CPU from the same keys
+   and arrays within 1e-4 of each state leaf's norm, Algorithms 1-4 also
+   with ``fuse_storm`` at tiles of 64 and 1024, each fused run within
+   rtol/atol 1e-5 of the card's tree loop and launching its kernel once a
+   local step (CommFedBiO's top-k decisions bounded and aligned as in
+   phase 4); (b) the two examples with their settings, ``fuse_storm`` on,
+   200 rounds: FedBiOAcc's data-cleaning AUC above 0.75, FedBiOAcc-Local's
+   and FedBiO-Local's upper losses falling, each beside the reference's
+   CPU result, with one launch a local step; (c) data cleaning (FedBiOAcc,
+   FedBiO) and hyper-representation (FedBiOAcc-Local, FedBiO-Local) at
+   MNIST's shape (60,000 × 784 features, 10 classes; 6,000 a client for
+   hyper-representation; synthetic, from the seed), 10 clients, 20 rounds:
+   round times, peak memory, launches (one ``storm3_step`` or
+   ``sgd3_step`` a local step, every other kernel never) and a finite
+   upper objective; then both kernels bit for bit on those runs' buffers,
+   timed beside their plain versions.
 
 The line before the last is one JSON object describing each kernel, its
-``launches`` summed over the paths; the last line is
-``{"ok": true, "device": {...}}``.
+``launches`` summed over the paths (phase 9's (b) and (c) included); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -91,9 +112,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import random as jr  # noqa: E402
 from repro_torch.api import Experiment, build  # noqa: E402
+from repro_torch.config import FederatedConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.tree_util import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core import baselines, make_algorithm, problems  # noqa: E402
+from repro_torch.core.fedbio import mean_over_clients  # noqa: E402
+from repro_torch.core.tree_util import (tree_leaves, tree_map,  # noqa: E402
+                                        tree_structure)
+from repro_torch.examples import data_cleaning as cleaning_ex  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    hyper_representation as hyperrep_ex)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash.ref import (band_mask,  # noqa: E402
@@ -107,10 +136,11 @@ from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import flat  # noqa: E402
+from repro_torch.optim import sequences as seqs  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
 from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
                                  bf16_ulps, flash_attention_fault,
-                                 int8_flips, topk_flips)
+                                 int8_flips, leaf_topk_flips, topk_flips)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -907,6 +937,380 @@ def serving_path(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's problems, Algorithms 1-4 and the Table-1 baselines
+# ---------------------------------------------------------------------------
+
+PAPER_CORE = ("fedbio", "fedbioacc", "fedbio_local", "fedbioacc_local")
+PAPER_BASELINES = ("fednest", "commfedbio", "stocbio", "mrbo")
+PAPER_KERNEL = {"fedbio": "sgd3_step", "fedbio_local": "sgd3_step",
+                "fedbioacc": "storm3_step", "fedbioacc_local": "storm3_step"}
+PAPER_BLOCKS = (64, 1024)
+# the examples' runs of the JAX package on a CPU (jax 0.9.0, 200 rounds):
+# detection AUC, and the upper validation loss before and after
+PAPER_REFERENCE = {"fedbioacc": 0.8457, "fedbioacc_local": (1.4803, 1.1935),
+                   "fedbio_local": (1.3161, 0.8870)}
+# MNIST's shape (60,000 samples of 28x28 features, 10 classes), synthetic
+REAL_ROUNDS = 20
+REAL = {"data_cleaning": dict(num_clients=10, n_train=60_000, n_val=1_000,
+                              dim=784, classes=10, corrupt_frac=0.4,
+                              batch_size=256),
+        "hyperrep": dict(num_clients=10, n=6_000, dim=784, hidden=256,
+                         classes=10, batch_size=256)}
+REAL_ALGOS = {"data_cleaning": ("fedbioacc", "fedbio"),
+              "hyperrep": ("fedbioacc_local", "fedbio_local")}
+# the examples' step sizes (examples/data_cleaning.py, hyper_representation.py)
+EXAMPLE_LRS = {"data_cleaning": dict(lr_x=0.3, lr_y=0.3, lr_u=0.3),
+               "hyperrep": dict(lr_x=0.1, lr_y=0.2, lr_u=0.2, neumann_q=10,
+                                neumann_tau=0.15)}
+
+
+def _paper_problems():
+    """The three problems at the reference's default sizes, built once on
+    the CPU: name → (CPU problem, the same arrays' problem on ``dev``)."""
+    quad = problems.quadratic_problem(jr.PRNGKey(0))
+    arrays = {k: v for k, v in quad.sample_batches(jr.PRNGKey(0)).items()
+              if k in ("Ag", "B", "c", "D", "x0", "y0")}
+    clean = problems.data_cleaning_problem(jr.PRNGKey(1))
+    hyper = problems.hyperrep_problem(jr.PRNGKey(2))
+    return {
+        "quadratic": (problems.quadratic_from_arrays(arrays),
+                      lambda d: problems.quadratic_from_arrays(
+                          tree_map(lambda t: t.to(d), arrays))),
+        "data_cleaning": (clean, lambda d: problems.data_cleaning_from_data(
+            tree_map(lambda t: t.to(d), clean.data))),
+        "hyperrep": (hyper, lambda d: problems.hyperrep_from_data(
+            tree_map(lambda t: t.to(d), hyper.data)))}
+
+
+def _state_leaves(state):
+    return [t for name in state._fields[:-1]
+            for t in tree_leaves(getattr(state, name))]
+
+
+def _two_rounds(prob, cfg, dev):
+    alg = make_algorithm(prob, cfg)
+    state = alg.init(jr.PRNGKey(1, device=dev))
+    key = jr.PRNGKey(2, device=dev)
+    for _ in range(2):
+        key, sub = jr.split(key)
+        state, _ = alg.round(state, sub)
+    return state
+
+
+def _topk_following(orig, calls: list, flips: list):
+    """CommFedBiO's compressor on the card taking the CPU run's keep
+    decisions (``calls``: its recorded inputs and outputs), after checking
+    that every entry decided otherwise lies within 2·D of the CPU's
+    threshold, D the largest difference of the two inputs in the leaf (the
+    threshold is an order statistic: it moves by at most D;
+    ``testing.leaf_topk_flips``); ``orig`` is the compressor itself."""
+    def follow(tree, ratio):
+        c_in, c_out = calls.pop(0)
+        out = []
+        for a, kept, b in zip(tree_leaves(c_in), tree_leaves(c_out),
+                              tree_leaves(tree)):
+            try:
+                off = leaf_topk_flips(a.numpy(), kept.numpy() != 0,
+                                      b.cpu().numpy(),
+                                      orig(b, ratio).cpu().numpy() != 0,
+                                      ratio)
+            except AssertionError as err:
+                raise SystemExit(f"commfedbio: the card's top-k decided "
+                                 f"entries far from the threshold "
+                                 f"otherwise {err}") from err
+            flips.append(int(off.sum()))
+            out.append(torch.where(kept.to(b.device) != 0, b, 0.0))
+        return tree_structure(tree).unflatten(out)
+    return follow
+
+
+def random_cross_check(dev) -> None:
+    """The Threefry generator draws on the key's device: on the card the
+    keys, bits, integers and uniforms equal the CPU's bit for bit, and the
+    normals agree within 4 f32 ulps (``log1p`` and ``sqrt`` differ)."""
+    key = jr.PRNGKey(7)
+    draws = (lambda k: jr.split(k, 5), lambda k: jr.fold_in(k, 3),
+             lambda k: jr.bits(k, (1000,)),
+             lambda k: jr.randint(k, (8, 256), 0, 60_000),
+             lambda k: jr.uniform(k, (1000,), minval=0.3, maxval=1.7),
+             lambda k: jr.permutation(k, 2000))
+    for i, draw in enumerate(draws):
+        if not same_bits(draw(key.to(dev)).cpu(), draw(key)):
+            raise SystemExit(f"the generator's draw {i} differs on the card")
+    got, want = jr.normal(key.to(dev), (100_000,)).cpu(), jr.normal(key,
+                                                                 (100_000,))
+    ulp = (got.double() - want.double()).abs() / torch.from_numpy(np.spacing(
+        np.maximum(got.abs().numpy(), want.abs().numpy())).astype(np.float64))
+    differ = float((ulp > 0).double().mean())
+    log(f"generator on the card: keys, bits, randint, uniform and "
+        f"permutation bit for bit with the CPU's; normals within "
+        f"{float(ulp.max()):.0f} ulps (limit 4; {differ:.4%} differ)")
+    if not float(ulp.max()) <= 4:
+        raise SystemExit("the generator's normals differ on the card")
+
+
+def paper_cross_check(dev) -> None:
+    """(a) Two rounds of each algorithm on the card against two on the CPU
+    from the same keys and the same problem arrays, within 1e-4 of each
+    state leaf's norm; Algorithms 1-4 with fuse_storm off and on (tiles of
+    64 and of 1024), each fused run within rtol 1e-5 / atol 1e-5 of the
+    card's tree loop, with its kernel launched once a local step."""
+    worst, fused_worst, flips = 0.0, 0.0, []
+    for pname, (cpu_prob, on) in _paper_problems().items():
+        card_prob = on(dev)
+        for algo in PAPER_CORE + PAPER_BASELINES:
+            variants = [(False, 1024)]
+            if algo in PAPER_CORE:
+                variants += [(True, b) for b in PAPER_BLOCKS]
+            tree_card = None
+            for fuse, block in variants:
+                cfg = FederatedConfig(algorithm=algo, num_clients=8,
+                                      fuse_storm=fuse, fuse_storm_block=block)
+                orig, calls = baselines._topk_compress, []
+
+                def record(tree, ratio):
+                    out = orig(tree, ratio)
+                    calls.append((tree, out))
+                    return out
+
+                baselines._topk_compress = record
+                try:
+                    cpu = _two_rounds(cpu_prob, cfg, torch.device("cpu"))
+                    baselines._topk_compress = _topk_following(orig, calls,
+                                                               flips)
+                    reset_counts()
+                    card = _two_rounds(card_prob, cfg, dev)
+                finally:
+                    baselines._topk_compress = orig
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                want = dict.fromkeys(launches, 0)
+                if fuse:
+                    want[PAPER_KERNEL[algo]] = 2 * cfg.local_steps
+                if launches != want:
+                    raise SystemExit(f"{pname} {algo} fuse_storm={fuse}: "
+                                     f"launched {launches}, expected {want}")
+                for g, c in zip(_state_leaves(card), _state_leaves(cpu)):
+                    diff = float((g.cpu() - c).norm())
+                    if not diff <= 1e-4 * float(c.norm()):
+                        raise SystemExit(
+                            f"{pname} {algo} fuse_storm={fuse} block "
+                            f"{block}: card vs CPU {diff} of norm "
+                            f"{float(c.norm())}")
+                    worst = max(worst, diff / max(float(c.norm()), 1e-30))
+                if not fuse:
+                    tree_card = card
+                    continue
+                for g, t in zip(_state_leaves(card), _state_leaves(tree_card)):
+                    if not torch.allclose(g, t, rtol=1e-5, atol=1e-5):
+                        raise SystemExit(f"{pname} {algo} block {block}: the "
+                                         f"fused run differs from the tree "
+                                         f"loop on the card")
+                    fused_worst = max(fused_worst, float(
+                        ((g - t).abs() / (1e-5 + 1e-5 * t.abs())).max()))
+    log(f"paper cross-check (quadratic M 8 dx = dy = 10, data cleaning "
+        f"n_train 256, hyper-representation defaults; 8 algorithms, 2 "
+        f"rounds, Algorithms 1-4 also fused at tiles of {PAPER_BLOCKS}): "
+        f"card vs CPU worst relative leaf difference {worst:.3e} (limit "
+        f"1e-4); fused vs tree loop on the card worst {fused_worst:.3f} of "
+        f"rtol 1e-5 / atol 1e-5; CommFedBiO top-k decisions taken "
+        f"otherwise on the card {sum(flips)} of {len(flips)} leaf calls, "
+        f"each within 2·D of the threshold")
+
+
+def _counted(name: str, kernel: str, steps: int, fn):
+    """``fn()`` with the launches counted over it alone: ``kernel`` once a
+    local step, every other kernel never.  Returns (fn's result, counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {**dict.fromkeys(launches, 0), kernel: steps}
+    if launches != want:
+        raise SystemExit(f"{name} launched {launches}, expected {want}")
+    return out, launches
+
+
+def paper_examples(dev) -> dict:
+    """(b) The examples on the card with their own settings, fuse_storm on,
+    200 rounds: FedBiOAcc's data-cleaning AUC above 0.75, the two
+    local-lower algorithms' upper loss falling; beside the reference's
+    CPU results.  Returns the launches."""
+    total = {}
+    t0 = time.perf_counter()
+    (_, auc), n = _counted(
+        "data_cleaning fedbioacc", "storm3_step", 800,
+        lambda: cleaning_ex.run("fedbioacc", 200, dev, fuse_storm=True,
+                                     report_every=200, log=log))
+    log(f"example data_cleaning fedbioacc (fused, 200 rounds, "
+        f"{time.perf_counter() - t0:.1f} s): detection AUC {auc:.4f} "
+        f"(reference {PAPER_REFERENCE['fedbioacc']}; limit > 0.75)")
+    if not auc > 0.75:
+        raise SystemExit("data cleaning on the card failed to separate the "
+                         "corrupted samples")
+    total = {k: total.get(k, 0) + v for k, v in n.items()}
+    for algo in ("fedbioacc_local", "fedbio_local"):
+        t0 = time.perf_counter()
+        (v0, vT), n = _counted(
+            f"hyperrep {algo}", PAPER_KERNEL[algo], 800,
+            lambda a=algo: hyperrep_ex.run(a, 200, dev, fuse_storm=True,
+                                           log=log))
+        ref = PAPER_REFERENCE[algo]
+        log(f"example hyperrep {algo} (fused, 200 rounds, "
+            f"{time.perf_counter() - t0:.1f} s): upper loss {v0:.4f} -> "
+            f"{vT:.4f} (reference {ref[0]} -> {ref[1]})")
+        if not (math.isfinite(vT) and vT < v0):
+            raise SystemExit(f"hyperrep {algo}: the upper loss did not fall")
+        total = {k: total.get(k, 0) + v for k, v in n.items()}
+    return total
+
+
+def _real_problem(pname: str, dev):
+    if pname == "data_cleaning":
+        return problems.data_cleaning_problem(jr.PRNGKey(1, device=dev),
+                                              **REAL[pname])
+    return problems.hyperrep_problem(jr.PRNGKey(2, device=dev),
+                                     **REAL[pname])
+
+
+def paper_realistic(dev) -> tuple:
+    """(c) Each problem at MNIST's shape, 10 clients, 4 local steps, the
+    examples' step sizes, fuse_storm on, 20 rounds: warm round times (host
+    clock around synchronised work), peak memory, launches, a finite upper
+    objective; then ``storm3_step`` and ``sgd3_step`` on the paths' own
+    buffers, bit for bit and timed.  Returns (launches, buffers)."""
+    total, buffers = {}, {}
+    for pname, algos in REAL_ALGOS.items():
+        prob = _real_problem(pname, dev)
+        batch = tree_map(lambda v: v[0], prob.sample_batches(jr.PRNGKey(9)))
+        for algo in algos:
+            cfg = FederatedConfig(algorithm=algo, num_clients=10,
+                                  local_steps=4, fuse_storm=True,
+                                  **EXAMPLE_LRS[pname])
+            alg = make_algorithm(prob, cfg)
+            # the data on the card, the keys on the host (as the examples)
+            state = alg.init(jr.PRNGKey(0))
+            key = jr.PRNGKey(3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+            def rounds():
+                nonlocal state, key
+                times = []
+                for _ in range(REAL_ROUNDS):
+                    key, sub = jr.split(key)
+                    t0 = time.perf_counter()
+                    state, _ = alg.round(state, sub)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return times
+
+            times, n = _counted(f"{pname} {algo} at MNIST's shape",
+                                PAPER_KERNEL[algo], 4 * REAL_ROUNDS, rounds)
+            peak = torch.cuda.max_memory_allocated(dev)
+            x, y = alg.mean_x(state), mean_over_clients(state.y)
+            upper = float(prob.f(x, y, batch))
+            extra = ""
+            if pname == "data_cleaning":
+                auc = cleaning_ex.detection_auc(x, prob.data["corrupt_mask"])
+                extra = f", detection AUC {auc:.4f}"
+            warm = times[1:]
+            log(f"realistic {pname} {algo} ({REAL[pname]}, 4 local steps, "
+                f"{REAL_ROUNDS} rounds, {EXAMPLE_LRS[pname]}): round ms "
+                f"median {statistics.median(warm):.2f} (first "
+                f"{times[0]:.2f}, warm min {min(warm):.2f} max "
+                f"{max(warm):.2f}), peak memory {peak} B, launches "
+                f"{ {k: v for k, v in n.items() if v} }, upper objective "
+                f"{upper:.6f}{extra}")
+            if not math.isfinite(upper):
+                raise SystemExit(f"{pname} {algo}: non-finite upper "
+                                 f"objective")
+            total = {k: total.get(k, 0) + v for k, v in n.items()}
+            x1, y1 = prob.init_xy(jr.PRNGKey(0))
+            aspec = seqs.SPECS[algo]
+            tmpl = {"x": x1, "y": y1, "u": y1}
+            spec = flat.make_spec({s: tmpl[s] for s in aspec.sections},
+                                  sections=aspec.sections,
+                                  block=cfg.fuse_storm_block)
+            trees = {"x": state.x, "y": state.y,
+                     "u": getattr(state, "u", None)}
+            moms = {"x": getattr(state, "nu", None),
+                    "y": getattr(state, "omega", None),
+                    "u": getattr(state, "q", None)}
+            bufs = flat.flatten_tree(spec, {s: trees[s]
+                                            for s in aspec.sections},
+                                     batch_dims=1)
+            mom = (flat.flatten_tree(spec, {s: moms[s]
+                                            for s in aspec.sections},
+                                     batch_dims=1, dtype=torch.float32)
+                   if aspec.kind == "storm" else None)
+            buffers[f"{pname} {algo}"] = (PAPER_KERNEL[algo], spec, bufs[0],
+                                          None if mom is None else mom[0])
+            del alg, state
+        del prob
+        torch.cuda.empty_cache()
+    return total, buffers
+
+
+def paper_kernels(buffers: dict, dev) -> None:
+    """``storm3_step`` and ``sgd3_step`` on the realistic paths' own
+    buffers (their final variables and momenta; the old-iterate gradient a
+    draw of the same shape), bit for bit against the plain versions, timed
+    beside them."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for what, (kname, spec, p, m) in buffers.items():
+        grp = spec.groups[0]
+        tiles = p.numel() // grp.block
+        lrs = 0.1 * torch.rand(tiles, generator=gen, device=dev)
+        decays = torch.rand(tiles, generator=gen, device=dev)
+        p = p.contiguous().reshape(-1)
+        g = torch.randn(p.shape, generator=gen, device=dev)
+        if kname == "storm3_step":
+            m = m.contiguous().reshape(-1)
+            args = (p, m, g, lrs, decays)
+        else:
+            args = (p, g, lrs)
+        k = KERNELS[kname]
+        out = k.wrapper(*args, block=grp.block)
+        want = k.plain(*args, grp.block)
+        torch.cuda.synchronize()
+        out, want = ((o,) if torch.is_tensor(o) else o for o in (out, want))
+        if not all(same_bits(o, w) for o, w in zip(out, want)):
+            raise SystemExit(f"{kname} differs from its plain version on "
+                             f"the {what} buffers")
+        moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+        k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block),
+                        KERNEL_RUNS)
+        p_ms = timed_ms(lambda: k.plain(*args, grp.block), PLAIN_RUNS)
+        bound = max(moved / HBM_BYTES_PER_S,
+                    k.ops * p.numel() / F32_FLOPS_PER_S) * 1e3
+        log(f"{kname} on the {what} path's buffers f32 "
+            f"[{p.numel() // grp.padded}, {grp.padded}] (tile {grp.block}): "
+            f"bitwise equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"{moved} B, bound {bound:.4f} ms ({bound / k_ms:.1%} of the "
+            f"bound)")
+
+
+def paper_phase(dev) -> dict:
+    """Phase 9: (a), (b) and (c); returns the launches of (b) and (c)."""
+    t0 = time.perf_counter()
+    random_cross_check(dev)
+    paper_cross_check(dev)
+    torch.cuda.empty_cache()
+    launches = paper_examples(dev)
+    torch.cuda.empty_cache()
+    real, buffers = paper_realistic(dev)
+    paper_kernels(buffers, dev)
+    del buffers
+    torch.cuda.empty_cache()
+    log(f"phase 9 (the paper's problems) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {k: launches.get(k, 0) + real.get(k, 0)
+            for k in set(launches) | set(real)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -949,6 +1353,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_cross_check(dev)
     launches = serving_path(dev)
+    for kname, k in kernels.items():
+        k["launches"] += launches[kname]
+
+    torch.cuda.empty_cache()
+    launches = paper_phase(dev)
     for kname, k in kernels.items():
         k["launches"] += launches[kname]
 

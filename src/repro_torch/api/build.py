@@ -93,8 +93,6 @@ def unported_features(exp: Experiment) -> list:
          no_grad.format("LRU-scan") + ")", kernel_training),
         (not ex.fuse_storm, "execution.fuse_storm=false (the unfused tree "
          "path)", model_scale),
-        (not ex.fuse_oracles, "execution.fuse_oracles=false",
-         "queue 1, 'Hypergradient oracles'"),
         (ex.n_micro != 1 or ex.remat, "execution.n_micro > 1 / remat",
          model_scale),
     ]

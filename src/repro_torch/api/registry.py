@@ -10,6 +10,9 @@ registration takes the sections from it and refuses a trainer that
 disagrees with it.
 Ported so far: FedBiO, FedBiOAcc, FedBiO-Local and FedAvg; FedBiOAcc-Local
 waits.
+
+:func:`make_algorithm` is the problem-level factory: the paper's
+Algorithms 1-4 and the Table-1 baselines on a ``core.problems.Problem``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Mapping, Tuple
 
 from repro_torch.api.spec import ALGORITHMS
-from repro_torch.optim.sequences import PRIVATE, AlgoSpec
 
 
 @dataclass(frozen=True)
@@ -40,12 +42,14 @@ class AlgorithmEntry:
 _TRAINERS: Dict[str, AlgorithmEntry] = {}
 
 
-def register(name: str, sequences: AlgoSpec, *,
+def register(name: str, sequences, *,
              hparams: Mapping[str, float] | None = None,
              cfg_fields: Tuple[str, ...] = ()):
     """Decorator: register a ``make_*_train_step`` factory under ``name``,
-    running the sequence spec ``sequences``.  Its hyperparameter names,
-    sections and PRIVATE sections must be those of ``ALGORITHMS[name]``."""
+    running the sequence spec ``sequences`` (an ``optim.sequences.AlgoSpec``).
+    Its hyperparameter names, sections and PRIVATE sections must be those of
+    ``ALGORITHMS[name]``."""
+    from repro_torch.optim.sequences import PRIVATE
     known = ALGORITHMS[name]
     hparams = dict(hparams or {})
     private = tuple(q.section for q in sequences.sequences
@@ -85,3 +89,37 @@ def get(name: str) -> AlgorithmEntry:
             f"{list(names())}); see ROADMAP queue 1, item 'Remaining "
             f"algorithms'")
     return _TRAINERS[name]
+
+
+# ---------------------------------------------------------------------------
+# Problem-level algorithms (the paper's Algorithms 1-4 and Table-1 baselines)
+# ---------------------------------------------------------------------------
+
+def _core_factories() -> Dict[str, Callable]:
+    from repro_torch.core.baselines import (make_commfedbio, make_fednest,
+                                            make_mrbo, make_stocbio)
+    from repro_torch.core.fedbio import make_fedbio
+    from repro_torch.core.fedbioacc import make_fedbioacc
+    from repro_torch.core.local_lower import (make_fedbio_local,
+                                              make_fedbioacc_local)
+    return {
+        "fedbio": make_fedbio,
+        "fedbioacc": make_fedbioacc,
+        "fedbio_local": make_fedbio_local,
+        "fedbioacc_local": make_fedbioacc_local,
+        "fednest": make_fednest,
+        "commfedbio": make_commfedbio,
+        "stocbio": make_stocbio,
+        "mrbo": make_mrbo,
+    }
+
+
+def make_algorithm(problem, cfg):
+    """Problem-level algorithm factory (``cfg.algorithm`` names it): the
+    loops of Algorithms 1-4 and the Table-1 baselines on a
+    :class:`repro_torch.core.problems.Problem`."""
+    factories = _core_factories()
+    if cfg.algorithm not in factories:
+        raise KeyError(f"unknown algorithm {cfg.algorithm!r}; "
+                       f"choose from {sorted(factories)}")
+    return factories[cfg.algorithm](problem, cfg)

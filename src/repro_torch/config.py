@@ -7,7 +7,8 @@
 
 Field names, defaults and :meth:`ModelConfig.reduced` are the JAX package's,
 so that one experiment spec means the same model and the same schedule in
-both; ``FederatedConfig`` carries only the fields an experiment sets.  The
+both; ``FederatedConfig`` carries the fields an experiment sets and those
+the problem-level algorithms of ``repro_torch.core`` read.  The
 TPU roofline constants of the JAX package are not carried over: the port's
 device numbers come from runs on the card.
 """
@@ -126,6 +127,15 @@ class FederatedConfig:
     neumann_q: int = 8
     neumann_tau: float = 0.5
     lower_l2: float = 1e-2
+    # CommFedBiO's top-k ratio
+    compress_ratio: float = 0.1
     hierarchy_period: int = 0
     hierarchy_groups: int = 2
+    # the problem-level algorithms' switches (the model-scale trainers take
+    # them as keyword arguments): one shared minibatch and linearization
+    # for the oracle directions; the flat substrate with its fused kernel
+    # launch per local step, over tiles of fuse_storm_block elements
+    fuse_oracles: bool = False
+    fuse_storm: bool = False
+    fuse_storm_block: int = 1024
     seed: int = 0

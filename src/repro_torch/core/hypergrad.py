@@ -1,11 +1,16 @@
 """Hyper-gradient oracles (counterpart of ``repro/core/hypergrad.py``).
 
 Second-order quantities are matrix-free Hessian- and Jacobian-vector
-products.  As in the reference they come from forward-over-reverse
-differentiation: ``torch.func.jvp`` of ``torch.func.grad``.  Every backward
-formula the Mamba-2 model needs (embedding gather, ``cumsum``, ``where`` with
-``-inf``, the SSD einsums) has forward-mode support in PyTorch, so no
-reverse-over-reverse substitute is used.
+products.  As in the reference, the Hessian-vector products and the fused
+oracles come from forward-over-reverse differentiation (``torch.func.jvp``
+of ``torch.func.grad``), and the unfused ``jvp_xy`` from reverse over
+reverse (the gradient in x of ⟨∇_y g, u⟩).  Every backward formula the
+Mamba-2 model needs (embedding gather, ``cumsum``, ``where`` with ``-inf``,
+the SSD einsums) has forward-mode support in PyTorch.
+
+The unfused functions (``grad_y``, ``nu_direction``, ``u_residual``,
+``u_step``, ``neumann_hypergrad``) take one batch per derivative, as the
+paper's independent minibatches; the fused ones share one batch.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 from torch.func import grad, jvp
 
 from repro_torch.core.tree_util import (tree_axpy, tree_map, tree_scale,
-                                        tree_sub, tree_zeros_like)
+                                        tree_sub, tree_vdot, tree_zeros_like)
 
 
 def grad_x(f: Callable, x, y, batch):
@@ -31,6 +36,27 @@ def hvp_yy(g: Callable, x, y, batch, u):
     return jvp(lambda yy: grad(g, argnums=1)(x, yy, batch), (y,), (u,))[1]
 
 
+def jvp_xy(g: Callable, x, y, batch, u):
+    """∇²_xy g(x, y; batch) · u  =  ∇_x ⟨∇_y g(x, y; batch), u⟩."""
+    return grad(lambda xx: tree_vdot(grad(g, argnums=1)(xx, y, batch), u))(x)
+
+
+def u_step(g: Callable, f: Callable, x, y, u, batch_g, batch_f, tau: float):
+    """One local step on the quadratic problem Eq. (4):
+    ``u ← u − τ (∇²_yy g · u − ∇_y f)``."""
+    return tree_axpy(-tau, u_residual(g, f, x, y, u, batch_g, batch_f), u)
+
+
+def u_residual(g: Callable, f: Callable, x, y, u, batch_g, batch_f):
+    """p = ∇²_yy g · u − ∇_y f (the q-momentum target in FedBiOAcc)."""
+    return tree_sub(hvp_yy(g, x, y, batch_g, u), grad_y(f, x, y, batch_f))
+
+
+def nu_direction(g: Callable, f: Callable, x, y, u, batch_g, batch_f):
+    """ν = ∇_x f(x,y;B_f) − ∇²_xy g(x,y;B_g) · u  (Alg. 1 line 6)."""
+    return tree_sub(grad_x(f, x, y, batch_f), jvp_xy(g, x, y, batch_g, u))
+
+
 def _neumann_ihvp(g: Callable, x, y, batch_g, v0, q_terms: int, tau: float):
     """The truncated series [τ Σ_{k=0}^{Q} (I − τ∇²_yy g)^k] v0: Q HVPs on
     the one minibatch, in the reference's order of operations."""
@@ -40,6 +66,19 @@ def _neumann_ihvp(g: Callable, x, y, batch_g, v0, q_terms: int, tau: float):
         v = tree_axpy(-tau, hvp_yy(g, x, y, batch_g, v), v)   # v ← (I − τH) v
         acc = tree_map(torch.add, acc, v)
     return tree_scale(tau, acc)
+
+
+def neumann_hypergrad(g: Callable, f: Callable, x, y, batch_g, batch_f,
+                      q_terms: int, tau: float):
+    """Eq. (6): Φ = ∇_x f − ∇_xy g · [τ Σ_{k=0}^{Q} (I − τ∇²_yy g)^k] ∇_y f."""
+    ihvp = _neumann_ihvp(g, x, y, batch_g, grad_y(f, x, y, batch_f),
+                         q_terms, tau)
+    return tree_sub(grad_x(f, x, y, batch_f), jvp_xy(g, x, y, batch_g, ihvp))
+
+
+def exact_hypergrad_quadratic(problem, x, y):
+    """For tests: the closed-form Φ(x, y_x) of a problem that has one."""
+    return problem.exact_hypergrad(x, y)
 
 
 def fused_g_oracles(g: Callable, x, y, batch, u):
@@ -62,7 +101,6 @@ def fused_oracles(g: Callable, f: Callable, x, y, u, batch):
     omega, txy, tyy = fused_g_oracles(g, x, y, batch, u)
     fx, fy = grad(f, argnums=(0, 1))(x, y, batch)
     return omega, tree_sub(fx, txy), tree_sub(tyy, fy)
-
 
 
 def fused_local_oracles(g: Callable, f: Callable, x, y, batch,

@@ -85,6 +85,10 @@ def tree_map(fn: Callable, tree, *rest):
     return treedef.unflatten([fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a, b):
     return tree_map(torch.sub, a, b)
 
@@ -98,8 +102,51 @@ def tree_axpy(s, a, b):
     return tree_map(lambda x, y: y + s * x, a, b)
 
 
+def tree_vdot(a, b):
+    """Σ over leaves of the f32 dot products, accumulated from an f32 zero
+    in leaf order."""
+    parts = tree_leaves(tree_map(
+        lambda x, y: torch.vdot(x.reshape(-1).to(torch.float32),
+                                y.reshape(-1).to(torch.float32)), a, b))
+    return sum(parts, torch.zeros((), dtype=torch.float32,
+                                  device=parts[0].device if parts else None))
+
+
+def tree_sqnorm(a):
+    return tree_vdot(a, a)
+
+
 def tree_zeros_like(a):
     return tree_map(torch.zeros_like, a)
+
+
+def tree_randn_like(key, a, scale=1.0):
+    """Standard normal leaves shaped as ``a``'s, one key of ``split(key)``
+    per leaf in leaf order (``repro_torch.random``)."""
+    from repro_torch import random as jr
+    leaves, treedef = tree_flatten(a)
+    keys = jr.split(key, len(leaves))
+    return treedef.unflatten([scale * jr.normal(k, tuple(x.shape), x.dtype)
+                              .to(x.device) for k, x in zip(keys, leaves)])
+
+
+def tree_size(a) -> int:
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def client_mean(tree):
+    """Average over the leading client axis and broadcast back: the
+    communication round.  With the reference's arithmetic: summed in f32
+    (``jnp.mean`` upcasts bf16), multiplied by the f32 reciprocal of M (XLA
+    turns the division by the constant M into that product), cast to the
+    leaf's dtype."""
+    def one(x):
+        inv = torch.tensor(1.0 / x.shape[0], dtype=torch.float32,
+                           device=x.device)
+        m = x.to(torch.float32).sum(dim=0, keepdim=True) * inv
+        return m.to(x.dtype).expand_as(x)
+
+    return tree_map(one, tree)
 
 
 def tree_stack(trees):

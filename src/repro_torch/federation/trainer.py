@@ -12,8 +12,12 @@ FedBiO and FedBiO-Local its sgd kind through ``sgd3_step``, FedAvg through
 
 Every factory takes ``compression=`` (a ``CompressionSpec``): the engine's
 reductions then move quantized and/or top-k sends with per-client error
-feedback.  Only ``fuse_storm=True`` with ``fuse_oracles=True`` is ported;
-the unfused tree path and FedBiOAcc-Local wait (ROADMAP queue 1).
+feedback.  ``fuse_oracles`` picks the fused oracles (one shared
+linearization) or the separate ones (``grad_y``, ``nu_direction``,
+``u_residual``; ``neumann_hypergrad`` for the local-lower pair), on the
+step's one batch either way, as the reference's trainer does.  Only
+``fuse_storm=True`` is ported; the unfused tree path and the FedBiOAcc-Local
+trainer wait (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -61,13 +65,6 @@ def _bcast(tree, m: int):
     return tree_map(lambda v: v[None].expand((m,) + tuple(v.shape)), tree)
 
 
-def _require_fused_oracles(fuse_oracles: bool) -> None:
-    if not fuse_oracles:
-        raise NotImplementedError(
-            "the unfused oracles (fuse_oracles=false) are not ported yet "
-            "(ROADMAP queue 1, item 'Hypergradient oracles')")
-
-
 def _over_clients(oracle, m: int):
     """The per-client ``oracle(v, batch) -> {section: tree}`` looped over the
     leading client axis of ``v`` and ``batch``, results stacked."""
@@ -94,12 +91,16 @@ def _global_lower_setup(model: Model, cfg: FederatedConfig, f, g,
     three global-lower oracle directions (μ, ω, u-residual p) keyed by
     section and looped over the clients, the x|y|u templates, and the
     broadcast client init."""
-    _require_fused_oracles(fuse_oracles)
     M = cfg.num_clients
 
     def oracle(v, batch):
         x, y, u = v["x"], v["y"], v["u"]
-        omega, mu, p = hg.fused_oracles(g, f, x, y, u, batch)
+        if fuse_oracles:
+            omega, mu, p = hg.fused_oracles(g, f, x, y, u, batch)
+        else:
+            omega = hg.grad_y(g, x, y, batch)
+            mu = hg.nu_direction(g, f, x, y, u, batch, batch)
+            p = hg.u_residual(g, f, x, y, u, batch, batch)
         return {"x": mu, "y": omega, "u": p}
 
     tmpl = model.init(None)
@@ -118,12 +119,17 @@ def _local_lower_setup(model: Model, cfg: FederatedConfig, f, g,
     """(voracle, templates, init_trees) of the local-lower algorithms: the
     (Φ, ω) oracle pair keyed by section and looped over the clients, the
     x|y templates, and the broadcast-body / private-heads client init."""
-    _require_fused_oracles(fuse_oracles)
     M = cfg.num_clients
 
     def oracle(v, batch):
-        omega, nu = hg.fused_local_oracles(g, f, v["x"], v["y"], batch,
-                                           cfg.neumann_q, cfg.neumann_tau)
+        x, y = v["x"], v["y"]
+        if fuse_oracles:
+            omega, nu = hg.fused_local_oracles(g, f, x, y, batch,
+                                               cfg.neumann_q, cfg.neumann_tau)
+        else:
+            omega = hg.grad_y(g, x, y, batch)
+            nu = hg.neumann_hypergrad(g, f, x, y, batch, batch,
+                                      cfg.neumann_q, cfg.neumann_tau)
         return {"x": nu, "y": omega}
 
     tmpl = model.init(None)

@@ -1,0 +1,1 @@
+from repro_torch.optim.optimizers import adam, momentum, sgd  # noqa: F401

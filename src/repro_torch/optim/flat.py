@@ -31,7 +31,7 @@ from typing import Any, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.tree_util import tree_flatten, tree_map
+from repro_torch.core.tree_util import client_mean, tree_flatten, tree_map
 from repro_torch.kernels.storm.kernel import (BLOCK, momsgd3_step, sgd3_step,
                                               storm3_step, storm3_update)
 from repro_torch.kernels.storm.quantpack import (quantpack_flat,
@@ -259,13 +259,9 @@ def buffers_add(a, b):
 # ---------------------------------------------------------------------------
 
 def _bcast_mean(x):
-    """Client mean over the leading axis, broadcast back, with the
-    reference's arithmetic: summed in f32 (``jnp.mean`` upcasts bf16), then
-    multiplied by the f32 reciprocal of M (XLA turns the division by the
-    constant M into that product), then cast to the buffer dtype."""
-    m = x.to(torch.float32).sum(dim=0, keepdim=True) * _inv(x.shape[0],
-                                                            x.device)
-    return m.to(x.dtype).expand_as(x)
+    """Client mean of one buffer run over the leading axis, broadcast back
+    (``tree_util.client_mean``'s arithmetic)."""
+    return client_mean(x)
 
 
 def _inv(m: int, device) -> torch.Tensor:

@@ -67,6 +67,14 @@ class AlgoSpec(NamedTuple):
     def has_momentum(self) -> bool:
         return self.kind == "storm" or self.beta != 0.0 or self.carry_momentum
 
+    def without_hierarchy(self) -> "AlgoSpec":
+        """HIERARCHICAL → AVERAGED: the paper's flat averaging whatever
+        ``cfg.hierarchy_period`` says (the problem-level algorithms use it,
+        so that ``fuse_storm`` changes how they run and nothing else)."""
+        return self._replace(sequences=tuple(
+            q._replace(comm=AVERAGED) if q.comm == HIERARCHICAL else q
+            for q in self.sequences))
+
 
 # FedAvg's β is a factory knob, not a cfg field: its maker replaces it.
 SPECS = {
@@ -83,6 +91,10 @@ SPECS = {
     "fedbio_local": AlgoSpec("fedbio_local", "sgd", (
         Sequence("x", "nu", "lr_x"),
         Sequence("y", "omega", "lr_y", comm=PRIVATE),
+    )),
+    "fedbioacc_local": AlgoSpec("fedbioacc_local", "storm", (
+        Sequence("x", "nu", "lr_x", "c_nu"),
+        Sequence("y", "omega", "lr_y", "c_omega", comm=PRIVATE),
     )),
     "fedavg": AlgoSpec("fedavg", "sgd", (
         Sequence("params", "mom", "lr_x"),

@@ -2,7 +2,8 @@
 runs of the compressed reduction cannot be fed bit-identical inputs (the
 port against the JAX package, or the card against the CPU), per-tile top-k
 and int8 rounding are discontinuous, and these helpers find and bound the
-entries that the two runs decided differently.  For the bf16 attention,
+entries that the two runs decided differently (so does CommFedBiO's
+whole-leaf top-k).  For the bf16 attention,
 a limit in bf16 ulps that the exact kernel meets and a kernel that rounds
 p to bf16 or skips a key tile does not, and plain versions of those two
 faults to show it.  Imports neither JAX nor the JAX package, so the card's
@@ -86,6 +87,26 @@ def topk_flips(acc_a, sent_a, acc_b, sent_b, block: int, frac: float):
     far = flips & (np.abs(mag - thr) > 2 * d)
     assert not far.any(), (int(far.sum()), int(flips.sum()))
     return flips.reshape(shape)
+
+
+def leaf_topk_flips(acc_a, kept_a, acc_b, kept_b, ratio: float):
+    """The entries that one side's whole-leaf top-k (CommFedBiO's
+    compressor: the ``int(size · ratio)`` largest magnitudes of the leaf)
+    kept and the other's dropped, as a bool array shaped like the leaf,
+    from each side's compressor input ``acc`` and keep mask ``kept``.
+
+    Asserts first that every such entry lies within ``2·D`` of side a's
+    threshold, D the largest |acc_a − acc_b| in the leaf: the threshold is
+    the k-th largest magnitude, so it moves by at most D between the
+    sides, and so does the entry's magnitude (:func:`topk_flips` rules
+    the same way per tile)."""
+    a, b = (np.asarray(v, np.float32) for v in (acc_a, acc_b))
+    flips = np.asarray(kept_a, bool) != np.asarray(kept_b, bool)
+    mag = np.abs(a)
+    thr = np.sort(mag.reshape(-1))[-max(1, int(mag.size * ratio))]
+    far = flips & (np.abs(mag - thr) > 2 * float(np.abs(a - b).max()))
+    assert not far.any(), (int(far.sum()), int(flips.sum()))
+    return flips
 
 
 def int8_flips(sent_a, sent_b, block: int):

@@ -352,3 +352,60 @@ def test_cuda_flash_attention_bf16_raises_for_unbuilt_head_dim(card):
     with pytest.raises(ValueError, match="head dim"):
         flash_ops.flash_attention(x, x, x)
     assert flash_ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,kernel,width", [
+    ("fedbioacc_local", "storm3_step", 64), ("fedbio", "sgd3_step", 3 * 64)])
+def test_cuda_paper_algorithms_fused_match_tree_loop(algo, kernel, width,
+                                                     card, monkeypatch):
+    """Two rounds of FedBiOAcc-Local and FedBiO on the quadratic, keys and
+    draws on the card: the flat substrate (one launch a local step) within
+    rtol 1e-5 / atol 1e-5 of the tree loop; every reduction covers the
+    communicated tiles alone (x's 64 for FedBiOAcc-Local, its variables
+    and its momenta at each of the two communications; x|y|u for FedBiO),
+    so the PRIVATE y stays per client."""
+    from repro_torch import random as jr
+    from repro_torch.config import FederatedConfig
+    from repro_torch.core import make_algorithm, quadratic_problem
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.optim import flat
+
+    prob = quadratic_problem(jr.PRNGKey(4, device=card), num_clients=8,
+                             dx=10, dy=10, noise=0.3)
+
+    def run(fuse: bool):
+        cfg = FederatedConfig(algorithm=algo, num_clients=8, local_steps=4,
+                              lr_x=0.03, lr_y=0.1, neumann_q=4,
+                              neumann_tau=0.2, fuse_storm=fuse,
+                              fuse_storm_block=64)
+        alg = make_algorithm(prob, cfg)
+        state = alg.init(jr.PRNGKey(1, device=card))
+        key = jr.PRNGKey(2, device=card)
+        for _ in range(2):
+            key, sub = jr.split(key)
+            state, _ = alg.round(state, sub)
+        return state
+
+    tree = run(False)
+    reduced, mean = [], flat._bcast_mean
+
+    def recording(seg):
+        reduced.append(seg.shape[-1])
+        return mean(seg)
+
+    monkeypatch.setattr(flat, "_bcast_mean", recording)
+    tk.reset_counts()
+    fused = run(True)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[kernel] == 8
+    assert sum(tk.LAUNCHES.values()) == 8
+    assert reduced == [width] * (4 if algo == "fedbioacc_local" else 2)
+    for name in tree._fields[:-1]:
+        for a, b in zip(tree_leaves(getattr(tree, name)),
+                        tree_leaves(getattr(fused, name))):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+    if algo == "fedbioacc_local":
+        assert not torch.equal(fused.y[0], fused.y[1])
+        assert torch.equal(fused.x[0], fused.x[1])
