@@ -1299,14 +1299,17 @@ def paper_phase(dev) -> dict:
     random_cross_check(dev)
     paper_cross_check(dev)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     launches = paper_examples(dev)
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     real, buffers = paper_realistic(dev)
     paper_kernels(buffers, dev)
     del buffers
     torch.cuda.empty_cache()
-    log(f"phase 9 (the paper's problems) took "
-        f"{time.perf_counter() - t0:.1f} s")
+    t3 = time.perf_counter()
+    log(f"phase 9 (the paper's problems) took {t3 - t0:.1f} s: generator "
+        f"and (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s")
     return {k: launches.get(k, 0) + real.get(k, 0)
             for k in set(launches) | set(real)}
 

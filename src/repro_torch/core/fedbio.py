@@ -22,7 +22,8 @@ Switches (``FederatedConfig``):
   step instead of 5); the u-update is then ``u − τ·p``.
 * ``fuse_storm`` — the loop runs on the flat-buffer substrate through the
   sequence-spec engine: FedBiO is the momentum-less triple-sequence spec, so
-  each local step is one ``sgd3_step`` launch over (x, y, u).
+  each local step is one ``sgd3_step`` launch over (x, y, u).  On the card
+  the engine's oracle is replayed from a CUDA graph (``_graphed``).
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ from repro_torch import random as jr
 from repro_torch.config import FederatedConfig
 from repro_torch.core import hypergrad as hg
 from repro_torch.core.problems import Problem
-from repro_torch.core.tree_util import (client_mean, tree_axpy, tree_map,
-                                        tree_size, tree_zeros_like)
+from repro_torch.core.tree_util import (client_mean, tree_axpy, tree_flatten,
+                                        tree_map, tree_size, tree_zeros_like)
 from repro_torch.optim import sequences as seqs
 
 
@@ -79,6 +80,68 @@ def mean_over_clients(tree):
     return tree_map(lambda v: torch.mean(v, dim=0), tree)
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev: torch.device):
+    """The one side stream of ``dev`` that every oracle is warmed up and
+    captured on: cuBLAS keeps a workspace (~64 MB on an H100) for each
+    stream it has run on, for the life of the process."""
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+def _graphed(oracle):
+    """``oracle(views, batch)`` replayed from one CUDA graph on the card.
+
+    A problem-level oracle is hundreds to thousands of small operators (the
+    vmapped forward-over-reverse derivatives), whose host dispatch is most
+    of a round, and the engine calls it with the same shapes every local
+    step.  So its first call on the card warms it up on a side stream and
+    captures it there; every call copies its inputs into the captured ones,
+    replays, and returns clones of the outputs (the next replay overwrites
+    them).  A call with other shapes captures anew.  On the CPU the oracle
+    runs as it is.  The engine's kernels stay outside the graph, launched
+    (and counted) by their wrappers."""
+    cap = {}
+
+    def call(views, batch):
+        leaves, treedef = tree_flatten((views, batch))
+        if leaves[0].device.type != "cuda":
+            return oracle(views, batch)
+        sig = (treedef, [(t.shape, t.dtype, t.device) for t in leaves])
+        if cap.get("sig") != sig:
+            cap.clear()
+            static = [t.clone() for t in leaves]
+            args = treedef.unflatten(static)
+            side = _capture_stream(leaves[0].device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                oracle(*args)                                # warm-up
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = oracle(*args)
+            cap.update(sig=sig, static=static, graph=graph, out=out)
+        for s, t in zip(cap["static"], leaves):
+            s.copy_(t)
+        cap["graph"].replay()
+        return tree_map(torch.clone, cap["out"])
+
+    return call
+
+
+def _make_engine(cfg: FederatedConfig, algo: str, templates: dict, oracle):
+    """``algo``'s engine on the flat substrate, its oracle graphed on the
+    card.  ``without_hierarchy``: the reference loops always use the paper's
+    flat averaging, so ``fuse_storm`` changes how a round runs and nothing
+    else."""
+    return seqs.make_engine(cfg, seqs.SPECS[algo].without_hierarchy(),
+                            templates, _graphed(oracle),
+                            block=cfg.fuse_storm_block)
+
+
 def _run_engine(engine, sample, keys, var_trees, mom_trees=None, step=0):
     """The round on the flat substrate: flatten once, one engine step per
     key, pytree views at the end.  Returns (vars, moms or None, step)."""
@@ -114,17 +177,13 @@ def make_fedbio(problem: Problem, cfg: FederatedConfig) -> Algorithm:
     vdirections = vmap(directions)
     x1s, y1s = _templates(problem)
 
-    # without_hierarchy: the reference loops always use the paper's flat
-    # averaging, so fuse_storm changes how a round runs and nothing else
     if cfg.fuse_storm:
         def oracle(vt, batches):
             omega, mu, p = vdirections(vt["x"], vt["y"], vt["u"], batches)
             return {"x": mu, "y": omega, "u": p}
 
-        engine = seqs.make_engine(
-            cfg, seqs.SPECS["fedbio"].without_hierarchy(),
-            {"x": x1s, "y": y1s, "u": y1s}, oracle,
-            block=cfg.fuse_storm_block)
+        engine = _make_engine(cfg, "fedbio", {"x": x1s, "y": y1s, "u": y1s},
+                              oracle)
 
     def round(state: FedBiOState, key):
         keys = jr.split(key, cfg.local_steps)

@@ -30,8 +30,8 @@ from repro_torch import random as jr
 from repro_torch.config import FederatedConfig
 from repro_torch.core import hypergrad as hg
 from repro_torch.core.fedbio import (Algorithm, _broadcast_clients,
-                                     _run_engine, _sampler, _templates,
-                                     mean_over_clients)
+                                     _make_engine, _run_engine, _sampler,
+                                     _templates, mean_over_clients)
 from repro_torch.core.problems import Problem
 from repro_torch.core.tree_util import (client_mean, tree_map, tree_size,
                                         tree_zeros_like)
@@ -112,10 +112,8 @@ def make_fedbioacc(problem: Problem, cfg: FederatedConfig) -> Algorithm:
             omega, mu, p = voracles(vt["x"], vt["y"], vt["u"], batches)
             return {"x": mu, "y": omega, "u": p}
 
-        engine = seqs.make_engine(
-            cfg, seqs.SPECS["fedbioacc"].without_hierarchy(),
-            {"x": x1s, "y": y1s, "u": y1s}, oracle,
-            block=cfg.fuse_storm_block)
+        engine = _make_engine(cfg, "fedbioacc",
+                              {"x": x1s, "y": y1s, "u": y1s}, oracle)
 
     def round(state: FedBiOAccState, key):
         I = cfg.local_steps

@@ -24,8 +24,8 @@ from repro_torch import random as jr
 from repro_torch.config import FederatedConfig
 from repro_torch.core import hypergrad as hg
 from repro_torch.core.fedbio import (Algorithm, _broadcast_clients,
-                                     _run_engine, _sampler, _templates,
-                                     mean_over_clients)
+                                     _make_engine, _run_engine, _sampler,
+                                     _templates, mean_over_clients)
 from repro_torch.core.fedbioacc import storm_momentum
 from repro_torch.core.problems import Problem
 from repro_torch.core.tree_util import (client_mean, tree_axpy, tree_map,
@@ -75,10 +75,7 @@ def _make_local_engine(problem: Problem, cfg: FederatedConfig, voracles,
         omega, nu = voracles(vt["x"], vt["y"], batches)
         return {"x": nu, "y": omega}
 
-    # without_hierarchy: the paper's flat averaging whatever the cfg says
-    return seqs.make_engine(cfg, seqs.SPECS[algo].without_hierarchy(),
-                            {"x": x1s, "y": y1s}, oracle,
-                            block=cfg.fuse_storm_block)
+    return _make_engine(cfg, algo, {"x": x1s, "y": y1s}, oracle)
 
 
 def make_fedbio_local(problem: Problem, cfg: FederatedConfig) -> Algorithm:

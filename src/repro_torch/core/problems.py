@@ -392,13 +392,13 @@ def fair_federated_from_data(data, *, classes=4, batch_size=32,
     def g(lam, y, batch):
         m, idx = batch["client"], batch["tr_idx"]
         loss = _ce(y, _rows(data["x"], m, idx), _rows(data["y"], m, idx))
-        w = M * torch.softmax(lam, dim=-1)[m]
+        w = M * torch.softmax(lam, dim=-1)[m.reshape(1)][0]   # as _rows
         return w * loss + 0.5 * lower_l2 * torch.sum(y ** 2)
 
     def f(lam, y, batch):
         m, idx = batch["client"], batch["val_idx"]
         loss = _ce(y, _rows(data["x"], m, idx), _rows(data["y"], m, idx))
-        capped = torch.minimum(loss, torch.tensor(10.0, device=dev))
+        capped = torch.minimum(loss, torch.full_like(loss, 10.0))
         return torch.exp(beta * capped) / beta
 
     def sample_batches(k):

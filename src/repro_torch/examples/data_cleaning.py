@@ -38,16 +38,14 @@ def detection_auc(x: torch.Tensor, mask: torch.Tensor) -> float:
 
 
 def run(algo: str = "fedbioacc", rounds: int = 200, device=None, *,
-        fuse_storm: bool = False, fuse_storm_block: int = 1024,
-        report_every: int = 50, log=print):
+        fuse_storm: bool = False, report_every: int = 50, log=print):
     """Train and return ``(state, auc)``."""
     dev = resolve_device(device)
     prob = data_cleaning_problem(jr.PRNGKey(1, device=dev), num_clients=8,
                                  n_train=256, corrupt_frac=0.4)
     mask = prob.data["corrupt_mask"]
     cfg = FederatedConfig(algorithm=algo, num_clients=8, local_steps=4,
-                          lr_x=0.3, lr_y=0.3, lr_u=0.3, fuse_storm=fuse_storm,
-                          fuse_storm_block=fuse_storm_block)
+                          lr_x=0.3, lr_y=0.3, lr_u=0.3, fuse_storm=fuse_storm)
     alg = make_algorithm(prob, cfg)
     state = alg.init(jr.PRNGKey(0))
     key = jr.PRNGKey(2)

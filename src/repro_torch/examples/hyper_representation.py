@@ -28,15 +28,14 @@ from repro_torch.core.tree_util import tree_map
 
 
 def run(algo: str, rounds: int = 200, device=None, *,
-        fuse_storm: bool = False, fuse_storm_block: int = 1024, log=print):
+        fuse_storm: bool = False, log=print):
     """Train and return the upper validation loss before and after."""
     dev = resolve_device(device)
     prob = hyperrep_problem(jr.PRNGKey(2, device=dev), num_clients=8,
                             hetero=0.5)
     cfg = FederatedConfig(algorithm=algo, num_clients=8, local_steps=4,
                           lr_x=0.1, lr_y=0.2, lr_u=0.2, neumann_q=10,
-                          neumann_tau=0.15, fuse_storm=fuse_storm,
-                          fuse_storm_block=fuse_storm_block)
+                          neumann_tau=0.15, fuse_storm=fuse_storm)
     alg = make_algorithm(prob, cfg)
     state = alg.init(jr.PRNGKey(0))
     key = jr.PRNGKey(3)

@@ -80,8 +80,16 @@ def _hyperrep():
     return jprob, tp.hyperrep_from_data(data)
 
 
+def _fairness():
+    jprob = jp.fair_federated_problem(jax.random.PRNGKey(0), num_clients=8,
+                                      hard_clients=2)
+    data = to_torch(dict(jprob.data))
+    data["y"] = data["y"].long()
+    return jprob, tp.fair_federated_from_data(data)
+
+
 PROBLEMS = {"quadratic": _quadratic, "cleaning": _cleaning,
-            "hyperrep": _hyperrep}
+            "hyperrep": _hyperrep, "fairness": _fairness}
 
 
 def _aligned_topk(monkeypatch, flips: list):
@@ -118,6 +126,7 @@ QUADRATIC = dict(lr_x=0.03, lr_y=0.1, lr_u=0.1, neumann_q=4, neumann_tau=0.2)
 EXAMPLES = {"cleaning": dict(lr_x=0.3, lr_y=0.3, lr_u=0.3),
             "hyperrep": dict(lr_x=0.1, lr_y=0.2, lr_u=0.2, neumann_q=10,
                              neumann_tau=0.15),
+            "fairness": dict(lr_x=0.5, lr_y=0.5, lr_u=0.3),   # test_fairness
             "defaults": {}}
 
 
@@ -189,12 +198,16 @@ def test_one_round_on_the_quadratic_matches_reference(algo, fuse_oracles,
     ("hyperrep", "fedbio_local", True, "hyperrep"),
     ("hyperrep", "fedbioacc_local", False, "hyperrep"),
     ("hyperrep", "commfedbio", False, "hyperrep"),
-    ("hyperrep", "commfedbio", False, "defaults")])
+    ("hyperrep", "commfedbio", False, "defaults"),
+    ("fairness", "fedbio", False, "fairness"),
+    ("fairness", "fedbio", True, "fairness")])
 def test_one_round_on_the_papers_problems_matches_reference(
         problem, algo, fuse_storm, settings, monkeypatch):
     """The examples' problems at their sizes and settings, unfused oracles
     as the examples run them; CommFedBiO also at the config's defaults,
-    where top-k decides two entries otherwise on the two sides."""
+    where top-k decides two entries otherwise on the two sides; the fair-FL
+    problem under FedBiO as ``tests/test_fairness.py`` trains it (its
+    client weight, read at a batched client id under ``vmap``)."""
     flips = _one_round(problem, algo, False, fuse_storm, monkeypatch,
                        EXAMPLES[settings])
     # CommFedBiO compresses the four leaves of the backbone each local step
@@ -292,29 +305,6 @@ def test_trainer_unfused_oracles_match_reference(name):
         for j, t in zip(js, ts):
             j = np.asarray(j, np.float32)
             assert np.linalg.norm(f32(t) - j) <= 1e-4 * np.linalg.norm(j)
-
-
-@pytest.mark.parametrize("name,kw", [("sgd", {}), ("momentum", {}),
-                                     ("momentum", {"nesterov": True}),
-                                     ("adam", {})])
-def test_optimizers_match_reference(name, kw):
-    """``repro_torch.optim``'s pytree optimizers against the reference's:
-    50 steps on a two-leaf quadratic, every step within RTOL/ATOL."""
-    from repro import optim as joptim
-    from repro_torch import optim
-    jinit, jupdate = getattr(joptim, name)(**kw)
-    init, update = getattr(optim, name)(**kw)
-    jp_ = {"w": jax.numpy.asarray([[3.0, -2.0], [0.5, 1.0]]),
-           "b": jax.numpy.asarray([0.25])}
-    tp_ = to_torch(jp_)
-    js, ts = jinit(jp_), init(tp_)
-    jstep = jax.jit(jupdate)
-    for _ in range(50):
-        jp_, js = jstep(jp_, jax.tree.map(lambda v: 2 * v + 0.1, jp_), js,
-                        0.05)
-        tp_, ts = update(tp_, {k: 2 * v + 0.1 for k, v in tp_.items()}, ts,
-                         0.05)
-        _close_trees(jp_, tp_)
 
 
 def test_examples_run_on_the_cpu():

@@ -409,3 +409,46 @@ def test_cuda_paper_algorithms_fused_match_tree_loop(algo, kernel, width,
     if algo == "fedbioacc_local":
         assert not torch.equal(fused.y[0], fused.y[1])
         assert torch.equal(fused.x[0], fused.x[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["fedbioacc_local", "fedbio"])
+def test_cuda_graphed_oracle_replays_the_eager_one(algo, card, monkeypatch):
+    """Three fused rounds on the hyper-representation problem with the
+    engine's oracle replayed from its CUDA graph equal, bit for bit, three
+    with the oracle run eagerly; a second algorithm's capture leaves the
+    allocated memory where the first left it (one capture stream, so no
+    new cuBLAS workspace a capture)."""
+    import gc
+
+    from repro_torch import random as jr
+    from repro_torch.config import FederatedConfig
+    from repro_torch.core import fedbio, hyperrep_problem, make_algorithm
+    from repro_torch.core.tree_util import tree_leaves
+
+    prob = hyperrep_problem(jr.PRNGKey(2, device=card))
+
+    def run():
+        cfg = FederatedConfig(algorithm=algo, num_clients=8, local_steps=4,
+                              neumann_q=10, neumann_tau=0.15,
+                              fuse_storm=True)
+        alg = make_algorithm(prob, cfg)
+        state = alg.init(jr.PRNGKey(0))
+        key = jr.PRNGKey(3)
+        for _ in range(3):
+            key, sub = jr.split(key)
+            state, _ = alg.round(state, sub)
+        torch.cuda.synchronize()
+        return [t.cpu() for name in state._fields[:-1]
+                for t in tree_leaves(getattr(state, name))]
+
+    graphed = run()
+    gc.collect()
+    after_one = torch.cuda.memory_allocated(card)
+    again = run()
+    gc.collect()
+    assert torch.cuda.memory_allocated(card) == after_one
+    monkeypatch.setattr(fedbio, "_graphed", lambda oracle: oracle)
+    eager = run()
+    for g, a, e in zip(graphed, again, eager):
+        _assert_bits((g, a), (e, e))
