@@ -17,7 +17,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    called past the wrapper); then tiles holding NaN, +Inf and -Inf through
    each pack kernel, bit for bit, unpacking to all NaN as the reference's
    do; then the times of the compressed path's top-k and of its whole
-   compressed reduction at the bf16 buffer's shape;
+   compressed reduction at the bf16 buffer's shape; then ``storm3_step``,
+   ``sgd3_step`` and ``momsgd3_step`` with tile tables gated by a
+   participation mask that leaves clients out (``storm3_step`` at the
+   FedBiOAcc-Local buffers of 4 clients, 2 left out), bit for bit against
+   their plain versions, the left-out rows equal to their input bits, with
+   inf/NaN in a left-out client's gradient zeroed by ``flat.mask_buffers``;
 3b. the pytree ``storm_update`` (``repro_torch.kernels.storm``) over the
    full-width Mamba-2-130M parameter tree (seeded on the card, bf16 and f32
    leaves) with f32 momentum and gradient trees, then with bf16 momentum,
@@ -28,7 +33,8 @@ Phases, each of which stops the script with a non-zero exit on failure:
    groups and of the whole entry point (concatenation plus launches);
 4. a reduced-model cross-check of each path: two steps on the card against
    two on the CPU from the same initial state and batches (within 1e-4 of
-   each buffer's norm: reduction orders differ between the two devices).
+   each buffer's norm: reduction orders differ between the two devices;
+   the sampled path's masks and staleness counters equal on both).
    The compressed path's top-k and int8 rounding are discontinuous, so
    there every entry that one device kept or rounded otherwise than the
    other must lie near its threshold or half-way point
@@ -36,13 +42,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    1e-4 holds off the entries and columns those flips reach, the error
    feedback included;
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
-   ``fedbio_local.json``, ``fedavg.json`` and ``fedbioacc_int8_topk.json``,
-   each at full Mamba-2-130M width (bf16, 2 clients, 1 sequence of 512
-   tokens each — two SSD chunks), four steps (two communication rounds),
-   with the kernels' launch counts taken over that path's run alone (as
-   ``PATHS`` lists them, every other kernel never; the compressed path's
-   packs all on the cluster kernel, counted per step) and a finite
-   validation loss;
+   ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json`` and
+   ``fedbioacc_local.json``, each at full Mamba-2-130M width (bf16, 2
+   clients, or the sampled path's own 4 of which 2 take part a round; 1
+   sequence of 512 tokens each — two SSD chunks), four steps (two
+   communication rounds), with the kernels' launch counts taken over that
+   path's run alone (as ``PATHS`` lists them, every other kernel never; the
+   compressed path's packs all on the cluster kernel, counted per step) and
+   a finite validation loss; the sampled path also logs each round's mask
+   and checks on the card that every step leaves the non-participants'
+   variable and momentum rows at their entering bits, and that each round
+   leaves the participants' communicated rows (x, ν) bit-identical and
+   their private ones (y, ω) not;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -154,8 +165,12 @@ PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
          "fedbio_local": {"sgd3_step": 8, "storm_update": 0},
          "fedavg": {"momsgd3_step": 8, "storm_update": 0},
          "fedbioacc_int8_topk": {"storm3_step": 8, "quantpack": 8,
-                                 "quantunpack": 8, "storm_update": 0}}
+                                 "quantunpack": 8, "storm_update": 0},
+         "fedbioacc_local": {"storm3_step": 8, "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
+SAMPLED = "fedbioacc_local"
+# clients at full width; a path that samples its clients keeps the spec's
+# own count, so that the sampler leaves clients out
 CLIENTS = 2
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 # the serving path: full-width RecurrentGemma-9B prefill and greedy decode
@@ -231,8 +246,10 @@ def raw_ms(fn_name: str, lib, *args) -> float:
 
 
 def full_width_experiment(exp: Experiment) -> Experiment:
+    sampled = exp.participation.sampler != "full"
     return exp.edit(**{"problem.reduced": False,
-                       "problem.num_clients": CLIENTS,
+                       "problem.num_clients": (exp.problem.num_clients
+                                               if sampled else CLIENTS),
                        "problem.per_client": 1, "problem.seq_len": 512,
                        "schedule.steps": 4})
 
@@ -449,6 +466,60 @@ def compression_phase(groups, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# the gated launches: kernel → the path whose buffers it is held at
+GATED = {"storm3_step": SAMPLED, "sgd3_step": "fedbio",
+         "momsgd3_step": "fedavg"}
+
+
+def gated_phase(groups_of: dict, clients_of: dict, dev) -> None:
+    """The three update kernels with their tile tables gated by a
+    participation mask that leaves every other client out, at their path's
+    shapes: bit for bit against the plain version on the same gated
+    tables, the left-out rows at their input bits, and inf/NaN in a
+    left-out client's gradient zeroed by ``flat.mask_buffers`` first."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, path in GATED.items():
+        k = KERNELS[name]
+        m = clients_of[path]
+        mask = torch.ones(m)
+        mask[1::2] = 0.0
+        out_rows = [i for i in range(m) if mask[i] == 0]
+        n_tables = 1 if name == "sgd3_step" else 2
+        for grp in groups_of[path]:
+            n = m * grp.padded
+            args = k.inputs(n, n // grp.block, grp, gen, dev)
+            p, streams = args[0], list(args[1:-n_tables])
+            g = streams[-1].view(m, -1)
+            g[out_rows[0], :3] = torch.tensor([math.inf, -math.inf, math.nan],
+                                              device=dev)
+            streams[-1] = flat.mask_buffers((g,), mask)[0].reshape(-1)
+            tables = [t.view(m, -1) for t in args[-n_tables:]]
+            lr, rest = flat._gate(tables[0], tables[1] if n_tables == 2
+                                  else None, mask, 1.0)
+            tables = [t.reshape(-1) for t in (lr, rest) if t is not None]
+            out = k.wrapper(p, *streams, *tables, block=grp.block)
+            want = k.plain(p, *streams, *tables, grp.block)
+            torch.cuda.synchronize()
+            out, want = ((o,) if torch.is_tensor(o) else o for o in (out, want))
+            ok = all(same_bits(o, w) for o, w in zip(out, want))
+            # p' and (for the momentum kernels) m' against p and m
+            for o, before in zip(out, (p, streams[0])):
+                rows = o.view(m, -1)[out_rows]
+                ok = ok and same_bits(rows, before.view(m, -1)[out_rows])
+            ok = ok and all(bool(torch.isfinite(o.float()).all())
+                            for o in out)
+            verdict = ("bitwise equal to the plain version, left-out rows at "
+                       "their input bits" if ok else "WRONG")
+            log(f"gated {name} {str(grp.dtype).replace('torch.', '')} "
+                f"[{m}, {grp.padded}] ({path} path), mask {mask.tolist()}, "
+                f"inf/NaN in client {out_rows[0]}'s gradient: {verdict}")
+            if not ok:
+                raise SystemExit(f"gated {name}: differs from the plain "
+                                 f"version or moved a left-out row")
+            del args, p, streams, g, tables, out, want
+            torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3b: the pytree storm_update over a whole model's parameter tree
 # ---------------------------------------------------------------------------
@@ -566,10 +637,12 @@ def storm_update_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def _to(state: FlatState, dev) -> FlatState:
-    return FlatState(tuple(b.to(dev) for b in state.vars),
-                     tuple(b.to(dev) for b in state.mom), state.step,
-                     tuple(tuple(b.to(dev) for b in side)
-                           for side in state.ef))
+    """``state`` with its buffers on ``dev`` (the step and the staleness
+    counters stay on the host)."""
+    return state._replace(vars=tuple(b.to(dev) for b in state.vars),
+                          mom=tuple(b.to(dev) for b in state.mom),
+                          ef=tuple(tuple(b.to(dev) for b in side)
+                                   for side in state.ef))
 
 
 def _recording(topk, calls: list):
@@ -644,10 +717,51 @@ def cross_check(name: str, exp: Experiment, dev) -> None:
         f", off the {flipped} entries (variables, momenta) that top-k or "
         f"int8 rounding decided otherwise, each within its bound of the "
         f"threshold or half-way point, error feedback included")
+    part = ""
+    if cpu_run.init.participation is not None:
+        rounds = sorted({t // exp.schedule.local_steps for t in range(2)})
+        masks = [[r.mask_fn(i).tolist() for i in rounds]
+                 for r in (cpu_run.init.participation,
+                           gpu_run.init.participation)]
+        if masks[0] != masks[1] or not torch.equal(cpu_state.stale,
+                                                   gpu_state.stale):
+            raise SystemExit(f"cross-check of {name}: the masks or the "
+                             f"staleness counters differ between devices")
+        part = (f", masks {masks[0]} and staleness counters "
+                f"{cpu_state.stale.tolist()} equal on both")
     log(f"reduced cross-check, {name}: card vs CPU after 2 steps, worst "
-        f"relative buffer difference {worst:.3e} (limit 1e-4){what}")
+        f"relative buffer difference {worst:.3e} (limit 1e-4){what}{part}")
     if not worst <= 1e-4:
         raise SystemExit(f"reduced cross-check of {name} failed")
+
+
+def _rows_equal(buf: torch.Tensor, rows: list) -> bool:
+    return all(same_bits(buf[rows[0]], buf[r]) for r in rows[1:])
+
+
+def _participation_checks(name: str, run, state: FlatState, kept, out: list,
+                          ins: list, round_end: bool) -> None:
+    """After a step of the sampled path: the non-participants' rows ``out``
+    at their entering bits ``kept``; after a round, the participants'
+    rows ``ins`` of each communicated section bit-identical and of each
+    private section not."""
+    for b, rows in zip(state.vars + state.mom, kept):
+        if not all(same_bits(b[i].cpu(), k) for i, k in zip(out, rows)):
+            raise SystemExit(f"path {name}: a non-participant's row moved")
+    if not round_end:
+        return
+    spec = run.init.spec
+    private = {q.section for q in seqs.SPECS[name].sequences
+               if q.comm == seqs.PRIVATE}
+    for bufs in (state.vars, state.mom):
+        for grp, buf in zip(spec.groups, bufs):
+            for s, a, b in grp.extents:
+                equal = _rows_equal(buf[:, a:b], ins)
+                if equal == (spec.sections[s] in private):
+                    raise SystemExit(
+                        f"path {name}: participants' section "
+                        f"{spec.sections[s]} is {'' if equal else 'not '}"
+                        f"bit-identical after the round")
 
 
 def main_path(name: str, exp: Experiment, dev) -> dict:
@@ -655,25 +769,47 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     state = run.init(torch.Generator(device=dev).manual_seed(exp.schedule.seed))
     data = torch.Generator().manual_seed(exp.schedule.seed)
     batches = [run.batch_fn(data) for _ in range(exp.schedule.steps)]
+    part, local = run.init.participation, exp.schedule.local_steps
+    clients = exp.problem.num_clients
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    step_ms, packs = [], []
-    for batch in batches:
+    step_ms, packs, masks = [], [], []
+    for t, batch in enumerate(batches):
+        if part is not None:
+            mask = part.mask_fn(t // local)
+            if t % local == 0:
+                masks.append(mask.tolist())
+            out = [i for i in range(clients) if mask[i] == 0]
+            ins = [i for i in range(clients) if mask[i] > 0]
+            # on the host, so that the peak below is the step's own
+            kept = [[b[i].cpu() for i in out] for b in state.vars + state.mom]
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         before = qp.LAUNCHES["quantpack"]
         state, _ = run.step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         packs.append(qp.LAUNCHES["quantpack"] - before)
+        if part is not None:
+            _participation_checks(name, run, state, kept, out, ins,
+                                  (t + 1) % local == 0)
+            del kept
     launches, variants = launch_counts(), variant_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     val = run.eval_fn(state)
-    sizes = [f"{str(g.dtype).replace('torch.', '')}[{CLIENTS}, {g.padded}]"
+    sizes = [f"{str(g.dtype).replace('torch.', '')}[{clients}, {g.padded}]"
              for g in run.init.spec.groups]
     log(f"path {name}: full-width {run.model_cfg.name}, buffers {sizes}, "
         f"steps {len(step_ms)}, step ms {[round(t, 3) for t in step_ms]}, "
-        f"peak memory {peak} B, launches {launches}, val_loss {val}")
+        f"peak memory {peak} B, launches {launches}, "
+        f"val_loss {val}")
+    if part is not None:
+        log(f"path {name}: {clients} clients, masks by round {masks}, "
+            f"staleness counters {state.stale.tolist()}; every step left "
+            f"the non-participants' rows at their entering bits, every "
+            f"round the participants' x and nu rows bit-identical and "
+            f"their y and omega rows not")
     if launches["quantpack"]:
         log(f"path {name}: quantpack launches per step {packs} "
             f"({exp.schedule.local_steps} local steps a communication "
@@ -1341,6 +1477,8 @@ def main() -> None:
     non_finite_phase(dev)
     compression_phase(groups_of[COMPRESSED], dev)
     torch.cuda.empty_cache()
+    gated_phase(groups_of, {name: f.problem.num_clients
+                            for name, f in fulls.items()}, dev)
     kernels["storm_update"] = storm_update_phase(dev)
 
     for name, base in bases.items():

@@ -4,17 +4,20 @@ time.
     python3 scripts/profile_torch_step.py [--experiment PATH]   # on a card
 
 Builds the experiment (default ``experiments/fedbioacc.json``; any spec of
-the STORM kind, such as ``fedbioacc_int8_topk.json``) at full Mamba-2-130M
-width (bf16, 2 clients, 1 sequence of 512 tokens each — the configuration
-``chip_smoke.py`` drives), takes one warm-up step, then:
+the STORM kind, such as ``fedbioacc_int8_topk.json`` or
+``fedbioacc_local.json``) at full Mamba-2-130M width (bf16, 2 clients, or a
+sampled spec's own count; 1 sequence of 512 tokens each — the
+configuration ``chip_smoke.py`` drives), takes one warm-up step, then:
 
 1. times steps 1, 2 and 3 on the host clock (each ending in a
    synchronize), with the caching allocator's device allocations, frees
    and retries during each (``torch.cuda.memory_stats``; -1 where this
    PyTorch does not count them); the spec's ``local_steps`` of 2 makes
    steps 1 and 3 communicate;
-2. times one client's three oracle directions (``hypergrad.fused_oracles``)
-   at one iterate — a step evaluates them 2 clients × 2 iterates = 4 times;
+2. times one client's oracle directions at one iterate
+   (``hypergrad.fused_oracles``, or ``fused_local_oracles`` for the
+   local-lower specs) — a step evaluates them clients × 2 iterates times,
+   participants or not;
 3. profiles step 4 (which does not communicate) with ``torch.profiler``
    (CPU + CUDA): the summed device time of all kernels against the step's
    wall time (the device's busy share), the number of kernel launches, and
@@ -64,7 +67,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     exp = Experiment.load(ns.experiment)
-    exp = exp.edit(**{"problem.reduced": False, "problem.num_clients": 2,
+    clients = (exp.problem.num_clients
+               if exp.participation.sampler != "full" else 2)
+    exp = exp.edit(**{"problem.reduced": False, "problem.num_clients": clients,
                       "problem.per_client": 1, "problem.seq_len": 512})
     run = build(exp, device=dev)
     state = run.init(torch.Generator(device=dev).manual_seed(0))
@@ -89,14 +94,24 @@ def main() -> None:
 
     f, g = make_model_bilevel(run.model, lower_l2=run.fed.lower_l2)
     views = run.views(state)
-    x, y, u = (client_slice(t, 0) for t in (views.x, views.y, views.u))
+    x, y = client_slice(views.x, 0), client_slice(views.y, 0)
     b0 = client_slice(batches[4], 0)
-    hg.fused_oracles(g, f, x, y, u, b0)
+    if hasattr(views, "u"):
+        u = client_slice(views.u, 0)
+
+        def oracle():
+            return hg.fused_oracles(g, f, x, y, u, b0)
+    else:
+        def oracle():
+            return hg.fused_local_oracles(g, f, x, y, b0, run.fed.neumann_q,
+                                          run.fed.neumann_tau)
+    oracle()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hg.fused_oracles(g, f, x, y, u, b0)
+    oracle()
     torch.cuda.synchronize()
     oracle_ms = (time.perf_counter() - t0) * 1e3
+    evals = 2 * clients
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -108,10 +123,13 @@ def main() -> None:
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=25), flush=True)
-    print(f"{exp.algorithm.name}, compression {exp.compression}: step 1 "
+    print(f"{exp.algorithm.name}, {clients} clients, compression "
+          f"{exp.compression}: step 1 "
           f"{step_ms:.1f} ms (host clock); one client's oracles at one "
-          f"iterate {oracle_ms:.1f} ms (x4 per step = {4 * oracle_ms:.1f} ms, "
-          f"{400 * oracle_ms / step_ms:.1f} % of the step); profiled step "
+          f"iterate {oracle_ms:.1f} ms (x{evals} per step = "
+          f"{evals * oracle_ms:.1f} ms, "
+          f"{100 * evals * oracle_ms / step_ms:.1f} % of the step); "
+          f"profiled step "
           f"{prof_ms:.1f} ms (step 4) with {len(kernels)} device activities summing "
           f"to {busy_ms:.1f} ms of device time (busy share "
           f"{100 * busy_ms / prof_ms:.1f} %)", flush=True)

@@ -4,7 +4,9 @@
 The returned :class:`Run` exposes ``init(gen) -> state``,
 ``step(state, batch) -> (state, metrics)``, ``views(state)`` (the pytree
 train state), ``eval_fn(state) -> float`` (client 0's validation loss on a
-fixed batch) and ``batch_fn(gen)`` (the synthetic federated stream).
+fixed batch), ``batch_fn(gen)`` (the synthetic federated stream) and
+``participation`` (the ``ParticipationSpec`` the factory got, None for the
+full sampler).
 
 The device defaults to ``cuda``; without a card, building raises unless the
 caller asks for ``device="cpu"``.  A spec that sets a feature the port does
@@ -13,11 +15,12 @@ its ROADMAP item — never run with the feature dropped.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.api.spec import Experiment
+from repro_torch.federation.participation import ParticipationSpec
 
 EVAL_SEED = 123        # the fixed evaluation batch's generator seed
 
@@ -32,6 +35,7 @@ class Run(NamedTuple):
     model: Any
     model_cfg: Any
     fed: Any
+    participation: Optional[ParticipationSpec]
     device: torch.device
 
     @property
@@ -49,6 +53,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _resolve_participation(exp: Experiment) -> ParticipationSpec | None:
+    """The ParticipationSpec the factories consume: ``None`` for the full
+    sampler (the engine's path without participation), and a weighted
+    sampler without weights of its own inherits ``problem.client_sizes``."""
+    p = exp.participation
+    if p.sampler == "full":
+        return None
+    if (p.sampler == "weighted" and p.client_weights is None
+            and exp.problem.client_sizes is not None):
+        p = p._replace(client_weights=exp.problem.client_sizes)
+    return p
+
+
 def unported_features(exp: Experiment) -> list:
     """What ``exp`` asks for that the port does not run yet, each with the
     ROADMAP item that ports it."""
@@ -59,6 +76,7 @@ def unported_features(exp: Experiment) -> list:
     arch = ARCHS.get(exp.problem.arch)
     algos, part = "queue 1, 'Remaining algorithms'", \
         "queue 1, 'Participation, staleness and cadence'"
+    compress_rest = "queue 1, 'Compression, the rest'"
     guards, shard = "queue 1, 'Faults, robustness and checkpoint " \
         "hardening'", "queue 1, 'Sharded substrate'"
     model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
@@ -69,9 +87,10 @@ def unported_features(exp: Experiment) -> list:
     checks = [
         (exp.algorithm.name not in registry.names(),
          f"algorithm {exp.algorithm.name!r}", algos),
-        (exp.participation.sampler != "full",
-         f"participation sampling (sampler={exp.participation.sampler!r})",
-         part),
+        (exp.participation.sampler != "full" and exp.compression is not None,
+         f"participation sampling (sampler={exp.participation.sampler!r}) "
+         f"with compression: the participation-weighted compressed mean",
+         compress_rest),
         (exp.faults is not None, "faults", guards),
         (exp.robustness is not None, "robustness", guards),
         (exp.telemetry is not None, "telemetry", "queue 1, 'Telemetry'"),
@@ -144,6 +163,7 @@ def build(experiment: Experiment, *, device=None) -> Run:
     model = build_model(model_cfg, dtype=dtype)
 
     fed = federated_config(exp)
+    participation = _resolve_participation(exp)
     entry = registry.get(exp.algorithm.name)
     _, factory_kw = entry.split_params(exp.algorithm.params_dict)
     init, step = entry.factory(
@@ -151,7 +171,7 @@ def build(experiment: Experiment, *, device=None) -> Run:
         use_flash=ex.use_flash, use_lru_kernel=ex.use_lru_kernel,
         fuse_oracles=ex.fuse_oracles, fuse_storm=ex.fuse_storm,
         storm_block=ex.storm_block, compression=exp.compression,
-        **factory_kw)
+        participation=participation, **factory_kw)
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,
@@ -169,4 +189,5 @@ def build(experiment: Experiment, *, device=None) -> Run:
 
     return Run(spec=exp, init=init, step=step, views=step.views,
                eval_fn=eval_fn, batch_fn=batch_fn, model=model,
-               model_cfg=model_cfg, fed=fed, device=dev)
+               model_cfg=model_cfg, fed=fed, participation=participation,
+               device=dev)

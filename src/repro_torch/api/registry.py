@@ -8,8 +8,7 @@ The names themselves — hyperparameters, sections, PRIVATE sections — have
 one table, :data:`repro_torch.api.spec.ALGORITHMS`, which validation reads;
 registration takes the sections from it and refuses a trainer that
 disagrees with it.
-Ported so far: FedBiO, FedBiOAcc, FedBiO-Local and FedAvg; FedBiOAcc-Local
-waits.
+Ported: FedBiO, FedBiOAcc, FedBiO-Local, FedBiOAcc-Local and FedAvg.
 
 :func:`make_algorithm` is the problem-level factory: the paper's
 Algorithms 1-4 and the Table-1 baselines on a ``core.problems.Problem``.

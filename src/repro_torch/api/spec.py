@@ -4,9 +4,10 @@ schema, version 1, so every committed ``experiments/*.json`` loads unchanged.
 
 The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
-reference's declarative tuples — same fields, same defaults — so a spec that
-sets one can be recognised and refused by :func:`repro_torch.api.build`
-until the layer is ported.  :meth:`Experiment.validate` makes every check
+reference's declarative tuples — same fields, same defaults; the ported
+layers' (``CompressionSpec``, ``ParticipationSpec``) are their modules' own
+— so a spec that sets an unported one can be recognised and refused by
+:func:`repro_torch.api.build` until the layer is ported.  :meth:`Experiment.validate` makes every check
 of the reference's, in its order, for ported and unported layers alike, so
 a spec the reference refuses never reaches the feature refusals of build.
 """
@@ -18,6 +19,7 @@ from dataclasses import dataclass, field, fields
 from typing import Any, NamedTuple, Optional, Tuple
 
 from repro_torch.federation.compression import QUANTS, CompressionSpec
+from repro_torch.federation.participation import SAMPLERS, ParticipationSpec
 
 SPEC_VERSION = 1
 
@@ -53,7 +55,6 @@ ALGORITHMS = {
 ARCH_NAMES = ("recurrentgemma-9b", "gemma2-2b", "mamba2-130m", "llama3-405b",
               "olmoe-1b-7b", "granite-3-8b", "hubert-xlarge",
               "granite-moe-1b-a400m", "internvl2-76b", "granite-8b")
-SAMPLERS = ("full", "uniform", "weighted", "trace")
 AGGREGATORS = ("mean", "clip", "trim")
 LATE_POLICIES = ("drop", "carry", "cancel")
 METRIC_GROUPS = ("norms", "drift", "compression", "health", "stragglers")
@@ -65,17 +66,6 @@ class SpecError(ValueError):
 
 def _err(fieldname: str, msg: str):
     raise SpecError(f"Experiment.{fieldname}: {msg}")
-
-
-class ParticipationSpec(NamedTuple):
-    sampler: str = "full"
-    clients_per_round: int = 0
-    client_weights: tuple | None = None
-    seed: int = 0
-    availability_rate: float = 0.7
-    min_clients: int = 1
-    stale_discount: float = 1.0
-    trace_path: str | None = None
 
 
 class FaultSpec(NamedTuple):

@@ -1,23 +1,33 @@
 """Model-scale federated train steps (counterpart of
 ``repro/federation/trainer.py``) on the flat substrate: FedBiO (Alg. 1),
-FedBiOAcc (Alg. 2), FedBiO-Local (Alg. 3) and the FedAvg baseline.
+FedBiOAcc (Alg. 2), FedBiO-Local (Alg. 3), FedBiOAcc-Local (Alg. 4) and the
+FedAvg baseline.
 
 Every federated tensor carries a leading client axis M.  The reference
 vmaps the oracle over clients; here the oracle is a Python loop over M whose
 per-client results are stacked.  The step is the sequence-spec engine of
 ``repro_torch.optim.sequences``: FedBiOAcc runs its storm kind (one fused
-``storm3_step`` launch per dtype buffer between two oracle evaluations),
-FedBiO and FedBiO-Local its sgd kind through ``sgd3_step``, FedAvg through
+``storm3_step`` launch per dtype buffer between two oracle evaluations), as
+does FedBiOAcc-Local with its PRIVATE heads and their momenta; FedBiO and
+FedBiO-Local its sgd kind through ``sgd3_step``, FedAvg through
 ``momsgd3_step``; each step ends in the section-masked client mean.
 
 Every factory takes ``compression=`` (a ``CompressionSpec``): the engine's
 reductions then move quantized and/or top-k sends with per-client error
-feedback.  ``fuse_oracles`` picks the fused oracles (one shared
-linearization) or the separate ones (``grad_y``, ``nu_direction``,
-``u_residual``; ``neumann_hypergrad`` for the local-lower pair), on the
+feedback.  Every factory takes ``participation=`` (a
+``federation.participation.ParticipationSpec``): each round samples its
+clients, the fused launches freeze the others bit for bit, and the means
+average the participants only; the compiled sampler is recorded on
+``init.participation`` / ``train_step.participation``.  Every client's
+oracle is still computed, as the reference's ``vmap`` computes it, and
+``flat.mask_buffers`` zeroes the non-participants' rows.
+
+``fuse_oracles`` picks the fused oracles (one shared linearization) or the
+separate ones (``grad_y``, ``nu_direction``, ``u_residual``;
+``neumann_hypergrad`` for the local-lower pair), on the
 step's one batch either way, as the reference's trainer does.  Only
-``fuse_storm=True`` is ported; the unfused tree path and the FedBiOAcc-Local
-trainer wait (ROADMAP queue 1).
+``fuse_storm=True`` is ported; the unfused tree path waits (ROADMAP queue
+1).
 """
 from __future__ import annotations
 
@@ -33,16 +43,21 @@ from repro_torch.core.model_problem import (check_model_options,
                                             make_model_bilevel)
 from repro_torch.core.tree_util import (client_slice, tree_map, tree_stack,
                                         tree_zeros_like)
+from repro_torch.federation.participation import make_participation
 from repro_torch.models.registry import Model
 from repro_torch.optim import sequences as seqs
 from repro_torch.optim.sequences import FlatState
 
+
+# ``stale`` on every state: the per-client staleness counters [M] int32 of
+# a participation engine (``FlatState.stale``), or () without one.
 
 class FedBiOTrainState(NamedTuple):
     x: Any               # [M, ...] body
     y: Any               # [M, ...] head (lower variable)
     u: Any               # [M, ...] Eq. (4) auxiliary (zeros on FedBiO-Local)
     step: int
+    stale: Any = ()
 
 
 class FedBiOAccTrainState(NamedTuple):
@@ -53,12 +68,23 @@ class FedBiOAccTrainState(NamedTuple):
     nu: Any              # x-momentum
     q: Any               # u-momentum
     step: int
+    stale: Any = ()
+
+
+class FedBiOAccLocalTrainState(NamedTuple):
+    x: Any
+    y: Any               # private per-client heads
+    omega: Any           # y-momentum (private)
+    nu: Any              # x-momentum (averaged with x)
+    step: int
+    stale: Any = ()
 
 
 class FedAvgTrainState(NamedTuple):
     params: Any
     mom: Any
     step: int
+    stale: Any = ()
 
 
 def _bcast(tree, m: int):
@@ -151,11 +177,14 @@ def _require_fused_storm(fuse_storm: bool) -> None:
 
 
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
-                    init_trees, storm_block, to_state, compression=None):
+                    init_trees, storm_block, to_state, compression=None,
+                    participation=None):
     """The fuse_storm=True (init, train_step) pair over the engine;
     ``to_state(vars, moms or None, step)`` builds the pytree state."""
+    part = make_participation(participation, cfg.num_clients)
     engine = seqs.make_engine(cfg, aspec, templates, voracle,
-                              block=storm_block, compression=compression)
+                              block=storm_block, compression=compression,
+                              participation=part)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
@@ -166,11 +195,12 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
 
     def views(state: FlatState):
         vt, mt = engine.views(state)
-        return to_state(vt, mt, state.step)
+        return to_state(vt, mt, state.step)._replace(stale=state.stale)
 
     for fn in (init, train_step):
         fn.spec = engine.spec
         fn.views = views
+        fn.participation = part
     return init, train_step
 
 
@@ -185,7 +215,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               fuse_storm: bool = False,
                               fuse_oracles: bool = False,
                               storm_block: int | None = None,
-                              compression=None):
+                              compression=None, participation=None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
@@ -201,7 +231,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                                    mt["nu"], mt["q"], step)
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
-                           init_trees, storm_block, to_state, compression)
+                           init_trees, storm_block, to_state, compression,
+                           participation)
 
 
 @register("fedbio", seqs.SPECS["fedbio"])
@@ -212,7 +243,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,
                            storm_block: int | None = None,
-                           compression=None):
+                           compression=None, participation=None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
     _require_fused_storm(fuse_storm)
@@ -226,7 +257,8 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
         return FedBiOTrainState(vt["x"], vt["y"], vt["u"], step)
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
-                           init_trees, storm_block, to_state, compression)
+                           init_trees, storm_block, to_state, compression,
+                           participation)
 
 
 @register("fedbio_local", seqs.SPECS["fedbio_local"])
@@ -237,7 +269,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  fuse_storm: bool = False,
                                  fuse_oracles: bool = False,
                                  storm_block: int | None = None,
-                                 compression=None):
+                                 compression=None, participation=None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
@@ -256,7 +288,40 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
                            voracle, init_trees, storm_block, to_state,
-                           compression)
+                           compression, participation)
+
+
+@register("fedbioacc_local", seqs.SPECS["fedbioacc_local"],
+          hparams={"c_nu": 1.0, "c_omega": 1.0, "alpha_delta": 1.0,
+                   "alpha_u0": 8.0},
+          cfg_fields=("c_nu", "c_omega", "alpha_delta", "alpha_u0"))
+def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
+                                    n_micro: int = 1, remat: bool = False,
+                                    use_flash: bool = False,
+                                    use_lru_kernel: bool = False,
+                                    fuse_storm: bool = False,
+                                    fuse_oracles: bool = False,
+                                    storm_block: int | None = None,
+                                    compression=None, participation=None):
+    """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
+    private lower problems.  The heads y and their momenta ω are the
+    PRIVATE section, never reduced; the body x and its momentum ν are
+    averaged; one fused ``storm3_step`` launch per dtype buffer between the
+    two evaluations of the (Φ, ω) oracle pair."""
+    _require_fused_storm(fuse_storm)
+    f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
+                              remat=remat, use_flash=use_flash,
+                              use_lru_kernel=use_lru_kernel)
+    voracle, templates, init_trees = _local_lower_setup(model, cfg, f, g,
+                                                        fuse_oracles)
+
+    def to_state(vt, mt, step):
+        return FedBiOAccLocalTrainState(vt["x"], vt["y"], mt["omega"],
+                                        mt["nu"], step)
+
+    return _make_flat_pair(cfg, seqs.SPECS["fedbioacc_local"], templates,
+                           voracle, init_trees, storm_block, to_state,
+                           compression, participation)
 
 
 @register("fedavg", seqs.SPECS["fedavg"], hparams={"momentum": 0.9})
@@ -267,7 +332,7 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,   # one oracle: no-op
                            storm_block: int | None = None,
-                           compression=None):
+                           compression=None, participation=None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
@@ -290,4 +355,4 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     aspec = seqs.SPECS["fedavg"]._replace(beta=momentum)
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
-                           to_state, compression)
+                           to_state, compression, participation)

@@ -13,10 +13,12 @@ mean.  The layout is the JAX package's, element for element:
   per-section (lr, decay) scalars become per-tile tables for the kernel);
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
-Only the unsharded layout (``shards=1``) and the unweighted, fault-free
-reductions are ported so far, exact or compressed (:class:`CompressCfg`:
-bf16 or per-tile int8 quantization, per-tile top-k with per-client error
-feedback); the fused launches take no participation mask yet.
+Only the unsharded layout (``shards=1``) and the fault-free reductions are
+ported so far: exact means, unweighted or weighted by participation
+(``weights=``), and unweighted compressed means (:class:`CompressCfg`: bf16
+or per-tile int8 quantization, per-tile top-k with per-client error
+feedback).  The fused launches take a participation ``mask=``, which gates
+their tile tables (:func:`_gate`).
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
 into the buffers it is given (the engine always passes buffers it has just
@@ -169,16 +171,53 @@ def zeros_buffers(spec: FlatSpec, *, batch_shape: tuple = (), device=None):
 # ---------------------------------------------------------------------------
 
 def _tile_table(grp: _Group, buf, table):
-    """Per-section scalars → the flat per-tile table of ``buf`` ([reps·T]
-    f32, client-major like the flattened buffer), on the buffer's device.
-    The scalars are f32 tensors; the table is gathered on the CPU and copied
-    to the device once."""
+    """Per-section scalars → the per-tile table of ``buf``, [reps, T] f32 on
+    the CPU (``reps`` the product of the leading dims: client-major like the
+    flattened buffer)."""
     reps = 1
     for d in buf.shape[:-1]:
         reps *= int(d)
     row = torch.stack([torch.as_tensor(v, dtype=torch.float32)
                        for v in table])[grp.section_ids]
-    return row.repeat(reps).to(buf.device)
+    return row.expand(reps, -1)
+
+
+def _gate(lr_tiles, decay_tiles, mask, frozen_decay: float):
+    """Gate per-tile (lr, decay|β) tables [M, T] with the participation mask
+    [M]: non-participants get lr = 0 and decay pinned to ``frozen_decay``
+    (1.0 freezes STORM and heavy-ball momenta bit for bit once their oracle
+    contributions are zeroed by :func:`mask_buffers`)."""
+    if mask is None:
+        return lr_tiles, decay_tiles
+    if tuple(mask.shape) != (lr_tiles.shape[0],):
+        raise ValueError(f"mask of shape {tuple(mask.shape)} for "
+                         f"{lr_tiles.shape[0]} clients")
+    col = mask.to(device=lr_tiles.device, dtype=torch.float32)[:, None]
+    lr_tiles = lr_tiles * col
+    if decay_tiles is not None:
+        decay_tiles = torch.where(col > 0, decay_tiles, float(frozen_decay))
+    return lr_tiles, decay_tiles
+
+
+def _on_device(buf, *tables):
+    """Tables as the flat [reps·T] tensors a launch takes, copied to the
+    buffer's device once."""
+    return tuple(t.reshape(-1).to(buf.device) for t in tables)
+
+
+def mask_buffers(bufs, mask):
+    """Zero non-participant rows of [M, N] buffers in place and return them
+    (the "oracle skipped" half of the freeze: every client computes, but a
+    non-participant's gradients must not reach its momentum).  A fill, not
+    a multiply: participants pass through bit for bit, and a non-finite
+    gradient of a skipped client still comes out zero (0 · inf would be
+    NaN)."""
+    if mask is None:
+        return bufs
+    for b in bufs:
+        drop = (mask.to(b.device) <= 0).reshape((-1,) + (1,) * (b.dim() - 1))
+        b.masked_fill_(drop, 0)
+    return bufs
 
 
 def _launch(kern, grp: _Group, bufs, tables, n_out: int):
@@ -191,17 +230,21 @@ def _launch(kern, grp: _Group, bufs, tables, n_out: int):
 
 
 def storm_partial_step(spec: FlatSpec, var_bufs, mom_bufs, g_old_bufs,
-                       lrs, decays):
+                       lrs, decays, *, mask=None):
     """One fused ``storm3_step`` launch per dtype buffer:
 
         v_new  = v − lr_sec·m            (variable step, entering momentum)
         m_part = decay_sec·(m − g_old)   (partial STORM momentum)
 
-    ``lrs``/``decays``: one f32 scalar per section."""
+    ``lrs``/``decays``: one f32 scalar per section.  ``mask``: optional
+    participation mask [M]: non-participants' tiles run with lr = 0 and
+    decay = 1, so (with ``g_old`` zeroed by :func:`mask_buffers`) their rows
+    come out of the same launch bit for bit as they went in."""
     out_v, out_m = [], []
     for grp, v, m, go in zip(spec.groups, var_bufs, mom_bufs, g_old_bufs):
-        vn, mn = _launch(storm3_step, grp, (v, m, go),
-                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)),
+        tables = _gate(_tile_table(grp, v, lrs), _tile_table(grp, v, decays),
+                       mask, 1.0)
+        vn, mn = _launch(storm3_step, grp, (v, m, go), _on_device(v, *tables),
                          2)
         out_v.append(vn)
         out_m.append(mn)
@@ -216,37 +259,44 @@ def storm_full_update(spec: FlatSpec, var_bufs, mom_bufs, g_new_bufs,
     for grp, v, m, gn, go in zip(spec.groups, var_bufs, mom_bufs,
                                  g_new_bufs, g_old_bufs):
         vn, mn = _launch(storm3_update, grp, (v, m, gn, go),
-                         (_tile_table(grp, v, lrs), _tile_table(grp, v, decays)),
-                         2)
+                         _on_device(v, _tile_table(grp, v, lrs),
+                                    _tile_table(grp, v, decays)), 2)
         out_v.append(vn)
         out_m.append(mn)
     return tuple(out_v), tuple(out_m)
 
 
-def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas):
+def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas,
+                      *, mask=None):
     """One fused ``momsgd3_step`` launch per dtype buffer:
 
         m_new = β_sec·m + g        (momentum update, FedAvg's order)
         v_new = v − lr_sec·m_new   (variable step, updated momentum)
 
-    ``lrs``/``betas``: one f32 scalar per section."""
+    ``lrs``/``betas``: one f32 scalar per section.  ``mask``: as in
+    :func:`storm_partial_step` (lr = 0, β = 1 for non-participants, whose
+    ``g`` :func:`mask_buffers` zeroes)."""
     out_v, out_m = [], []
     for grp, v, m, gb in zip(spec.groups, var_bufs, mom_bufs, g_bufs):
+        tables = _gate(_tile_table(grp, v, lrs), _tile_table(grp, v, betas),
+                       mask, 1.0)
         vn, mn = _launch(momsgd3_step, grp, (v, m, gb),
-                         (_tile_table(grp, v, lrs), _tile_table(grp, v, betas)),
-                         2)
+                         _on_device(v, *tables), 2)
         out_v.append(vn)
         out_m.append(mn)
     return tuple(out_v), tuple(out_m)
 
 
-def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs):
+def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs, *, mask=None):
     """One fused ``sgd3_step`` launch per dtype buffer: v_new = v − lr_sec·g,
     for the specs that carry no momentum (no momentum stream is read or
-    written)."""
-    return tuple(_launch(sgd3_step, grp, (v, gb), (_tile_table(grp, v, lrs),),
-                         1)[0]
-                 for grp, v, gb in zip(spec.groups, var_bufs, g_bufs))
+    written).  ``mask``: non-participants' tiles run with lr = 0."""
+    out = []
+    for grp, v, gb in zip(spec.groups, var_bufs, g_bufs):
+        lr_t, _ = _gate(_tile_table(grp, v, lrs), None, mask, 1.0)
+        out.append(_launch(sgd3_step, grp, (v, gb), _on_device(v, lr_t),
+                           1)[0])
+    return tuple(out)
 
 
 def buffers_add(a, b):
@@ -258,10 +308,53 @@ def buffers_add(a, b):
 # Section-masked communication
 # ---------------------------------------------------------------------------
 
-def _bcast_mean(x):
-    """Client mean of one buffer run over the leading axis, broadcast back
-    (``tree_util.client_mean``'s arithmetic)."""
-    return client_mean(x)
+_CHUNK = 1 << 22     # columns per pass of the weighted mean's f64 temporaries
+
+
+def _weight_col(x, w):
+    """Per-client weights [M] → the column ``col = w · (M / Σw)`` in the
+    dtype of ``x`` (as an f32 tensor on ``w``'s device), rescaled so that
+    the plain mean of ``x · col`` is the weighted mean Σ w_m x_m / Σ w; an
+    empty group (Σw = 0) scales to 0.  Σw is summed in client order, as the
+    compiled reference sums."""
+    wsum = torch.zeros((), dtype=torch.float32, device=w.device)
+    for v in w.to(torch.float32):
+        wsum = wsum + v
+    scale = torch.where(wsum > 0, w.shape[-1] / wsum, 0.0)
+    return (w * scale).to(x.dtype).to(torch.float32)
+
+
+def _bcast_mean(x, w=None):
+    """Client mean of one buffer run over the leading axis, broadcast back.
+
+    Without ``w``: ``tree_util.client_mean``'s arithmetic.  With
+    participation weights ``w`` [M] (zero = non-participant): the mean is
+    over participants only, and non-participant rows pass through bit for
+    bit.  The arithmetic is the compiled reference's ``mean(x · col)``
+    (:func:`_weight_col`): XLA fuses the product into the reduction, so each
+    client adds ``x_m · col_m`` to the f32 sum with one rounding, a fused
+    multiply-add, in client order (taken here in f64, where the product of
+    two f32 values is exact, and rounded to f32 once: that rounds twice only
+    where the f64 sum falls exactly half-way between two f32 values); then
+    the sum is multiplied by ``f32(1/M)`` and cast to the buffer's dtype.
+    All-ones weights give ``col = 1`` and the unweighted mean bit for bit."""
+    if w is None:
+        return client_mean(x)
+    m = x.shape[0]
+    col = _weight_col(x, w)
+    keep = (col > 0).to(x.device).reshape(m, 1)
+    c = col.to(device=x.device, dtype=torch.float64)
+    inv = _inv(m, x.device)
+    flat_x = x.reshape(m, -1)
+    out = torch.empty_like(flat_x)
+    for a in range(0, flat_x.shape[1], _CHUNK):
+        seg = flat_x[:, a:a + _CHUNK]
+        acc = torch.zeros(seg.shape[1], dtype=torch.float32, device=x.device)
+        for i in range(m):
+            acc = (acc.double() + seg[i].double() * c[i]).float()
+        mean = (acc * inv).to(x.dtype)
+        out[:, a:a + _CHUNK] = torch.where(keep, mean[None], seg)
+    return out.reshape(x.shape)
 
 
 def _inv(m: int, device) -> torch.Tensor:
@@ -360,18 +453,23 @@ def _section_runs(grp: _Group, modes, comp_of_sec=None):
     return runs
 
 
-def client_mean_masked(spec: FlatSpec, bufs, modes, *, compress=None,
-                       ef=None):
+def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
+                       compress=None, ef=None):
     """Section-masked client communication over flat [M, N] buffers, in
     place: every ``"mean"`` run is replaced by its client mean, ``"none"``
     (private) runs are not touched.  Returns ``bufs``.
+
+    ``weights``: participation weights [M] (or None), shared by every
+    section.  Zero-weight clients are non-participants: the mean is over
+    participants only and their rows pass through bit for bit
+    (:func:`_bcast_mean`).
 
     ``compress``: a :class:`CompressCfg`; the runs of the sections it names
     (every communicated one when ``sections`` is empty) take the compressed
     mean of :func:`_compressed_mean`, whole-run, and the call returns
     ``(bufs, ef)``: the updated per-client error-feedback buffers, one f32
     [M, N] buffer per dtype group (pass the current ones as ``ef=``), or
-    ``()`` when ``compress.has_ef`` is false.  Participation weights,
+    ``()`` when ``compress.has_ef`` is false.  The weighted compressed mean,
     faults, robust aggregators, the grouped mean and sharding are not
     ported yet."""
     n_sections = max(len(spec.sections), 1)
@@ -384,6 +482,10 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, compress=None,
             f"'Participation, staleness and cadence'")
     comp_of_sec = None
     if compress is not None:
+        if weights is not None:
+            raise NotImplementedError(
+                "the participation-weighted compressed mean is not ported "
+                "yet (ROADMAP queue 1, item 'Compression, the rest')")
         names = spec.sections if spec.sections else ("",)
         comp_of_sec = tuple(not compress.sections or nm in compress.sections
                             for nm in names)
@@ -401,7 +503,7 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, compress=None,
                 continue
             seg = buf[..., start:stop]
             if not comp:
-                seg.copy_(_bcast_mean(seg))
+                seg.copy_(_bcast_mean(seg, weights))
                 continue
             eseg = None if ebuf is None else ebuf[..., start:stop]
             mean, new_e = _compressed_mean(seg, eseg, compress, grp.block)

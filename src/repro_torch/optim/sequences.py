@@ -13,13 +13,19 @@ the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
   FedBiO-Local) → client mean of the variables.
 
 Ported so far: both kinds with the AVERAGED / PRIVATE policies and
-HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging), and
+HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging),
 compressed communication (``compression=``: quantized and/or top-k sends,
-per-client error feedback on ``FlatState.ef``); no participation, faults,
-telemetry, stragglers, sharding or per-sequence cadences.
+per-client error feedback on ``FlatState.ef``), and partial participation
+(``participation=``: the round's client mask gates the fused launches and
+zeroes non-participants' oracle contributions, the reductions average
+participants only, and per-client staleness counters on ``FlatState.stale``
+age returning clients' weights by α^k); no faults, telemetry, stragglers,
+sharding or per-sequence cadences.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
-whether a step communicates is decided without reading the device.  The
+whether a step communicates is decided without reading the device; so do
+the participation masks, weights and staleness counters, which are copied
+to the buffers' device where a launch or a reduction uses them.  The
 STORM schedule α_t and the per-section (lr, decay) scalars are f32 tensors
 on the CPU, computed with the JAX package's f32 operation order, so the
 per-tile tables agree with the reference's; the sgd kind's lrs and β are
@@ -121,12 +127,33 @@ def _round_preds(cfg, step: int):
     return is_comm, is_global
 
 
+def staleness_weights(w, stale, alpha: float):
+    """α^staleness-aged participation weights [M] (``w`` itself at α = 1).
+    α^k is taken in f64 from the f32 α and rounded once; the reference's
+    f32 ``pow`` agrees exactly for α a power of two and may differ by an
+    ulp otherwise."""
+    if alpha == 1.0:
+        return w
+    return w * (_f32(alpha).double() ** stale.to(torch.float64)).to(
+        torch.float32)
+
+
+def advance_stale(cfg, step: int, mask, stale):
+    """Advance per-client staleness counters at communication steps:
+    participants reset to 0, absentees age by 1."""
+    if (step + 1) % cfg.local_steps != 0:
+        return stale
+    return torch.where(mask > 0, 0, stale + 1).to(torch.int32)
+
+
 def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
-                 compress=None, ef=()):
+                 weights=None, compress=None, ef=()):
     """Apply the per-section policies to flat [M, N] buffers at a
     communication step: one masked reduction per communicated run, private
     sections untouched.  Other steps return ``bufs`` as they are.
 
+    ``weights``: participation weights [M] (or None): the means are over
+    participants only.
     ``compress`` / ``ef``: a :class:`flat.CompressCfg` and the current
     error-feedback buffers; with ``compress`` set the call returns
     ``(bufs, ef)``, and a step that does not communicate leaves both as
@@ -140,26 +167,29 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
     modes = tuple("none" if p == PRIVATE else "mean" for p in policies)
     if not is_comm or all(m == "none" for m in modes):
         return bufs if compress is None else (bufs, ef)
-    return flat.client_mean_masked(spec, bufs, modes, compress=compress,
-                                   ef=ef)
+    return flat.client_mean_masked(spec, bufs, modes, weights=weights,
+                                   compress=compress, ef=ef)
 
 
 class FlatState(NamedTuple):
     """Train state on the flat substrate: per-dtype [M, N] variable and f32
     momentum buffers (``()`` when the spec carries no momentum), the
-    host-side step counter, and the per-client error-feedback buffers of
-    top-k compressed communication: a ``(vars_ef, mom_ef)`` pair of f32
-    buffer tuples shaped like ``vars``/``mom``, or ``()`` when compression
-    is off or carries no feedback."""
+    host-side step counter, the per-client error-feedback buffers of top-k
+    compressed communication (a ``(vars_ef, mom_ef)`` pair of f32 buffer
+    tuples shaped like ``vars``/``mom``, or ``()`` when compression is off
+    or carries no feedback), and the per-client staleness counters (rounds
+    missed since the last participation: an [M] int32 CPU tensor when a
+    participation engine is attached, ``()`` otherwise)."""
     vars: Any
     mom: Any
     step: int
     ef: Any = ()
+    stale: Any = ()
 
 
 class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
-    step=0, ef=None)``, ``step(state, batch) -> state`` and ``views(state) ->
+    step=0, ef=None, stale=None)``, ``step(state, batch) -> state`` and ``views(state) ->
     (var_dict, mom_dict)``, ``mom_dict`` None without momentum."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
@@ -208,7 +238,8 @@ def _compress_cfg(cfg, aspec: AlgoSpec, compression):
 
 
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
-                block: int | None = None, compression=None) -> Engine:
+                block: int | None = None, compression=None,
+                participation=None) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
@@ -219,9 +250,22 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
 
     ``compression``: a ``CompressionSpec`` (or None): every communicated
     reduction of the sections it names moves compressed sends, and with
-    top-k error feedback the state carries ``ef``."""
+    top-k error feedback the state carries ``ef``.
+
+    ``participation``: a compiled
+    :class:`~repro_torch.federation.participation.Participation` (or None):
+    every step takes the round's client mask from the step counter, zeroes
+    non-participants' oracle contributions (:func:`flat.mask_buffers`),
+    gates the fused launches with it, averages participants only (weighted
+    by α^staleness, α the spec's ``stale_discount``) and advances the
+    staleness counters on ``FlatState.stale`` at communication steps."""
     if aspec.kind not in ("storm", "sgd"):
         raise ValueError(f"unknown engine kind {aspec.kind!r}")
+    if compression is not None and participation is not None:
+        raise NotImplementedError(
+            "participation with compression needs the participation-"
+            "weighted compressed mean, which is not ported yet (ROADMAP "
+            "queue 1, item 'Compression, the rest')")
     ccfg = (None if compression is None
             else _compress_cfg(cfg, aspec, compression))
     has_ef = ccfg is not None and ccfg.has_ef
@@ -231,19 +275,37 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                           sections=sections,
                           block=block if block else flat.BLOCK)
     policies = aspec.policies
+    part = participation
+    alpha = 1.0 if part is None else float(part.spec.stale_discount)
 
     def _flatten_grads(gdict):
         return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
                                  batch_dims=1, dtype=torch.float32)
 
-    def comm(step: int, bufs, ef):
+    def _round_ctx(state: FlatState):
+        """(mask, comm weights) of the round ``state.step`` belongs to, both
+        on the host; (None, None) without participation."""
+        if part is None:
+            return None, None
+        mask, w = part.round_weights(state.step // cfg.local_steps)
+        w = staleness_weights(w, state.stale, alpha)
+        return mask, w
+
+    def _next_stale(state: FlatState, mask):
+        if part is None:
+            return state.stale
+        return advance_stale(cfg, state.step, mask, state.stale)
+
+    def comm(step: int, bufs, ef, weights):
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
         if ccfg is None:
-            return comm_buffers(spec, cfg, step, bufs, policies), ef
+            return comm_buffers(spec, cfg, step, bufs, policies,
+                                weights=weights), ef
         return comm_buffers(spec, cfg, step, bufs, policies, compress=ccfg,
                             ef=ef)
 
-    def init_state(var_trees, mom_trees=None, step: int = 0, ef=None):
+    def init_state(var_trees, mom_trees=None, step: int = 0, ef=None,
+                   stale=None):
         vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
                                    batch_dims=1)
         if not has_mom:
@@ -267,52 +329,64 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                          for bufs in (vars_b, mom_b))
         else:
             ef_b = ef
-        return FlatState(vars_b, mom_b, int(step), ef_b)
+        if part is None:
+            stale_b = ()
+        elif stale is None:
+            stale_b = torch.zeros(part.num_clients, dtype=torch.int32)
+        else:
+            stale_b = torch.as_tensor(stale, dtype=torch.int32).cpu()
+        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b)
 
     def _storm_step(state: FlatState, batch) -> FlatState:
         t = state.step
+        mask, wts = _round_ctx(state)
         a = alpha_schedule(cfg, t)
         lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
         decays = tuple(_f32(1.0) - _f32(getattr(cfg, q.decay)) * a * a
                        for q in aspec.sequences)
-        # 1) old-iterate oracle on pytree views of the entering iterate
-        g_old = _flatten_grads(oracle(flat.unflatten_tree(spec, state.vars),
-                                      batch))
-        # 2) variable step + partial momentum: one launch per dtype buffer
+        # 1) old-iterate oracle on pytree views of the entering iterate;
+        #    non-participants' contributions are zeroed
+        g_old = flat.mask_buffers(_flatten_grads(oracle(
+            flat.unflatten_tree(spec, state.vars), batch)), mask)
+        # 2) variable step + partial momentum: one gated launch per buffer
         vars_b, mom_b = flat.storm_partial_step(spec, state.vars, state.mom,
-                                                g_old, lrs, decays)
+                                                g_old, lrs, decays, mask=mask)
         del g_old
         efv, efm = state.ef if state.ef else ((), ())
         # 3) communicate the variables
-        vars_c, efv = comm(t, vars_b, efv)
+        vars_c, efv = comm(t, vars_b, efv, wts)
         # 4) new-iterate oracle, same batch; the STORM correction is one add
-        g_new = _flatten_grads(oracle(flat.unflatten_tree(spec, vars_c),
-                                      batch))
+        g_new = flat.mask_buffers(_flatten_grads(oracle(
+            flat.unflatten_tree(spec, vars_c), batch)), mask)
         mom_b = flat.buffers_add(mom_b, g_new)
         del g_new
-        mom_b, efm = comm(t, mom_b, efm)
+        mom_b, efm = comm(t, mom_b, efm, wts)
         return FlatState(vars_c, mom_b, t + 1,
-                         (efv, efm) if state.ef else ())
+                         (efv, efm) if state.ef else (),
+                         _next_stale(state, mask))
 
     def _sgd_step(state: FlatState, batch) -> FlatState:
         t = state.step
+        mask, wts = _round_ctx(state)
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
-        g = _flatten_grads(oracle(flat.unflatten_tree(spec, state.vars),
-                                  batch))
+        g = flat.mask_buffers(_flatten_grads(oracle(
+            flat.unflatten_tree(spec, state.vars), batch)), mask)
         efv, efm = state.ef if state.ef else ((), ())
         if has_mom:
             betas = (_f32(aspec.beta),) * len(aspec.sequences)
             vars_b, mom_b = flat.momentum_sgd_step(spec, state.vars,
-                                                   state.mom, g, lrs, betas)
-            mom_b, efm = comm(t, mom_b, efm)
+                                                   state.mom, g, lrs, betas,
+                                                   mask=mask)
+            mom_b, efm = comm(t, mom_b, efm, wts)
         else:
             # no momentum: the plain-SGD launch reads and writes no momentum
-            vars_b = flat.sgd_step(spec, state.vars, g, lrs)
+            vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask)
             mom_b = ()
         del g
-        vars_b, efv = comm(t, vars_b, efv)
+        vars_b, efv = comm(t, vars_b, efv, wts)
         return FlatState(vars_b, mom_b, t + 1,
-                         (efv, efm) if state.ef else ())
+                         (efv, efm) if state.ef else (),
+                         _next_stale(state, mask))
 
     step = _storm_step if aspec.kind == "storm" else _sgd_step
 

@@ -1,8 +1,8 @@
 """The port's package boundary and its spec surface: no file of
 ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the JAX package; every committed experiment
 parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
-``fedavg.json`` and ``fedbioacc_int8_topk.json`` build; every other
-committed spec is refused with
+``fedavg.json``, ``fedbioacc_int8_topk.json`` and ``fedbioacc_local.json``
+build; every other committed spec is refused with
 ``NotImplementedError`` naming the feature the port does not run yet (so is
 training through the model kernels, or of the hybrid family); and the entry
 points want a card unless the CPU is asked for."""
@@ -25,13 +25,13 @@ SGD_KIND = {"fedavg.json": ("params",), "fedbio.json": ("x", "y", "u"),
             "fedbio_local.json": ("x", "y")}
 # committed specs with a compression block: (quant, top-k fraction)
 COMPRESSED = {"fedbioacc_int8_topk.json": ("int8", 0.1)}
+# committed specs that sample clients: (sampler, clients a round)
+SAMPLED = {"fedbioacc_local.json": ("uniform", 2)}
 # what each other committed spec sets that the port does not run yet
 REFUSED = {
     "fedbioacc_faulty.json": ["faults", "robustness"],
-    "fedbioacc_local.json": ["algorithm 'fedbioacc_local'",
-                             "participation sampling"],
     "fedbioacc_sharded_overlap.json": ["execution.mesh", "execution.overlap"],
-    "fedbioacc_straggler.json": ["participation sampling", "stragglers"],
+    "fedbioacc_straggler.json": ["stragglers"],
     "fedbioacc_telemetry.json": ["telemetry"],
 }
 
@@ -84,7 +84,8 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_committed_specs_are_all_covered():
     assert sorted(p.name for p in EXPERIMENTS) == \
-        sorted(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *REFUSED])
+        sorted(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *SAMPLED,
+                *REFUSED])
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -128,9 +129,39 @@ def test_compressed_spec_builds_on_cpu(name):
                for side in state.ef for e in side)
 
 
+@pytest.mark.parametrize("name", sorted(SAMPLED))
+def test_sampled_spec_builds_on_cpu(name):
+    exp = Experiment.load(str(ROOT / "experiments" / name))
+    run = build(exp, device="cpu")
+    assert run.device == torch.device("cpu")
+    part = run.init.participation
+    assert part is run.step.participation is not None
+    assert (run.participation.sampler, part.spec.clients_per_round) == \
+        SAMPLED[name]
+    state = run.init(torch.Generator().manual_seed(0))
+    assert state.stale.dtype == torch.int32 and not torch.any(state.stale)
+    assert state.stale.shape == (exp.problem.num_clients,)
+
+
+@pytest.mark.parametrize("edit,item", [
+    ({"schedule.hierarchy_period": 2},
+     "'Participation, staleness and cadence'"),
+    ({"schedule.comm_every": {"x": 2}},
+     "'Participation, staleness and cadence'"),
+    ({"compression.quant": "int8"}, "'Compression, the rest'"),
+])
+def test_sampled_spec_refuses_unported_features_by_item(edit, item):
+    exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc_local.json"))
+    with pytest.raises(NotImplementedError) as err:
+        build(exp.edit(**edit), device="cpu")
+    assert f"ROADMAP queue 1, {item}" in str(err.value)
+
+
 @pytest.mark.parametrize("edit,feature", [
     ({"schedule.hierarchy_period": 2}, "schedule.hierarchy_period"),
-    ({"participation.clients_per_round": 4}, "participation sampling"),
+    ({"participation.clients_per_round": 4},
+     "the participation-weighted compressed mean (ROADMAP queue 1, "
+     "'Compression, the rest')"),
     ({"execution.mesh": [2, 1]}, "execution.mesh"),
 ])
 def test_compression_with_unported_features_is_refused_by_name(edit,

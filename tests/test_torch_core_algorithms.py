@@ -236,9 +236,9 @@ def test_fuse_storm_changes_nothing_but_how_a_round_runs(algo, monkeypatch):
     reduced = []
     mean = flat._bcast_mean
 
-    def recording(seg):
+    def recording(seg, w=None):
         reduced.append(seg.shape[-1])
-        return mean(seg)
+        return mean(seg, w)
 
     a = _rounds(algo)
     monkeypatch.setattr(flat, "_bcast_mean", recording)

@@ -390,9 +390,9 @@ def test_cuda_paper_algorithms_fused_match_tree_loop(algo, kernel, width,
     tree = run(False)
     reduced, mean = [], flat._bcast_mean
 
-    def recording(seg):
+    def recording(seg, w=None):
         reduced.append(seg.shape[-1])
-        return mean(seg)
+        return mean(seg, w)
 
     monkeypatch.setattr(flat, "_bcast_mean", recording)
     tk.reset_counts()
