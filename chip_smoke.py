@@ -20,9 +20,13 @@ Phases, each of which stops the script with a non-zero exit on failure:
    compressed reduction at the bf16 buffer's shape; then ``storm3_step``,
    ``sgd3_step`` and ``momsgd3_step`` with tile tables gated by a
    participation mask that leaves clients out (``storm3_step`` at the
-   FedBiOAcc-Local buffers of 4 clients, 2 left out), bit for bit against
-   their plain versions, the left-out rows equal to their input bits, with
-   inf/NaN in a left-out client's gradient zeroed by ``flat.mask_buffers``;
+   FedBiOAcc-Local buffers of 4 clients, 2 left out, and again at the
+   straggler path's buffers of 8 clients, block 256, gated by round 0's
+   arrivals so that unsampled and late clients are left out), bit for bit
+   against their plain versions (run a client row at a time), the
+   left-out rows equal to their input bits, with inf/NaN in a left-out
+   client's gradient (a late one on the straggler path) zeroed by
+   ``flat.mask_buffers``;
 3b. the pytree ``storm_update`` (``repro_torch.kernels.storm``) over the
    full-width Mamba-2-130M parameter tree (seeded on the card, bf16 and f32
    leaves) with f32 momentum and gradient trees, then with bf16 momentum,
@@ -40,11 +44,17 @@ Phases, each of which stops the script with a non-zero exit on failure:
    other must lie near its threshold or half-way point
    (``repro_torch.testing``: ``topk_flips``, ``int8_flips``), and the
    1e-4 holds off the entries and columns those flips reach, the error
-   feedback included;
+   feedback included.  The straggler path is cross-checked under each of
+   its late policies (``drop``, ``carry``, ``cancel``) over two rounds
+   (four steps), and each step's arrivals, extensions, effective and next
+   deadline, and the staleness counters, must be equal on both devices
+   (the host decides them from the deadline each state carries);
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
-   ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json`` and
-   ``fedbioacc_local.json``, each at full Mamba-2-130M width (bf16, 2
-   clients, or the sampled path's own 4 of which 2 take part a round; 1
+   ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
+   ``fedbioacc_local.json`` and ``fedbioacc_straggler.json``, each at full
+   Mamba-2-130M width (bf16, 2 clients, or a sampled path's own: 4 of which
+   2 take part a round, and the straggler path's 8 of which 6 are sampled
+   and those that beat the round's deadline arrive; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -53,7 +63,17 @@ Phases, each of which stops the script with a non-zero exit on failure:
    and checks on the card that every step leaves the non-participants'
    variable and momentum rows at their entering bits, and that each round
    leaves the participants' communicated rows (x, ν) bit-identical and
-   their private ones (y, ω) not;
+   their private ones (y, ω) not; the straggler path logs each round's
+   sampled set, arrivals, quorum, extensions and effective and next
+   deadline beside ``simulate_rounds``' simulated round clock (host
+   arithmetic in simulated seconds) and the share of its step time spent
+   on the oracles of clients that did not arrive (CUDA events around each
+   client's oracle, no synchronization inside a step), and checks that
+   every round's arrivals make quorum, that the decision each step records
+   has ``simulate_rounds``' arrival count, quorum, extensions and
+   effective deadline, that the arrivals are the sampled clients whose
+   drawn time is within that deadline, and that every step leaves the
+   non-arrivals' rows at their entering bits (``drop``);
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -107,6 +127,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -134,6 +155,8 @@ from repro_torch.core.tree_util import (tree_leaves, tree_map,  # noqa: E402
 from repro_torch.examples import data_cleaning as cleaning_ex  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     hyper_representation as hyperrep_ex)
+from repro_torch.federation import trainer  # noqa: E402
+from repro_torch.federation.stragglers import simulate_rounds  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash.ref import (band_mask,  # noqa: E402
@@ -166,9 +189,11 @@ PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
          "fedavg": {"momsgd3_step": 8, "storm_update": 0},
          "fedbioacc_int8_topk": {"storm3_step": 8, "quantpack": 8,
                                  "quantunpack": 8, "storm_update": 0},
-         "fedbioacc_local": {"storm3_step": 8, "storm_update": 0}}
+         "fedbioacc_local": {"storm3_step": 8, "storm_update": 0},
+         "fedbioacc_straggler": {"storm3_step": 8, "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
 SAMPLED = "fedbioacc_local"
+STRAGGLED = "fedbioacc_straggler"
 # clients at full width; a path that samples its clients keeps the spec's
 # own count, so that the sampler leaves clients out
 CLIENTS = 2
@@ -466,23 +491,47 @@ def compression_phase(groups, dev) -> None:
     torch.cuda.empty_cache()
 
 
-# the gated launches: kernel → the path whose buffers it is held at
-GATED = {"storm3_step": SAMPLED, "sgd3_step": "fedbio",
-         "momsgd3_step": "fedavg"}
+# the gated launches: (kernel, the path whose buffers it is held at)
+GATED = [("storm3_step", SAMPLED), ("sgd3_step", "fedbio"),
+         ("momsgd3_step", "fedavg"), ("storm3_step", STRAGGLED)]
 
 
-def gated_phase(groups_of: dict, clients_of: dict, dev) -> None:
-    """The three update kernels with their tile tables gated by a
-    participation mask that leaves every other client out, at their path's
-    shapes: bit for bit against the plain version on the same gated
-    tables, the left-out rows at their input bits, and inf/NaN in a
-    left-out client's gradient zeroed by ``flat.mask_buffers`` first."""
-    gen = torch.Generator(device=dev).manual_seed(7)
-    for name, path in GATED.items():
-        k = KERNELS[name]
-        m = clients_of[path]
+def gate_mask(run, m: int):
+    """The mask phase 3 gates a path's tables with, the client whose
+    gradient it fills with inf/NaN, and how the mask was chosen: on a
+    straggler path round 0's launch mask as its late policy makes it from
+    the round's decision, and a client that was sampled but arrived late;
+    elsewhere every other client left out, and the first of them."""
+    strag = run.step.stragglers
+    if strag is None:
         mask = torch.ones(m)
         mask[1::2] = 0.0
+        return mask, 1, "every other client left out"
+    part = run.init.participation
+    sampled = torch.ones(m) if part is None else part.mask_fn(0)
+    arrivals = strag.round_decision(0, sampled, strag.spec.deadline)[0]
+    late = [i for i in range(m) if sampled[i] > 0 and arrivals[i] == 0]
+    if not late or strag.spec.late_policy == "carry":
+        raise SystemExit("gated phase: round 0 of the straggler path "
+                         "freezes no late client")
+    return (arrivals, late[0],
+            f"round 0's arrivals ({strag.spec.late_policy}; sampled "
+            f"{[i for i in range(m) if sampled[i] > 0]}, late {late})")
+
+
+def gated_phase(groups_of: dict, gates: dict, dev) -> None:
+    """The three update kernels with their tile tables gated by a mask that
+    leaves clients out (``gate_mask``), at their path's shapes: bit for bit
+    against the plain version on the same gated tables, the left-out rows
+    at their input bits, and inf/NaN in a left-out client's gradient zeroed
+    by ``flat.mask_buffers`` first.  The plain version runs a client row at
+    a time (it is elementwise over tiles, so its bits are those of one
+    call), so that its f32 temporaries fit beside 8 clients' buffers."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, path in GATED:
+        k = KERNELS[name]
+        mask, nan_row, how = gates[path]
+        m = len(mask)
         out_rows = [i for i in range(m) if mask[i] == 0]
         n_tables = 1 if name == "sgd3_step" else 2
         for grp in groups_of[path]:
@@ -490,18 +539,25 @@ def gated_phase(groups_of: dict, clients_of: dict, dev) -> None:
             args = k.inputs(n, n // grp.block, grp, gen, dev)
             p, streams = args[0], list(args[1:-n_tables])
             g = streams[-1].view(m, -1)
-            g[out_rows[0], :3] = torch.tensor([math.inf, -math.inf, math.nan],
-                                              device=dev)
-            streams[-1] = flat.mask_buffers((g,), mask)[0].reshape(-1)
+            g[nan_row, :3] = torch.tensor([math.inf, -math.inf, math.nan],
+                                          device=dev)
+            flat.mask_buffers((g,), mask)
             tables = [t.view(m, -1) for t in args[-n_tables:]]
             lr, rest = flat._gate(tables[0], tables[1] if n_tables == 2
                                   else None, mask, 1.0)
             tables = [t.reshape(-1) for t in (lr, rest) if t is not None]
+            del args, g
             out = k.wrapper(p, *streams, *tables, block=grp.block)
-            want = k.plain(p, *streams, *tables, grp.block)
+            out = (out,) if torch.is_tensor(out) else out
+            ok = True
+            for i in range(m):
+                want = k.plain(*(t.view(m, -1)[i]
+                                 for t in (p, *streams, *tables)), grp.block)
+                want = (want,) if torch.is_tensor(want) else want
+                ok = ok and all(same_bits(o.view(m, -1)[i], w)
+                                for o, w in zip(out, want))
+                del want
             torch.cuda.synchronize()
-            out, want = ((o,) if torch.is_tensor(o) else o for o in (out, want))
-            ok = all(same_bits(o, w) for o, w in zip(out, want))
             # p' and (for the momentum kernels) m' against p and m
             for o, before in zip(out, (p, streams[0])):
                 rows = o.view(m, -1)[out_rows]
@@ -511,12 +567,13 @@ def gated_phase(groups_of: dict, clients_of: dict, dev) -> None:
             verdict = ("bitwise equal to the plain version, left-out rows at "
                        "their input bits" if ok else "WRONG")
             log(f"gated {name} {str(grp.dtype).replace('torch.', '')} "
-                f"[{m}, {grp.padded}] ({path} path), mask {mask.tolist()}, "
-                f"inf/NaN in client {out_rows[0]}'s gradient: {verdict}")
+                f"[{m}, {grp.padded}] ({path} path, block {grp.block}), "
+                f"mask {mask.tolist()}: {how}, inf/NaN in client "
+                f"{nan_row}'s gradient: {verdict}")
             if not ok:
                 raise SystemExit(f"gated {name}: differs from the plain "
                                  f"version or moved a left-out row")
-            del args, p, streams, g, tables, out, want
+            del p, streams, tables, out
             torch.cuda.empty_cache()
 
 
@@ -661,25 +718,28 @@ def _rel_outside(g: torch.Tensor, c: torch.Tensor, mask) -> float:
     return float((g - c).norm() / c.norm())
 
 
-def cross_check(name: str, exp: Experiment, dev) -> None:
-    """Two reduced steps on the card against two on the CPU."""
+def cross_check(name: str, exp: Experiment, dev, steps: int = 2) -> None:
+    """``steps`` reduced steps on the card against as many on the CPU."""
     cpu_run = build(exp, device="cpu")
     gpu_run = build(exp, device=dev)
     cpu_state = cpu_run.init(torch.Generator().manual_seed(0))
     gpu_state = _to(cpu_state, dev)
     data = torch.Generator().manual_seed(1)
     calls = {"cpu": [], "gpu": []}
+    metrics = {"cpu": [], "gpu": []}
     cp = exp.compression
     topk = flat._topk_tiles
-    for _ in range(2):
+    for _ in range(steps):
         batch = cpu_run.batch_fn(data)
         try:
             flat._topk_tiles = _recording(topk, calls["cpu"])
-            cpu_state, _ = cpu_run.step(cpu_state, batch)
+            cpu_state, met = cpu_run.step(cpu_state, batch)
+            metrics["cpu"].append(met)
             flat._topk_tiles = _recording(topk, calls["gpu"])
-            gpu_state, _ = gpu_run.step(
+            gpu_state, met = gpu_run.step(
                 gpu_state, {k: {kk: v.to(dev) for kk, v in b.items()}
                             for k, b in batch.items()})
+            metrics["gpu"].append(met)
         finally:
             flat._topk_tiles = topk
     pairs = [(g, c, None) for g, c in zip(gpu_state.vars + gpu_state.mom,
@@ -719,7 +779,8 @@ def cross_check(name: str, exp: Experiment, dev) -> None:
         f"threshold or half-way point, error feedback included")
     part = ""
     if cpu_run.init.participation is not None:
-        rounds = sorted({t // exp.schedule.local_steps for t in range(2)})
+        rounds = sorted({t // exp.schedule.local_steps
+                         for t in range(steps)})
         masks = [[r.mask_fn(i).tolist() for i in rounds]
                  for r in (cpu_run.init.participation,
                            gpu_run.init.participation)]
@@ -729,7 +790,21 @@ def cross_check(name: str, exp: Experiment, dev) -> None:
                              f"staleness counters differ between devices")
         part = (f", masks {masks[0]} and staleness counters "
                 f"{cpu_state.stale.tolist()} equal on both")
-    log(f"reduced cross-check, {name}: card vs CPU after 2 steps, worst "
+    if cpu_run.step.stragglers is not None:
+        # decided on the host from the step counter, the sampled mask and
+        # the deadline each state carries: equal unless the deadline was
+        # threaded through the card's steps otherwise
+        decided = [[(m["arrivals"].tolist(), m["extensions"], m["deadline"],
+                     m["deadline_next"]) for m in metrics[side]]
+                   for side in ("cpu", "gpu")]
+        if decided[0] != decided[1] or not same_bits(cpu_state.deadline,
+                                                     gpu_state.deadline):
+            raise SystemExit(f"cross-check of {name}: the straggler "
+                             f"decisions or the deadline differ between "
+                             f"devices: {decided}")
+        part += (f"; per step (arrivals, extensions, effective deadline, "
+                 f"next deadline) {decided[0]} equal on both")
+    log(f"reduced cross-check, {name}: card vs CPU after {steps} steps, worst "
         f"relative buffer difference {worst:.3e} (limit 1e-4){what}{part}")
     if not worst <= 1e-4:
         raise SystemExit(f"reduced cross-check of {name} failed")
@@ -741,18 +816,19 @@ def _rows_equal(buf: torch.Tensor, rows: list) -> bool:
 
 def _participation_checks(name: str, run, state: FlatState, kept, out: list,
                           ins: list, round_end: bool) -> None:
-    """After a step of the sampled path: the non-participants' rows ``out``
-    at their entering bits ``kept``; after a round, the participants'
-    rows ``ins`` of each communicated section bit-identical and of each
-    private section not."""
+    """After a step of a sampled path: the rows ``out`` that the launch
+    mask left out at their entering bits (``kept``: per buffer, client →
+    its row on the host); after a round, the rows ``ins`` that entered the
+    mean bit-identical in each communicated section and not in each
+    private one."""
     for b, rows in zip(state.vars + state.mom, kept):
-        if not all(same_bits(b[i].cpu(), k) for i, k in zip(out, rows)):
+        if not all(same_bits(b[i].cpu(), rows[i]) for i in out):
             raise SystemExit(f"path {name}: a non-participant's row moved")
     if not round_end:
         return
     spec = run.init.spec
-    private = {q.section for q in seqs.SPECS[name].sequences
-               if q.comm == seqs.PRIVATE}
+    aspec = seqs.SPECS[run.spec.algorithm.name]
+    private = {q.section for q in aspec.sequences if q.comm == seqs.PRIVATE}
     for bufs in (state.vars, state.mom):
         for grp, buf in zip(spec.groups, bufs):
             for s, a, b in grp.extents:
@@ -764,34 +840,133 @@ def _participation_checks(name: str, run, state: FlatState, kept, out: list,
                         f"bit-identical after the round")
 
 
+def _timed_oracles(over_clients, events: list):
+    """``trainer._over_clients`` whose per-client oracle calls also append
+    ``(client, start, end)`` to ``events``: two CUDA events recorded on the
+    current stream around the call, with no synchronization, so that the
+    step's own time is untouched (the loop visits the clients in order,
+    once each a pass)."""
+    def timed(oracle, m):
+        calls = itertools.count()
+
+        def one(v, batch):
+            i = next(calls) % m
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = oracle(v, batch)
+            end.record()
+            events.append((i, start, end))
+            return out
+        return over_clients(one, m)
+    return timed
+
+
+def _straggler_report(name: str, strag, part, rounds: list,
+                      shares: list) -> None:
+    """Log the straggler path's rounds beside ``simulate_rounds``' replay
+    and check them against it: arrivals make quorum; each round's arrival
+    count, quorum, extensions and effective deadline are the replay's; and
+    the arrivals are exactly the sampled clients whose drawn time
+    (``round_times``) is within that deadline."""
+    rows = simulate_rounds(strag, part, len(rounds))
+    for rd, row in zip(rounds, rows):
+        log(f"path {name}: round {rd['round']} sampled {rd['sampled']}, "
+            f"arrivals {rd['arrived']}, quorum {rd['quorum']}, extensions "
+            f"{rd['extensions']}, effective deadline {rd['deadline']}, next "
+            f"deadline {rd['deadline_next']}; simulated round clock "
+            f"{row['wall_clock']} s against {row['wait_for_slowest']} s for "
+            f"the synchronous barrier (host arithmetic, simulated seconds)")
+        if len(rd["arrived"]) < rd["quorum"]:
+            raise SystemExit(f"path {name}: round {rd['round']} missed its "
+                             f"quorum")
+        times = strag.round_times(rd["round"])
+        beat = [i for i in rd["sampled"]
+                if times[i] <= torch.tensor(rd["deadline"])]
+        if (len(rd["arrived"]), rd["quorum"], rd["extensions"],
+                round(rd["deadline"], 6)) != (row["arrivals"], row["quorum"],
+                                              row["extensions"],
+                                              row["deadline"]) \
+                or rd["arrived"] != beat:
+            raise SystemExit(f"path {name}: round {rd['round']} differs "
+                             f"from simulate_rounds: {rd} vs {row}, the "
+                             f"sampled clients within its deadline {beat}")
+    log(f"path {name}: simulated clock over {len(rows)} rounds "
+        f"{sum(r['wall_clock'] for r in rows)} s elastic against "
+        f"{sum(r['wait_for_slowest'] for r in rows)} s synchronous; share "
+        f"of each step's time in the oracles of (late, unsampled) clients "
+        f"{shares} (each client's oracle between two CUDA events on the "
+        f"card's stream)")
+
+
 def main_path(name: str, exp: Experiment, dev) -> dict:
-    run = build(exp, device=dev)
+    oracle_events = []
+    over_clients = trainer._over_clients
+    if exp.stragglers is not None:
+        trainer._over_clients = _timed_oracles(over_clients, oracle_events)
+    try:
+        run = build(exp, device=dev)
+    finally:
+        trainer._over_clients = over_clients
     state = run.init(torch.Generator(device=dev).manual_seed(exp.schedule.seed))
     data = torch.Generator().manual_seed(exp.schedule.seed)
     batches = [run.batch_fn(data) for _ in range(exp.schedule.steps)]
     part, local = run.init.participation, exp.schedule.local_steps
+    strag = run.step.stragglers
     clients = exp.problem.num_clients
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    step_ms, packs, masks = [], [], []
+    step_ms, packs, masks, rounds, shares = [], [], [], [], []
+    gated = part is not None or strag is not None
     for t, batch in enumerate(batches):
-        if part is not None:
-            mask = part.mask_fn(t // local)
+        if gated:
+            mask = (torch.ones(clients) if part is None
+                    else part.mask_fn(t // local))
             if t % local == 0:
                 masks.append(mask.tolist())
-            out = [i for i in range(clients) if mask[i] == 0]
-            ins = [i for i in range(clients) if mask[i] > 0]
+            # which stragglers a step freezes is known only once the step
+            # has decided its round, so a straggler path keeps every row
+            keep = (range(clients) if strag is not None
+                    else [i for i in range(clients) if mask[i] == 0])
             # on the host, so that the peak below is the step's own
-            kept = [[b[i].cpu() for i in out] for b in state.vars + state.mom]
+            kept = [{i: b[i].cpu() for i in keep}
+                    for b in state.vars + state.mom]
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        before = qp.LAUNCHES["quantpack"]
-        state, _ = run.step(state, batch)
+        before, n_oracle = qp.LAUNCHES["quantpack"], len(oracle_events)
+        state, metrics = run.step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         packs.append(qp.LAUNCHES["quantpack"] - before)
-        if part is not None:
+        launch = entered = mask if gated else None
+        if strag is not None:
+            entered = metrics["arrivals"]
+            if strag.spec.late_policy != "carry":
+                launch = entered
+            if bool(torch.any(entered > mask)):
+                raise SystemExit(f"path {name}: step {t} arrived "
+                                 f"{entered.tolist()}, not all sampled "
+                                 f"({mask.tolist()})")
+            ins = [i for i in range(clients) if entered[i] > 0]
+            late = [i for i in range(clients) if mask[i] > 0 and i not in ins]
+            calls = [(i, s.elapsed_time(e))
+                     for i, s, e in oracle_events[n_oracle:]]
+            shares.append(tuple(
+                round(sum(ms for i, ms in calls if i in who) / step_ms[-1], 4)
+                for who in (late, [i for i in range(clients)
+                                   if mask[i] == 0])))
+            if t % local == 0:
+                rounds.append({
+                    "round": t // local,
+                    "sampled": [i for i in range(clients) if mask[i] > 0],
+                    "arrived": ins, "quorum": metrics["quorum"],
+                    "extensions": metrics["extensions"],
+                    "deadline": metrics["deadline"],
+                    "deadline_next": metrics["deadline_next"]})
+        if gated:
+            out = [i for i in range(clients) if launch[i] == 0]
+            ins = [i for i in range(clients) if entered[i] > 0]
             _participation_checks(name, run, state, kept, out, ins,
                                   (t + 1) % local == 0)
             del kept
@@ -804,7 +979,14 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
         f"steps {len(step_ms)}, step ms {[round(t, 3) for t in step_ms]}, "
         f"peak memory {peak} B, launches {launches}, "
         f"val_loss {val}")
-    if part is not None:
+    if strag is not None:
+        _straggler_report(name, strag, part, rounds, shares)
+        log(f"path {name}: {clients} clients, sampled by round {masks}, "
+            f"staleness counters {state.stale.tolist()}; every step left "
+            f"the rows its launch mask ({strag.spec.late_policy}) left out "
+            f"at their entering bits, every round the arrivals' rows "
+            f"bit-identical")
+    elif part is not None:
         log(f"path {name}: {clients} clients, masks by round {masks}, "
             f"staleness counters {state.stale.tolist()}; every step left "
             f"the non-participants' rows at their entering bits, every "
@@ -1471,18 +1653,26 @@ def main() -> None:
                                                 f"{name}.json"))
              for name in PATHS}
     fulls = {name: full_width_experiment(b) for name, b in bases.items()}
-    groups_of = {name: build(f, device=dev).init.spec.groups
-                 for name, f in fulls.items()}
+    runs = {name: build(f, device=dev) for name, f in fulls.items()}
+    groups_of = {name: r.init.spec.groups for name, r in runs.items()}
+    gates = {path: gate_mask(runs[path], fulls[path].problem.num_clients)
+             for _, path in GATED}
+    del runs
     kernels = kernel_phase(groups_of, dev)
     non_finite_phase(dev)
     compression_phase(groups_of[COMPRESSED], dev)
     torch.cuda.empty_cache()
-    gated_phase(groups_of, {name: f.problem.num_clients
-                            for name, f in fulls.items()}, dev)
+    gated_phase(groups_of, gates, dev)
     kernels["storm_update"] = storm_update_phase(dev)
 
     for name, base in bases.items():
-        cross_check(name, base, dev)
+        if name != STRAGGLED:
+            cross_check(name, base, dev)
+            continue
+        for policy in ("drop", "carry", "cancel"):
+            cross_check(f"{name} ({policy})", base.edit(
+                **{"stragglers.late_policy": policy}), dev,
+                steps=2 * base.schedule.local_steps)
     for name, full in fulls.items():
         launches = main_path(name, full, dev)
         torch.cuda.empty_cache()

@@ -5,8 +5,9 @@ The returned :class:`Run` exposes ``init(gen) -> state``,
 ``step(state, batch) -> (state, metrics)``, ``views(state)`` (the pytree
 train state), ``eval_fn(state) -> float`` (client 0's validation loss on a
 fixed batch), ``batch_fn(gen)`` (the synthetic federated stream) and
-``participation`` (the ``ParticipationSpec`` the factory got, None for the
-full sampler).
+``participation`` (the ``ParticipationSpec`` the train step samples with,
+None for the full sampler: with stragglers, the spec's sampler
+over-provisioned by ``stragglers.over_provision``).
 
 The device defaults to ``cuda``; without a card, building raises unless the
 caller asks for ``device="cpu"``.  A spec that sets a feature the port does
@@ -91,10 +92,12 @@ def unported_features(exp: Experiment) -> list:
          f"participation sampling (sampler={exp.participation.sampler!r}) "
          f"with compression: the participation-weighted compressed mean",
          compress_rest),
+        (exp.stragglers is not None and exp.compression is not None,
+         "stragglers with compression: the participation-weighted "
+         "compressed mean", compress_rest),
         (exp.faults is not None, "faults", guards),
         (exp.robustness is not None, "robustness", guards),
         (exp.telemetry is not None, "telemetry", "queue 1, 'Telemetry'"),
-        (exp.stragglers is not None, "stragglers", "queue 1, 'Stragglers'"),
         (ex.mesh is not None, "execution.mesh", shard),
         (ex.overlap, "execution.overlap", shard),
         (ex.scatter_comm, "execution.scatter_comm", shard),
@@ -171,7 +174,10 @@ def build(experiment: Experiment, *, device=None) -> Run:
         use_flash=ex.use_flash, use_lru_kernel=ex.use_lru_kernel,
         fuse_oracles=ex.fuse_oracles, fuse_storm=ex.fuse_storm,
         storm_block=ex.storm_block, compression=exp.compression,
-        participation=participation, **factory_kw)
+        participation=participation, stragglers=exp.stragglers,
+        **factory_kw)
+    if step.participation is not None:
+        participation = step.participation.spec
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

@@ -5,11 +5,12 @@ schema, version 1, so every committed ``experiments/*.json`` loads unchanged.
 The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
 reference's declarative tuples — same fields, same defaults; the ported
-layers' (``CompressionSpec``, ``ParticipationSpec``) are their modules' own
-— so a spec that sets an unported one can be recognised and refused by
-:func:`repro_torch.api.build` until the layer is ported.  :meth:`Experiment.validate` makes every check
-of the reference's, in its order, for ported and unported layers alike, so
-a spec the reference refuses never reaches the feature refusals of build.
+layers' (``CompressionSpec``, ``ParticipationSpec``, ``StragglerSpec``) are
+their modules' own — so a spec that sets an unported one can be recognised
+and refused by :func:`repro_torch.api.build` until the layer is ported.
+:meth:`Experiment.validate` makes every check of the reference's, in its
+order, for ported and unported layers alike, so a spec the reference
+refuses never reaches the feature refusals of build.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 from repro_torch.federation.compression import QUANTS, CompressionSpec
 from repro_torch.federation.participation import SAMPLERS, ParticipationSpec
+from repro_torch.federation.stragglers import LATE_POLICIES, StragglerSpec
 
 SPEC_VERSION = 1
 
@@ -56,7 +58,6 @@ ARCH_NAMES = ("recurrentgemma-9b", "gemma2-2b", "mamba2-130m", "llama3-405b",
               "olmoe-1b-7b", "granite-3-8b", "hubert-xlarge",
               "granite-moe-1b-a400m", "internvl2-76b", "granite-8b")
 AGGREGATORS = ("mean", "clip", "trim")
-LATE_POLICIES = ("drop", "carry", "cancel")
 METRIC_GROUPS = ("norms", "drift", "compression", "health", "stragglers")
 
 
@@ -92,21 +93,6 @@ class TelemetrySpec(NamedTuple):
     sink: Optional[str] = None
     metrics: Optional[Tuple[str, ...]] = None
     trace: bool = True
-
-
-class StragglerSpec(NamedTuple):
-    base_time: float = 1.0
-    tail: float = 1.0
-    deadline: float = 2.0
-    over_provision: int = 2
-    quorum: float = 0.5
-    late_policy: str = "drop"
-    backoff: float = 1.5
-    max_extensions: int = 2
-    target_percentile: float = 0.9
-    adapt_rate: float = 0.2
-    seed: int = 0
-    start_round: int = 0
 
 
 _LAYERS = {"faults": FaultSpec, "robustness": RobustnessSpec,

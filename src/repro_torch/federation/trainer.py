@@ -20,7 +20,14 @@ clients, the fused launches freeze the others bit for bit, and the means
 average the participants only; the compiled sampler is recorded on
 ``init.participation`` / ``train_step.participation``.  Every client's
 oracle is still computed, as the reference's ``vmap`` computes it, and
-``flat.mask_buffers`` zeroes the non-participants' rows.
+``flat.mask_buffers`` zeroes the non-participants' rows.  Every factory
+takes ``stragglers=`` (a ``federation.stragglers.StragglerSpec``): each
+round then closes at a deadline, the sampler is over-provisioned by the
+spec's ``over_provision``, the means average the arrivals only, and the
+late-arrival policy decides whether a straggler's rows are frozen; the
+compiled spec is recorded on ``init.stragglers`` /
+``train_step.stragglers``, and each step's metrics carry the round's
+decision.
 
 ``fuse_oracles`` picks the fused oracles (one shared linearization) or the
 separate ones (``grad_y``, ``nu_direction``, ``u_residual``;
@@ -44,13 +51,16 @@ from repro_torch.core.model_problem import (check_model_options,
 from repro_torch.core.tree_util import (client_slice, tree_map, tree_stack,
                                         tree_zeros_like)
 from repro_torch.federation.participation import make_participation
+from repro_torch.federation.stragglers import make_stragglers, over_provision
 from repro_torch.models.registry import Model
 from repro_torch.optim import sequences as seqs
 from repro_torch.optim.sequences import FlatState
 
 
-# ``stale`` on every state: the per-client staleness counters [M] int32 of
-# a participation engine (``FlatState.stale``), or () without one.
+# ``stale`` and ``deadline`` on every state: the per-client staleness
+# counters [M] int32 of a participation or straggler engine
+# (``FlatState.stale``) and the straggler engine's round deadline
+# (``FlatState.deadline``), each () without one.
 
 class FedBiOTrainState(NamedTuple):
     x: Any               # [M, ...] body
@@ -58,6 +68,7 @@ class FedBiOTrainState(NamedTuple):
     u: Any               # [M, ...] Eq. (4) auxiliary (zeros on FedBiO-Local)
     step: int
     stale: Any = ()
+    deadline: Any = ()
 
 
 class FedBiOAccTrainState(NamedTuple):
@@ -69,6 +80,7 @@ class FedBiOAccTrainState(NamedTuple):
     q: Any               # u-momentum
     step: int
     stale: Any = ()
+    deadline: Any = ()
 
 
 class FedBiOAccLocalTrainState(NamedTuple):
@@ -78,6 +90,7 @@ class FedBiOAccLocalTrainState(NamedTuple):
     nu: Any              # x-momentum (averaged with x)
     step: int
     stale: Any = ()
+    deadline: Any = ()
 
 
 class FedAvgTrainState(NamedTuple):
@@ -85,6 +98,7 @@ class FedAvgTrainState(NamedTuple):
     mom: Any
     step: int
     stale: Any = ()
+    deadline: Any = ()
 
 
 def _bcast(tree, m: int):
@@ -176,31 +190,50 @@ def _require_fused_storm(fuse_storm: bool) -> None:
             "train CLI')")
 
 
+def _straggler_setup(cfg: FederatedConfig, stragglers, participation):
+    """Compile the straggler spec and over-provision the sampler: with
+    ``over_provision = b`` a counted sampler requests ``min(M, m + b)``
+    clients, so the deadline can drop stragglers and still make quorum.
+    Returns ``(compiled or None, participation')``."""
+    if stragglers is None:
+        return None, participation
+    return (make_stragglers(stragglers, cfg.num_clients),
+            over_provision(stragglers, participation, cfg.num_clients))
+
+
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
                     init_trees, storm_block, to_state, compression=None,
-                    participation=None):
+                    participation=None, stragglers=None):
     """The fuse_storm=True (init, train_step) pair over the engine;
-    ``to_state(vars, moms or None, step)`` builds the pytree state."""
+    ``to_state(vars, moms or None, step)`` builds the pytree state.  With
+    stragglers, each step's metrics also carry the round's decision:
+    ``arrivals`` ([M] f32 mask), ``deadline`` (effective),
+    ``deadline_next``, ``extensions`` and ``quorum``."""
+    strag, participation = _straggler_setup(cfg, stragglers, participation)
     part = make_participation(participation, cfg.num_clients)
     engine = seqs.make_engine(cfg, aspec, templates, voracle,
                               block=storm_block, compression=compression,
-                              participation=part)
+                              participation=part, stragglers=strag)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
 
     def train_step(state: FlatState, batch):
-        new = engine.step(state, batch)
-        return new, {"step": new.step}
+        metrics = {}
+        new = engine.step(state, batch, metrics)
+        metrics["step"] = new.step
+        return new, metrics
 
     def views(state: FlatState):
         vt, mt = engine.views(state)
-        return to_state(vt, mt, state.step)._replace(stale=state.stale)
+        return to_state(vt, mt, state.step)._replace(
+            stale=state.stale, deadline=state.deadline)
 
     for fn in (init, train_step):
         fn.spec = engine.spec
         fn.views = views
         fn.participation = part
+        fn.stragglers = strag
     return init, train_step
 
 
@@ -215,7 +248,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               fuse_storm: bool = False,
                               fuse_oracles: bool = False,
                               storm_block: int | None = None,
-                              compression=None, participation=None):
+                              compression=None, participation=None,
+                              stragglers=None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
@@ -232,7 +266,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation)
+                           participation, stragglers)
 
 
 @register("fedbio", seqs.SPECS["fedbio"])
@@ -243,7 +277,8 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,
                            storm_block: int | None = None,
-                           compression=None, participation=None):
+                           compression=None, participation=None,
+                           stragglers=None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
     _require_fused_storm(fuse_storm)
@@ -258,7 +293,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation)
+                           participation, stragglers)
 
 
 @register("fedbio_local", seqs.SPECS["fedbio_local"])
@@ -269,7 +304,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  fuse_storm: bool = False,
                                  fuse_oracles: bool = False,
                                  storm_block: int | None = None,
-                                 compression=None, participation=None):
+                                 compression=None, participation=None,
+                                 stragglers=None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
@@ -288,7 +324,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
                            voracle, init_trees, storm_block, to_state,
-                           compression, participation)
+                           compression, participation, stragglers)
 
 
 @register("fedbioacc_local", seqs.SPECS["fedbioacc_local"],
@@ -302,7 +338,8 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
                                     fuse_storm: bool = False,
                                     fuse_oracles: bool = False,
                                     storm_block: int | None = None,
-                                    compression=None, participation=None):
+                                    compression=None, participation=None,
+                                    stragglers=None):
     """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
     private lower problems.  The heads y and their momenta ω are the
     PRIVATE section, never reduced; the body x and its momentum ν are
@@ -321,7 +358,7 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc_local"], templates,
                            voracle, init_trees, storm_block, to_state,
-                           compression, participation)
+                           compression, participation, stragglers)
 
 
 @register("fedavg", seqs.SPECS["fedavg"], hparams={"momentum": 0.9})
@@ -332,7 +369,8 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_storm: bool = False,
                            fuse_oracles: bool = False,   # one oracle: no-op
                            storm_block: int | None = None,
-                           compression=None, participation=None):
+                           compression=None, participation=None,
+                           stragglers=None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
@@ -355,4 +393,4 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     aspec = seqs.SPECS["fedavg"]._replace(beta=momentum)
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
-                           to_state, compression, participation)
+                           to_state, compression, participation, stragglers)

@@ -7,8 +7,11 @@ minimal):
 
 Builds the experiment on the device (``cuda`` by default; without a card the
 run stops unless ``--device cpu`` is given), trains, and prints one JSON line
-``{"step", "val_loss", "wall_s"}`` per log interval.  A non-finite validation
-loss ends the run with an error.
+``{"step", "val_loss", "wall_s"}`` per log interval; with stragglers the
+line also carries that step's round: ``arrivals`` (the clients that beat
+the deadline) and ``deadline`` (the effective one, in simulated seconds),
+after a ``stragglers:`` banner.  A non-finite validation loss ends the run
+with an error.
 """
 from __future__ import annotations
 
@@ -45,14 +48,23 @@ def main(argv=None):
     data_gen = torch.Generator().manual_seed(exp.schedule.seed)
     print(f"arch={run.model_cfg.name} algo={exp.algorithm.name} "
           f"device={run.device}", flush=True)
+    sg = exp.stragglers
+    if sg is not None:
+        print(f"stragglers: policy={sg.late_policy} deadline={sg.deadline} "
+              f"quorum={sg.quorum} over_provision={sg.over_provision} "
+              f"tail={sg.tail}", flush=True)
     history = []
     t0 = time.perf_counter()
     for t in range(1, exp.schedule.steps + 1):
-        state, _ = run.step(state, run.batch_fn(data_gen))
+        state, metrics = run.step(state, run.batch_fn(data_gen))
         if t % ns.log_every == 0 or t == 1 or t == exp.schedule.steps:
             loss = run.eval_fn(state)
             history.append({"step": t, "val_loss": loss,
                             "wall_s": round(time.perf_counter() - t0, 3)})
+            if sg is not None:
+                history[-1].update(
+                    arrivals=metrics["arrivals"].nonzero().flatten().tolist(),
+                    deadline=metrics["deadline"])
             print(json.dumps(history[-1]), flush=True)
             if not math.isfinite(loss):
                 raise SystemExit(f"non-finite validation loss ({loss}) at "

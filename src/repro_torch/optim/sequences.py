@@ -15,17 +15,21 @@ the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
 Ported so far: both kinds with the AVERAGED / PRIVATE policies and
 HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging),
 compressed communication (``compression=``: quantized and/or top-k sends,
-per-client error feedback on ``FlatState.ef``), and partial participation
+per-client error feedback on ``FlatState.ef``), partial participation
 (``participation=``: the round's client mask gates the fused launches and
 zeroes non-participants' oracle contributions, the reductions average
 participants only, and per-client staleness counters on ``FlatState.stale``
-age returning clients' weights by α^k); no faults, telemetry, stragglers,
-sharding or per-sequence cadences.
+age returning clients' weights by α^k) and stragglers (``stragglers=``:
+each round's arrival set, decided on the host against the deadline on
+``FlatState.deadline``, narrows the mean to the arrivals and, under the
+``drop`` and ``cancel`` policies, the launch mask too); no faults,
+telemetry, sharding or per-sequence cadences.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device; so do
-the participation masks, weights and staleness counters, which are copied
-to the buffers' device where a launch or a reduction uses them.  The
+the participation masks, weights and staleness counters, and the
+stragglers' arrival masks and deadline, which are copied to the buffers'
+device where a launch or a reduction uses them.  The
 STORM schedule α_t and the per-section (lr, decay) scalars are f32 tensors
 on the CPU, computed with the JAX package's f32 operation order, so the
 per-tile tables agree with the reference's; the sgd kind's lrs and β are
@@ -177,20 +181,27 @@ class FlatState(NamedTuple):
     host-side step counter, the per-client error-feedback buffers of top-k
     compressed communication (a ``(vars_ef, mom_ef)`` pair of f32 buffer
     tuples shaped like ``vars``/``mom``, or ``()`` when compression is off
-    or carries no feedback), and the per-client staleness counters (rounds
-    missed since the last participation: an [M] int32 CPU tensor when a
-    participation engine is attached, ``()`` otherwise)."""
+    or carries no feedback), the per-client staleness counters (rounds
+    missed since the last participation or arrival: an [M] int32 CPU tensor
+    when participation or stragglers are attached, ``()`` otherwise), and
+    the adaptive round deadline of the straggler engine (a 0-d f32 CPU
+    tensor, moved once a round by the EMA; ``()`` without stragglers)."""
     vars: Any
     mom: Any
     step: int
     ef: Any = ()
     stale: Any = ()
+    deadline: Any = ()
 
 
 class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
-    step=0, ef=None, stale=None)``, ``step(state, batch) -> state`` and ``views(state) ->
-    (var_dict, mom_dict)``, ``mom_dict`` None without momentum."""
+    step=0, ef=None, stale=None, deadline=None)``, ``step(state, batch,
+    metrics=None) -> state`` and ``views(state) -> (var_dict, mom_dict)``
+    (``mom_dict`` None without momentum).  With stragglers, ``step``
+    writes the round's decision into ``metrics`` when given a dict:
+    ``arrivals`` ([M] f32 host mask), ``deadline`` (effective),
+    ``deadline_next``, ``extensions`` and ``quorum``."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
     init_state: Any
@@ -239,7 +250,7 @@ def _compress_cfg(cfg, aspec: AlgoSpec, compression):
 
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 block: int | None = None, compression=None,
-                participation=None) -> Engine:
+                participation=None, stragglers=None) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
@@ -258,14 +269,32 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
     non-participants' oracle contributions (:func:`flat.mask_buffers`),
     gates the fused launches with it, averages participants only (weighted
     by α^staleness, α the spec's ``stale_discount``) and advances the
-    staleness counters on ``FlatState.stale`` at communication steps."""
+    staleness counters on ``FlatState.stale`` at communication steps.
+
+    ``stragglers``: a compiled
+    :class:`~repro_torch.federation.stragglers.Stragglers` (or None): each
+    round decides its arrival set from the step counter, the sampled mask
+    and ``FlatState.deadline``; the weights become the arrivals (times the
+    participation weights), the launch mask the arrivals (``drop``,
+    ``cancel``) or the sampled set (``carry``), and the staleness counters
+    age every client that did not arrive (``cancel``: that was not
+    sampled).  The deadline moves once a round, at the communication
+    step.  Each step writes its round's decision into the ``metrics`` dict
+    it is given (see :class:`Engine`)."""
     if aspec.kind not in ("storm", "sgd"):
         raise ValueError(f"unknown engine kind {aspec.kind!r}")
-    if compression is not None and participation is not None:
+    if stragglers is not None and cfg.hierarchy_period > 0:
+        raise ValueError(
+            "stragglers= does not compose with the hierarchical grouped "
+            "mean (cfg.hierarchy_period > 0) — the deadline/quorum "
+            "decision is global; set hierarchy_period=0")
+    if compression is not None and (participation is not None
+                                    or stragglers is not None):
         raise NotImplementedError(
-            "participation with compression needs the participation-"
-            "weighted compressed mean, which is not ported yet (ROADMAP "
-            "queue 1, item 'Compression, the rest')")
+            f"{'stragglers' if participation is None else 'participation'} "
+            f"with compression needs the participation-weighted compressed "
+            f"mean, which is not ported yet (ROADMAP queue 1, item "
+            f"'Compression, the rest')")
     ccfg = (None if compression is None
             else _compress_cfg(cfg, aspec, compression))
     has_ef = ccfg is not None and ccfg.has_ef
@@ -275,26 +304,62 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                           sections=sections,
                           block=block if block else flat.BLOCK)
     policies = aspec.policies
-    part = participation
+    part, strag = participation, stragglers
+    # staleness counters exist for either kind of absence: a round the
+    # sampler left a client out of, or a deadline it missed
+    need_stale = part is not None or strag is not None
+    late = None if strag is None else strag.spec.late_policy
     alpha = 1.0 if part is None else float(part.spec.stale_discount)
 
     def _flatten_grads(gdict):
         return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
                                  batch_dims=1, dtype=torch.float32)
 
-    def _round_ctx(state: FlatState):
-        """(mask, comm weights) of the round ``state.step`` belongs to, both
-        on the host; (None, None) without participation."""
+    def _round_ctx(state: FlatState, metrics):
+        """(launch mask, comm weights, staleness mask, next deadline) of
+        the round ``state.step`` belongs to, all on the host, in the
+        reference's order: the sampled mask, the arrival decision, the
+        launch mask by policy, the weights times the arrivals, then the
+        α^staleness discount.  All None with neither participation nor
+        stragglers; the straggler decision also goes into ``metrics``."""
+        r = state.step // cfg.local_steps
         if part is None:
-            return None, None
-        mask, w = part.round_weights(state.step // cfg.local_steps)
-        w = staleness_weights(w, state.stale, alpha)
-        return mask, w
+            mask, w = None, None
+        else:
+            mask, w = part.round_weights(r)
+        stale_mask, next_dl = mask, None
+        if strag is not None:
+            sampled = (torch.ones(strag.num_clients, dtype=torch.float32)
+                       if mask is None else mask)
+            arrivals, eff, ext, next_dl = strag.round_decision(
+                r, sampled, state.deadline)
+            if metrics is not None:
+                metrics.update(arrivals=arrivals, deadline=float(eff),
+                               deadline_next=float(next_dl),
+                               extensions=int(ext),
+                               quorum=int(strag.quorum_count(sampled)))
+            # "carry" keeps stragglers computing; "drop" and "cancel"
+            # freeze them like non-participants
+            mask = sampled if late == "carry" else arrivals
+            # the mean always averages the arrivals only
+            w = arrivals if w is None else w * arrivals
+            # "cancel" treats a straggler as served: it does not age
+            stale_mask = sampled if late == "cancel" else arrivals
+        if w is not None:
+            w = staleness_weights(w, state.stale, alpha)
+        return mask, w, stale_mask, next_dl
 
-    def _next_stale(state: FlatState, mask):
-        if part is None:
+    def _next_stale(state: FlatState, stale_mask):
+        if not need_stale:
             return state.stale
-        return advance_stale(cfg, state.step, mask, state.stale)
+        return advance_stale(cfg, state.step, stale_mask, state.stale)
+
+    def _next_deadline(state: FlatState, next_dl):
+        """The deadline moves once a round, at the communication step, so
+        every local step of a round sees the same arrival set."""
+        if next_dl is None or (state.step + 1) % cfg.local_steps != 0:
+            return state.deadline
+        return next_dl
 
     def comm(step: int, bufs, ef, weights):
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
@@ -305,7 +370,7 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                             ef=ef)
 
     def init_state(var_trees, mom_trees=None, step: int = 0, ef=None,
-                   stale=None):
+                   stale=None, deadline=None):
         vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
                                    batch_dims=1)
         if not has_mom:
@@ -329,17 +394,23 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                          for bufs in (vars_b, mom_b))
         else:
             ef_b = ef
-        if part is None:
+        if not need_stale:
             stale_b = ()
         elif stale is None:
-            stale_b = torch.zeros(part.num_clients, dtype=torch.int32)
+            stale_b = torch.zeros((part or strag).num_clients,
+                                  dtype=torch.int32)
         else:
             stale_b = torch.as_tensor(stale, dtype=torch.int32).cpu()
-        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b)
+        if strag is None:
+            dl_b = ()
+        else:
+            dl_b = _f32(float(strag.spec.deadline if deadline is None
+                              else deadline))
+        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b, dl_b)
 
-    def _storm_step(state: FlatState, batch) -> FlatState:
+    def _storm_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts = _round_ctx(state)
+        mask, wts, stale_mask, next_dl = _round_ctx(state, metrics)
         a = alpha_schedule(cfg, t)
         lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
         decays = tuple(_f32(1.0) - _f32(getattr(cfg, q.decay)) * a * a
@@ -363,11 +434,12 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         mom_b, efm = comm(t, mom_b, efm, wts)
         return FlatState(vars_c, mom_b, t + 1,
                          (efv, efm) if state.ef else (),
-                         _next_stale(state, mask))
+                         _next_stale(state, stale_mask),
+                         _next_deadline(state, next_dl))
 
-    def _sgd_step(state: FlatState, batch) -> FlatState:
+    def _sgd_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts = _round_ctx(state)
+        mask, wts, stale_mask, next_dl = _round_ctx(state, metrics)
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
         g = flat.mask_buffers(_flatten_grads(oracle(
             flat.unflatten_tree(spec, state.vars), batch)), mask)
@@ -386,7 +458,8 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         vars_b, efv = comm(t, vars_b, efv, wts)
         return FlatState(vars_b, mom_b, t + 1,
                          (efv, efm) if state.ef else (),
-                         _next_stale(state, mask))
+                         _next_stale(state, stale_mask),
+                         _next_deadline(state, next_dl))
 
     step = _storm_step if aspec.kind == "storm" else _sgd_step
 

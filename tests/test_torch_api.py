@@ -1,8 +1,8 @@
 """The port's package boundary and its spec surface: no file of
 ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the JAX package; every committed experiment
 parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
-``fedavg.json``, ``fedbioacc_int8_topk.json`` and ``fedbioacc_local.json``
-build; every other committed spec is refused with
+``fedavg.json``, ``fedbioacc_int8_topk.json``, ``fedbioacc_local.json`` and
+``fedbioacc_straggler.json`` build; every other committed spec is refused with
 ``NotImplementedError`` naming the feature the port does not run yet (so is
 training through the model kernels, or of the hybrid family); and the entry
 points want a card unless the CPU is asked for."""
@@ -27,11 +27,13 @@ SGD_KIND = {"fedavg.json": ("params",), "fedbio.json": ("x", "y", "u"),
 COMPRESSED = {"fedbioacc_int8_topk.json": ("int8", 0.1)}
 # committed specs that sample clients: (sampler, clients a round)
 SAMPLED = {"fedbioacc_local.json": ("uniform", 2)}
+# committed specs with stragglers: (late policy, clients the over-provisioned
+# sampler takes a round)
+STRAGGLED = {"fedbioacc_straggler.json": ("drop", 6)}
 # what each other committed spec sets that the port does not run yet
 REFUSED = {
     "fedbioacc_faulty.json": ["faults", "robustness"],
     "fedbioacc_sharded_overlap.json": ["execution.mesh", "execution.overlap"],
-    "fedbioacc_straggler.json": ["stragglers"],
     "fedbioacc_telemetry.json": ["telemetry"],
 }
 
@@ -85,7 +87,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_committed_specs_are_all_covered():
     assert sorted(p.name for p in EXPERIMENTS) == \
         sorted(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *SAMPLED,
-                *REFUSED])
+                *STRAGGLED, *REFUSED])
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -141,6 +143,42 @@ def test_sampled_spec_builds_on_cpu(name):
     state = run.init(torch.Generator().manual_seed(0))
     assert state.stale.dtype == torch.int32 and not torch.any(state.stale)
     assert state.stale.shape == (exp.problem.num_clients,)
+
+
+@pytest.mark.parametrize("name", sorted(STRAGGLED))
+def test_straggled_spec_builds_and_steps_on_cpu(name):
+    exp = Experiment.load(str(ROOT / "experiments" / name))
+    run = build(exp.edit(**{"schedule.steps": 1}), device="cpu")
+    assert run.device == torch.device("cpu")
+    strag, part = run.step.stragglers, run.init.participation
+    assert strag is run.init.stragglers is not None
+    assert (strag.spec.late_policy, part.spec.clients_per_round) == \
+        STRAGGLED[name]
+    assert run.participation == part.spec
+    state = run.init(torch.Generator().manual_seed(0))
+    assert state.deadline.dtype == torch.float32
+    assert float(state.deadline) == exp.stragglers.deadline
+    assert state.stale.shape == (exp.problem.num_clients,)
+    state, metrics = run.step(state, run.batch_fn(
+        torch.Generator().manual_seed(1)))
+    assert state.step == metrics["step"] == 1
+    assert metrics["quorum"] <= int(metrics["arrivals"].sum()) <= 6
+    assert metrics["deadline"] == exp.stragglers.deadline
+
+
+@pytest.mark.parametrize("edit", [
+    {"compression.quant": "int8"},
+    {"compression.quant": "bf16", "participation.sampler": "full",
+     "stragglers.over_provision": 0},
+])
+def test_stragglers_with_compression_are_refused_by_name(edit):
+    exp = Experiment.load(str(ROOT / "experiments" /
+                              "fedbioacc_straggler.json"))
+    with pytest.raises(NotImplementedError) as err:
+        build(exp.edit(**edit), device="cpu")
+    assert "stragglers with compression: the participation-weighted " \
+        "compressed mean (ROADMAP queue 1, 'Compression, the rest')" in \
+        str(err.value)
 
 
 @pytest.mark.parametrize("edit,item", [

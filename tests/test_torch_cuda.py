@@ -452,3 +452,54 @@ def test_cuda_graphed_oracle_replays_the_eager_one(algo, card, monkeypatch):
     eager = run()
     for g, a, e in zip(graphed, again, eager):
         _assert_bits((g, a), (e, e))
+
+
+@pytest.mark.cuda
+def test_cuda_straggler_round_freezes_non_arrivals(card):
+    """One FedBiOAcc round of a toy engine on the card with stragglers
+    under ``drop`` (seed 0: client 3 misses the 1.0 deadline): the gated
+    ``storm3_step`` leaves client 3's variable and momentum rows at their
+    entering bits on both steps, once per step, and the round ages only
+    client 3; the same round on the CPU agrees within 1e-6."""
+    from repro_torch.config import FederatedConfig
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.federation.stragglers import (StragglerSpec,
+                                                   make_stragglers)
+    from repro_torch.optim import sequences as seqs
+
+    sizes = {"x": (300,), "y": (100,), "u": (100,)}
+    spec = StragglerSpec(deadline=1.0, quorum=0.25, max_extensions=0,
+                         adapt_rate=0.0, over_provision=0)
+    g = torch.Generator().manual_seed(0)
+    init = {s: torch.randn((4,) + n, generator=g) for s, n in sizes.items()}
+    cfg = FederatedConfig(num_clients=4, local_steps=2, lr_x=0.05,
+                          lr_y=0.1, lr_u=0.1)
+    aspec = seqs.SPECS["fedbioacc"].without_hierarchy()
+
+    def oracle(v, b):
+        return {s: tree_map(lambda a: 0.1 * a + b, v[s]) for s in v}
+
+    def run(dev):
+        eng = seqs.make_engine(
+            cfg, aspec, {s: torch.empty(n, device="meta")
+                         for s, n in sizes.items()}, oracle, block=256,
+            stragglers=make_stragglers(spec, 4))
+        state = eng.init_state({s: v.to(dev) for s, v in init.items()})
+        tk.reset_counts()
+        for b in (0.3, 0.4):
+            before, decided = state, {}
+            state = eng.step(state, torch.tensor(b, device=dev), decided)
+            assert decided["arrivals"].tolist() == [1.0, 1.0, 1.0, 0.0]
+            for b0, b1 in zip(before.vars + before.mom,
+                              state.vars + state.mom):
+                np.testing.assert_array_equal(bits(b1[3]), bits(b0[3]))
+        assert state.stale.tolist() == [0, 0, 0, 1]
+        return state
+
+    on_card = run(card)
+    assert tk.LAUNCHES["storm3_step"] == 2
+    assert sum(tk.LAUNCHES.values()) == 2
+    on_cpu = run(torch.device("cpu"))
+    for a, b in zip(on_card.vars + on_card.mom, on_cpu.vars + on_cpu.mom):
+        assert a.device.type == "cuda"
+        assert float((a.cpu() - b).norm()) <= 1e-6 * float(b.norm())

@@ -322,9 +322,11 @@ def test_gated_launches_freeze_non_participants(dtype, launch):
 TOY = {"x": (6,), "y": (3,), "u": (3,), "params": (9,)}
 
 
-def _engines(algo: str, fields: dict | None, compression=None):
+def _engines(algo: str, fields: dict | None, compression=None,
+             stragglers: dict | None = None):
     """The reference's and the port's toy engines (the oracle 0.1·v + b per
-    section, 8-element tiles, 2 local steps) and their initial states."""
+    section, 8-element tiles, 2 local steps) and their initial states;
+    ``stragglers``: the fields of a ``StragglerSpec`` to attach to both."""
     kw = dict(num_clients=M, local_steps=2, lr_x=0.05, lr_y=0.1, lr_u=0.1)
     jcfg, tcfg = JConfig(**kw), TConfig(**kw)
     ja = jseqs.SPECS[algo].without_hierarchy()
@@ -342,13 +344,20 @@ def _engines(algo: str, fields: dict | None, compression=None):
         jp.ParticipationSpec(**fields), M)
     tpart = None if fields is None else tp.make_participation(
         tp.ParticipationSpec(**fields), M)
+    jstrag = tstrag = None
+    if stragglers is not None:
+        from repro.federation import stragglers as js
+        from repro_torch.federation import stragglers as ts
+        jstrag = js.make_stragglers(js.StragglerSpec(**stragglers), M)
+        tstrag = ts.make_stragglers(ts.StragglerSpec(**stragglers), M)
     je = jseqs.make_engine(jcfg, ja, {s: jnp.zeros(TOY[s])
                                       for s in ja.sections},
-                           jorc, block=8, participation=jpart)
+                           jorc, block=8, participation=jpart,
+                           stragglers=jstrag)
     te = tseqs.make_engine(tcfg, ta, {s: torch.empty(TOY[s], device="meta")
                                       for s in ta.sections},
                            torc, block=8, participation=tpart,
-                           compression=compression)
+                           compression=compression, stragglers=tstrag)
     rng = np.random.default_rng(0)
     vt = {s: rng.standard_normal((M,) + TOY[s]).astype(np.float32)
           for s in ja.sections}

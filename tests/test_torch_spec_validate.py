@@ -4,7 +4,7 @@ Every case is one invalid edit of a committed spec, made in its JSON: the
 reference's ``Experiment.validate`` and the port's must both raise their
 ``SpecError`` with the same message, so the same field path.  All ten
 committed specs validate in both; a spec the reference accepts and the
-port does not run yet (``fedbioacc_straggler.json``) passes ``validate`` and is
+port does not run yet (``fedbioacc_faulty.json``) passes ``validate`` and is
 refused by ``build`` naming its ROADMAP item.  The port's copies of the
 reference's name lists (algorithms with their hyperparameters and sections,
 architectures, samplers, ...) equal the reference's."""
@@ -156,12 +156,12 @@ def test_committed_spec_validates_in_both(path):
 
 
 def test_known_but_unported_spec_validates_then_build_refuses():
-    exp = Experiment.load(str(ROOT / "experiments" /
-                              "fedbioacc_straggler.json"))
+    exp = Experiment.load(str(ROOT / "experiments" / FAULTY))
     assert exp.validate() is exp
     with pytest.raises(NotImplementedError) as err:
         build(exp, device="cpu")
-    assert "ROADMAP queue 1, 'Stragglers'" in str(err.value)
+    assert "ROADMAP queue 1, 'Faults, robustness and checkpoint " \
+        "hardening'" in str(err.value)
 
 
 def test_name_lists_equal_the_reference():
