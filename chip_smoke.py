@@ -14,7 +14,11 @@ Phases, each of which stops the script with a non-zero exit on failure:
    compressed reductions of ``fedbioacc_int8_topk`` for ``quantpack`` and
    ``quantunpack``), bit for bit, with median times over CUDA events (for
    ``quantpack`` also the two-pass kernel's time on the same inputs,
-   called past the wrapper); then tiles holding NaN, +Inf and -Inf through
+   called past the wrapper; where one PyTorch call computes the same
+   function, its time too, after holding it bit for bit to the kernel:
+   ``torch.mul`` for ``quantunpack``, ``torch.addcmul`` for
+   ``sgd3_step``); then
+   tiles holding NaN, +Inf and -Inf through
    each pack kernel, bit for bit, unpacking to all NaN as the reference's
    do; then the times of the compressed path's top-k and of its whole
    compressed reduction at the bf16 buffer's shape; then ``storm3_step``,
@@ -48,7 +52,14 @@ Phases, each of which stops the script with a non-zero exit on failure:
    its late policies (``drop``, ``carry``, ``cancel``) over two rounds
    (four steps), and each step's arrivals, extensions, effective and next
    deadline, and the staleness counters, must be equal on both devices
-   (the host decides them from the deadline each state carries);
+   (the host decides them from the deadline each state carries).  Then
+   the train CLI on the reduced straggler spec: a run hard-exits after
+   its step-2 checkpoint (``--crash-at-step 2``, exit 17); ``--resume``
+   on the card must end as the uninterrupted run does, bit for bit (each
+   logged loss, arrival set and deadline; each array of the final
+   checkpoint), and the same checkpoint resumed with ``--device cpu``
+   within 1e-4 of each buffer's norm, its arrivals, deadlines and
+   staleness counters equal;
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
    ``fedbioacc_local.json`` and ``fedbioacc_straggler.json``, each at full
@@ -73,7 +84,16 @@ Phases, each of which stops the script with a non-zero exit on failure:
    has ``simulate_rounds``' arrival count, quorum, extensions and
    effective deadline, that the arrivals are the sampled clients whose
    drawn time is within that deadline, and that every step leaves the
-   non-arrivals' rows at their entering bits (``drop``);
+   non-arrivals' rows at their entering bits (``drop``); after its step
+   2, outside the timed steps, the straggler path's state is checkpointed
+   (``repro_torch.checkpoint``, once the directory is known to hold twice
+   the state) with its bytes and the seconds to save and to load logged,
+   and after step 4 a fresh build of the checkpoint's embedded spec loads
+   it into its own initial state on the card and runs steps 3-4 on the
+   same batches: every buffer, the step, the staleness counters and the
+   deadline bit for bit those of the uninterrupted run, each step's
+   arrivals, extensions and deadlines equal, ``storm3_step`` once per
+   buffer a step (counted into the kernels line) and no other kernel;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -131,9 +151,11 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple
 
@@ -146,6 +168,9 @@ import torch  # noqa: E402
 
 from repro_torch import random as jr  # noqa: E402
 from repro_torch.api import Experiment, build  # noqa: E402
+from repro_torch.checkpoint import (checkpoint_metadata,  # noqa: E402
+                                    load_checkpoint, load_experiment,
+                                    save_checkpoint)
 from repro_torch.config import FederatedConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import baselines, make_algorithm, problems  # noqa: E402
@@ -197,6 +222,9 @@ STRAGGLED = "fedbioacc_straggler"
 # clients at full width; a path that samples its clients keeps the spec's
 # own count, so that the sampler leaves clients out
 CLIENTS = 2
+# the straggler path is checkpointed after this many of its steps and
+# resumed from there
+RESUME_AT = 2
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 # the serving path: full-width RecurrentGemma-9B prefill and greedy decode
 SERVE_ARCH = "recurrentgemma-9b"
@@ -321,19 +349,28 @@ def _unpack_inputs(n, tiles, grp, gen, dev):
 
 
 KERNELS = {
-    "storm3_step": Kernel(storm.storm3_step, storm_ref.storm3_step_ref,
-                          _update_inputs(2, 2), 4,
-                          "src/repro/kernels/storm/kernel.py:153", "fedbioacc"),
-    "storm3_update": Kernel(storm.storm3_update, storm_ref.storm3_update_ref,
-                            _update_inputs(3, 2), 5,
-                            "src/repro/kernels/storm/kernel.py:127",
-                            "fedbioacc"),
-    "sgd3_step": Kernel(storm.sgd3_step, storm_ref.sgd3_step_ref,
-                        _update_inputs(1, 1), 2,
-                        "src/repro/kernels/storm/kernel.py:206", "fedbio"),
-    "momsgd3_step": Kernel(storm.momsgd3_step, storm_ref.momsgd3_step_ref,
-                           _update_inputs(2, 2), 4,
-                           "src/repro/kernels/storm/kernel.py:228", "fedavg"),
+    "storm3_step": Kernel(
+        storm.storm3_step, storm_ref.storm3_step_ref, _update_inputs(2, 2), 4,
+        "src/repro/kernels/storm/kernel.py:153", "fedbioacc",
+        no_library="two outputs (p - lr*m and decay*(m - g_old)) from "
+        "per-tile lr and decay tables: no single PyTorch call returns both"),
+    "storm3_update": Kernel(
+        storm.storm3_update, storm_ref.storm3_update_ref,
+        _update_inputs(3, 2), 5, "src/repro/kernels/storm/kernel.py:127",
+        "fedbioacc",
+        no_library="two outputs (p - lr*m and g_new + decay*(m - g_old)) "
+        "from per-tile tables: no single PyTorch call returns both"),
+    "sgd3_step": Kernel(
+        storm.sgd3_step, storm_ref.sgd3_step_ref, _update_inputs(1, 1), 2,
+        "src/repro/kernels/storm/kernel.py:206", "fedbio",
+        library=lambda p, g, lrs, block: torch.addcmul(
+            p.view(-1, block), lrs.view(-1, 1), g.view(-1, block), value=-1,
+            out=torch.empty_like(p).view(-1, block))),
+    "momsgd3_step": Kernel(
+        storm.momsgd3_step, storm_ref.momsgd3_step_ref, _update_inputs(2, 2),
+        4, "src/repro/kernels/storm/kernel.py:228", "fedavg",
+        no_library="two outputs, the second from the first (m' = beta*m + "
+        "g, then p - lr*m'): no single PyTorch call returns both"),
     "quantpack": Kernel(
         qp.quantpack_flat, storm_ref.quantpack_ref, _pack_inputs, 6,
         "src/repro/kernels/storm/quantpack.py:50", COMPRESSED,
@@ -899,6 +936,190 @@ def _straggler_report(name: str, strag, part, rounds: list,
         f"card's stream)")
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (end): the train CLI crashed and resumed; phase 5 (end): the
+# full-width straggler path resumed from its checkpoint
+# ---------------------------------------------------------------------------
+
+def _cli(args: list, code: int = 0) -> tuple:
+    """``python -m repro_torch.launch.train *args`` in a subprocess from the
+    checkout; checks its exit code and returns (its JSON lines without
+    ``wall_s``, its standard output)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    if out.returncode != code:
+        raise SystemExit(f"train CLI {args} exited {out.returncode}, "
+                         f"expected {code}:\n{out.stdout[-2000:]}\n"
+                         f"{out.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    for ln in lines:
+        del ln["wall_s"]
+    return lines, out.stdout
+
+
+def _final_arrays(d: str) -> list:
+    name = f"arrays-{checkpoint_metadata(d)['step']:08d}.npz"
+    with np.load(os.path.join(d, name)) as data:
+        return [data[f"a{i}"].copy() for i in range(len(data.files))]
+
+
+def cli_resume_phase() -> None:
+    """The reduced straggler spec through the train CLI on the card: a run
+    hard-exits after its step-2 checkpoint (exit 17); ``--resume`` on the
+    card must end as the uninterrupted run does, bit for bit (every logged
+    loss, arrival set and deadline; every array of the final checkpoint);
+    the same checkpoint resumed with ``--device cpu`` must end within 1e-4
+    of each float buffer's norm, with equal arrivals, deadlines, step and
+    staleness counters."""
+    spec = os.path.join(ROOT, "experiments", f"{STRAGGLED}.json")
+    common = ["--ckpt-every", "2", "--log-every", "1"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        crashed, cpu_dir, whole = (os.path.join(tmp, d)
+                                   for d in ("crashed", "cpu", "whole"))
+        first, out = _cli(["--experiment", spec, "--ckpt-dir", crashed,
+                           "--crash-at-step", "2", *common], code=17)
+        shutil.copytree(crashed, cpu_dir)
+        resumed, out = _cli(["--resume", crashed, "--ckpt-dir", crashed,
+                             *common])
+        if f"resumed from {crashed} @ step 2" not in out:
+            raise SystemExit("train CLI: no resume banner")
+        full, _ = _cli(["--experiment", spec, "--ckpt-dir", whole, *common])
+        on_cpu, _ = _cli(["--resume", cpu_dir, "--ckpt-dir", cpu_dir,
+                          "--device", "cpu", *common])
+        if first != full[:2] or resumed != full[2:]:
+            raise SystemExit(f"train CLI: the resumed run's lines differ "
+                             f"from the uninterrupted run's: {first} + "
+                             f"{resumed} vs {full}")
+        got, want, cpu = (_final_arrays(d) for d in (crashed, whole, cpu_dir))
+        if len(got) != len(want) or not all(
+                a.dtype == b.dtype and np.array_equal(
+                    a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+                for a, b in zip(got, want)):
+            raise SystemExit("train CLI: the resumed run's final checkpoint "
+                             "differs from the uninterrupted run's")
+        # vars, mom (relative); step, stale, deadline (equal)
+        worst = max(float(np.linalg.norm(c - w) / np.linalg.norm(w))
+                    for c, w in zip(cpu[:2], want[:2]))
+        decided = [(ln["arrivals"], ln["deadline"]) for ln in on_cpu]
+        if decided != [(ln["arrivals"], ln["deadline"]) for ln in full[2:]] \
+                or not all(np.array_equal(c, w)
+                           for c, w in zip(cpu[2:], want[2:])):
+            raise SystemExit(f"train CLI: resumed on the CPU, the arrivals, "
+                             f"deadlines, step or staleness counters differ: "
+                             f"{on_cpu} vs {full[2:]}")
+        loss = max(abs(c["val_loss"] - w["val_loss"]) / abs(w["val_loss"])
+                   for c, w in zip(on_cpu, full[2:]))
+    log(f"train CLI, {STRAGGLED}: crashed after the step-2 checkpoint (exit "
+        f"17), resumed on the card: steps 3-{full[-1]['step']} (val_loss, "
+        f"arrivals, deadline) and the final checkpoint's {len(want)} arrays "
+        f"bit for bit the uninterrupted run's; resumed on the CPU: worst "
+        f"relative buffer difference {worst:.3e} (limit 1e-4), val_loss "
+        f"within {loss:.3e}, arrivals, deadlines, step and staleness "
+        f"counters equal; {time.perf_counter() - t0:.1f} s for 4 runs")
+    if not worst <= 1e-4:
+        raise SystemExit("train CLI: the CPU resume is off the card's run")
+
+
+def _decision(metrics) -> tuple:
+    return (metrics["arrivals"].tolist(), metrics["extensions"],
+            metrics["deadline"], metrics["deadline_next"])
+
+
+def _state_bytes(state: FlatState) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state)
+               if torch.is_tensor(t))
+
+
+def save_full_width(run, state: FlatState) -> tuple:
+    """Checkpoint the path's state into a fresh directory, after checking
+    that it has room for twice the state (the old and the new arrays file
+    coexist until the prune); returns (directory, seconds, arrays bytes)."""
+    need = 2 * _state_bytes(state)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(d).free
+    if free < need:
+        shutil.rmtree(d)
+        raise SystemExit(f"checkpoint: {d} has {free} B free, {need - free} "
+                         f"B short of twice the state's {need // 2} B")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(d, state, {"step": state.step,
+                               "arch": run.model_cfg.name, "retries": 0},
+                    experiment=run.spec)
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(d, f"arrays-{state.step:08d}.npz"))
+    return d, secs, size
+
+
+def resume_full_width(name: str, run, final: dict, ckpt: tuple, batches,
+                      decided: list, dev) -> dict:
+    """Rebuild the path from the checkpoint's embedded spec, load the
+    checkpoint into the new run's initial state on the card, run the
+    remaining steps on the same batches, and hold the end to the
+    uninterrupted run's (``final``: its buffers on the host, step,
+    staleness counters and deadline): every buffer bit for bit, every
+    step's decision equal, ``storm3_step`` once per buffer a step and no
+    other kernel.  Returns the resumed steps' launches."""
+    d, save_s, size = ckpt
+    exp2 = load_experiment(d)
+    if exp2 != run.spec:
+        raise SystemExit(f"path {name}: the checkpoint's spec differs")
+    run2 = build(exp2, device=dev)
+    like = run2.init(torch.Generator(device=dev)
+                     .manual_seed(exp2.schedule.seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = load_checkpoint(d, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del like
+    shutil.rmtree(d)
+    if state.step != RESUME_AT:
+        raise SystemExit(f"path {name}: resumed at step {state.step}")
+    reset_counts()
+    got, step_ms = [], []
+    for batch in batches[RESUME_AT:]:
+        t0 = time.perf_counter()
+        state, metrics = run2.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(_decision(metrics))
+    launches = launch_counts()
+    bufs = state.vars + state.mom
+    want = {**dict.fromkeys(launches, 0),
+            "storm3_step": len(state.vars) * len(got)}
+    if launches != want:
+        raise SystemExit(f"path {name} resumed launched {launches}, "
+                         f"expected {want}")
+    if got != decided[RESUME_AT:]:
+        raise SystemExit(f"path {name}: the resumed steps decided {got}, "
+                         f"the uninterrupted run {decided[RESUME_AT:]}")
+    if not (state.step == final["step"]
+            and torch.equal(state.stale, final["stale"])
+            and same_bits(state.deadline, final["deadline"])
+            and len(bufs) == len(final["bufs"])
+            and all(same_bits(b.cpu(), f)
+                    for b, f in zip(bufs, final["bufs"]))):
+        raise SystemExit(f"path {name}: the resumed run's state differs "
+                         f"from the uninterrupted run's")
+    n_bytes = sum(f.numel() * f.element_size() for f in final["bufs"])
+    log(f"path {name}: checkpoint after step {RESUME_AT}: {size} B arrays "
+        f"file ({n_bytes} B of buffers: "
+        f"{[f'{str(f.dtype)[6:]}{list(f.shape)}' for f in final['bufs']]}), "
+        f"saved in {save_s:.3f} s (host copy, npz, sha256), loaded in "
+        f"{load_s:.3f} s (sha256, npz, copy to the card), on {card_line()}; "
+        f"resumed from a fresh build of the embedded spec: steps "
+        f"{RESUME_AT + 1}-{final['step']} in "
+        f"{[round(t, 3) for t in step_ms]} ms, decisions {got} and every "
+        f"buffer, the step, staleness counters and deadline bit for bit the "
+        f"uninterrupted run's; launches {launches}")
+    return launches
+
+
 def main_path(name: str, exp: Experiment, dev) -> dict:
     oracle_events = []
     over_clients = trainer._over_clients
@@ -918,6 +1139,7 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     step_ms, packs, masks, rounds, shares = [], [], [], [], []
+    decided, ckpt = [], None
     gated = part is not None or strag is not None
     for t, batch in enumerate(batches):
         if gated:
@@ -970,6 +1192,11 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
             _participation_checks(name, run, state, kept, out, ins,
                                   (t + 1) % local == 0)
             del kept
+        if name == STRAGGLED:
+            decided.append(_decision(metrics))
+            if t + 1 == RESUME_AT:
+                # outside the timed steps
+                ckpt = save_full_width(run, state)
     launches, variants = launch_counts(), variant_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     val = run.eval_fn(state)
@@ -1007,6 +1234,17 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
         raise SystemExit(f"path {name} launched {launches}, expected {want}")
     if not math.isfinite(val):
         raise SystemExit(f"non-finite validation loss {val} on path {name}")
+    if ckpt is not None:
+        # the uninterrupted run's end on the host, so that the card holds
+        # one state at a time
+        final = {"bufs": [b.cpu() for b in state.vars + state.mom],
+                 "step": state.step, "stale": state.stale.clone(),
+                 "deadline": state.deadline.clone()}
+        del state
+        torch.cuda.empty_cache()
+        resumed = resume_full_width(name, run, final, ckpt, batches,
+                                    decided, dev)
+        launches = {k: v + resumed[k] for k, v in launches.items()}
     return launches
 
 
@@ -1673,6 +1911,7 @@ def main() -> None:
             cross_check(f"{name} ({policy})", base.edit(
                 **{"stragglers.late_policy": policy}), dev,
                 steps=2 * base.schedule.local_steps)
+    cli_resume_phase()
     for name, full in fulls.items():
         launches = main_path(name, full, dev)
         torch.cuda.empty_cache()

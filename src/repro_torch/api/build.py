@@ -5,9 +5,10 @@ The returned :class:`Run` exposes ``init(gen) -> state``,
 ``step(state, batch) -> (state, metrics)``, ``views(state)`` (the pytree
 train state), ``eval_fn(state) -> float`` (client 0's validation loss on a
 fixed batch), ``batch_fn(gen)`` (the synthetic federated stream) and
-``participation`` (the ``ParticipationSpec`` the train step samples with,
-None for the full sampler: with stragglers, the spec's sampler
-over-provisioned by ``stragglers.over_provision``).
+``participation`` (the spec's ``ParticipationSpec`` as the reference
+resolves it, None for the full sampler; with stragglers the step samples
+with that spec over-provisioned by ``stragglers.over_provision``, which
+``step.participation.spec`` holds).
 
 The device defaults to ``cuda``; without a card, building raises unless the
 caller asks for ``device="cpu"``.  A spec that sets a feature the port does
@@ -176,8 +177,6 @@ def build(experiment: Experiment, *, device=None) -> Run:
         storm_block=ex.storm_block, compression=exp.compression,
         participation=participation, stragglers=exp.stragglers,
         **factory_kw)
-    if step.participation is not None:
-        participation = step.participation.spec
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

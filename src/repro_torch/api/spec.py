@@ -172,6 +172,10 @@ class ScheduleSpec:
                  else (tuple(p) for p in self.comm_every))
         object.__setattr__(self, "comm_every", tuple(sorted(items)))
 
+    @property
+    def comm_every_dict(self) -> dict:
+        return dict(self.comm_every)
+
 
 @dataclass(frozen=True)
 class Experiment:
@@ -477,6 +481,31 @@ class Experiment:
                  f"{sg.start_round} must be >= 0")
 
     # -- JSON ---------------------------------------------------------------
+
+    def to_json(self, *, indent: int | None = 1) -> str:
+        """The spec as the reference writes it: ``version`` first, then the
+        groups in field order; the NamedTuple layers as objects, tuples as
+        lists, ``algorithm.params`` and ``schedule.comm_every`` as
+        objects."""
+        d = dataclasses.asdict(self)
+        d["algorithm"]["params"] = self.algorithm.params_dict
+        # dataclasses.asdict rebuilds NamedTuples, which json writes as
+        # lists: write them as objects
+        d["participation"] = self.participation._asdict()
+        for key in _LAYERS:
+            layer = getattr(self, key)
+            d[key] = None if layer is None else layer._asdict()
+            for k in ("sections", "metrics"):
+                if layer is not None and getattr(layer, k, None) is not None:
+                    d[key][k] = list(getattr(layer, k))
+        d["schedule"]["comm_every"] = self.schedule.comm_every_dict
+        d = {"version": d.pop("version"), **d}
+        return json.dumps(d, indent=indent, sort_keys=False)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as fh:
+            fh.write(self.to_json())
+            fh.write("\n")
 
     @classmethod
     def from_json(cls, text: str) -> "Experiment":

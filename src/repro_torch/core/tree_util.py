@@ -1,7 +1,8 @@
 """Pytree helpers over nested dicts / lists / tuples of tensors.
 
 Leaf order matches ``jax.tree.flatten``: dict entries are visited in
-**sorted key order**, lists and tuples in position order.  The flat-buffer
+**sorted key order**, lists, tuples and NamedTuples in position order (a
+NamedTuple unflattens to its own class).  The flat-buffer
 layout (``repro_torch.optim.flat.make_spec``) is built from this order, so
 keeping it identical to the JAX package is what makes the port's buffers
 agree with the reference element for element.  (``torch.utils._pytree``
@@ -15,11 +16,14 @@ import torch
 
 
 class TreeDef(NamedTuple):
-    """Structure of a flattened tree: ``kind`` is "leaf", "dict", "list" or
-    "tuple"; ``keys`` the sorted dict keys; ``children`` the sub-structures."""
+    """Structure of a flattened tree: ``kind`` is "leaf", "dict", "list",
+    "tuple" or "namedtuple"; ``keys`` the sorted dict keys or the
+    NamedTuple's fields; ``children`` the sub-structures; ``cls`` the
+    NamedTuple's class."""
     kind: str
     keys: tuple = ()
     children: tuple = ()
+    cls: Any = None
 
     def unflatten(self, leaves):
         it = iter(leaves)
@@ -34,6 +38,8 @@ class TreeDef(NamedTuple):
         kids = [c._build(it) for c in self.children]
         if self.kind == "dict":
             return dict(zip(self.keys, kids))
+        if self.kind == "namedtuple":
+            return self.cls(*kids)
         return list(kids) if self.kind == "list" else tuple(kids)
 
     def flatten_up_to(self, tree) -> List[Any]:
@@ -58,11 +64,52 @@ class TreeDef(NamedTuple):
         for t, c in zip(tree, self.children):
             c._collect(t, out)
 
+    def paths(self, prefix: str = "") -> List[str]:
+        """Each leaf's path as ``jax.tree_util.keystr`` writes it:
+        ``['key']`` for a dict entry, ``[i]`` for a list or tuple position,
+        ``.field`` for a NamedTuple field."""
+        if self.kind == "leaf":
+            return [prefix]
+        if self.kind == "dict":
+            steps = [f"[{k!r}]" for k in self.keys]
+        elif self.kind == "namedtuple":
+            steps = [f".{f}" for f in self.keys]
+        else:
+            steps = [f"[{i}]" for i in range(len(self.children))]
+        return [p for s, c in zip(steps, self.children)
+                for p in c.paths(prefix + s)]
+
+    def __str__(self) -> str:
+        """The structure as ``str(jax.tree_util.tree_structure(...))``
+        prints it."""
+        return f"PyTreeDef({self._str()})"
+
+    def _str(self) -> str:
+        kids = [c._str() for c in self.children]
+        if self.kind == "leaf":
+            return "*"
+        if self.kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {c}" for k, c in
+                                   zip(self.keys, kids)) + "}"
+        if self.kind == "list":
+            return "[" + ", ".join(kids) + "]"
+        if self.kind == "namedtuple":
+            return (f"CustomNode(namedtuple[{self.cls.__name__}], "
+                    f"[{', '.join(kids)}])")
+        return "(" + ", ".join(kids) + (",)" if len(kids) == 1 else ")")
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
 
 def tree_structure(tree) -> TreeDef:
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
         return TreeDef("dict", keys, tuple(tree_structure(tree[k]) for k in keys))
+    if _is_namedtuple(tree):
+        return TreeDef("namedtuple", tuple(tree._fields),
+                       tuple(tree_structure(t) for t in tree), type(tree))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return TreeDef(kind, (), tuple(tree_structure(t) for t in tree))

@@ -154,7 +154,11 @@ def test_straggled_spec_builds_and_steps_on_cpu(name):
     assert strag is run.init.stragglers is not None
     assert (strag.spec.late_policy, part.spec.clients_per_round) == \
         STRAGGLED[name]
-    assert run.participation == part.spec
+    # the reference's Run.participation: the spec before over-provisioning
+    # (4 of 8); the step samples with the over-provisioned one (6 of 8)
+    assert run.participation == exp.participation
+    assert part.spec == exp.participation._replace(
+        clients_per_round=STRAGGLED[name][1])
     state = run.init(torch.Generator().manual_seed(0))
     assert state.deadline.dtype == torch.float32
     assert float(state.deadline) == exp.stragglers.deadline

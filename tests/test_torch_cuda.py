@@ -503,3 +503,38 @@ def test_cuda_straggler_round_freezes_non_arrivals(card):
     for a, b in zip(on_card.vars + on_card.mom, on_cpu.vars + on_cpu.mom):
         assert a.device.type == "cuda"
         assert float((a.cpu() - b).norm()) <= 1e-6 * float(b.norm())
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_in_place(card, tmp_path):
+    """A reduced fused straggler state saved on the card and loaded back
+    into a fresh run's state: every leaf bit for bit, copied in place into
+    the target's tensors, on the target's device and in its dtype (the
+    buffers on the card, the staleness counters and the deadline on the
+    host, as the engine keeps them)."""
+    from pathlib import Path
+
+    from repro_torch.api import Experiment, build
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.tree_util import tree_leaves
+
+    spec = Path(__file__).resolve().parents[1] / "experiments" / \
+        "fedbioacc_straggler.json"
+    run = build(Experiment.load(str(spec)), device=card)
+    state = run.init(torch.Generator(device=card).manual_seed(0))
+    data = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        state, _ = run.step(state, run.batch_fn(data))
+    save_checkpoint(str(tmp_path / "ck"), state, {"step": state.step},
+                    experiment=run.spec)
+    like = run.init(torch.Generator(device=card).manual_seed(1))
+    got = load_checkpoint(str(tmp_path / "ck"), like)
+    assert got.step == state.step == 3
+    tensors = [[t for t in tree_leaves(s) if torch.is_tensor(t)]
+               for s in (state, got, like)]
+    assert len(tensors[0]) == 4
+    for a, b, c in zip(*tensors):
+        assert b is c and b.device == a.device and b.dtype == a.dtype
+        np.testing.assert_array_equal(bits(a), bits(b))
+    assert got.vars[0].device.type == "cuda"
+    assert got.deadline.device.type == "cpu"

@@ -58,7 +58,10 @@ def test_four_steps_match_reference_with_over_provisioned_sampler():
     jpart, jstrag = jrun.step.participation, jrun.step.stragglers
     assert part is not None and strag is not None
     assert part.spec.clients_per_round == jpart.spec.clients_per_round == 6
-    assert run.participation.clients_per_round == 6
+    # Run.participation is the reference's: the spec before
+    # over-provisioning (4 of 8); the step samples with 6 of 8
+    assert run.participation._asdict() == jrun.participation._asdict()
+    assert run.participation.clients_per_round == 4
     assert run.fed.num_clients == 8
     spec = run.init.spec
     assert [g.padded for g in spec.groups] == \
