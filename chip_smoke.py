@@ -24,9 +24,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    compressed reduction at the bf16 buffer's shape; then ``storm3_step``,
    ``sgd3_step`` and ``momsgd3_step`` with tile tables gated by a
    participation mask that leaves clients out (``storm3_step`` at the
-   FedBiOAcc-Local buffers of 4 clients, 2 left out, and again at the
+   FedBiOAcc-Local buffers of 4 clients, 2 left out, again at the
    straggler path's buffers of 8 clients, block 256, gated by round 0's
-   arrivals so that unsampled and late clients are left out), bit for bit
+   arrivals so that unsampled and late clients are left out, and at the
+   faulty path's buffers of 8 clients, gated by the first faulted round's
+   ``keep`` mask that drops two clients under the spec edited to
+   ``dropout_rate`` 0.25), bit for bit
    against their plain versions (run a client row at a time), the
    left-out rows equal to their input bits, with inf/NaN in a left-out
    client's gradient (a late one on the straggler path) zeroed by
@@ -59,13 +62,31 @@ Phases, each of which stops the script with a non-zero exit on failure:
    logged loss, arrival set and deadline; each array of the final
    checkpoint), and the same checkpoint resumed with ``--device cpu``
    within 1e-4 of each buffer's norm, its arrivals, deadlines and
-   staleness counters equal;
+   staleness counters equal.  Then the reduced faulty spec over two
+   rounds (four steps), card against CPU, under ``clip`` (as committed),
+   ``trim``, ``mean``, ``clip`` with ``dropout_rate`` 0.25, and with
+   ``robustness`` null: each step's fault masks and health verdicts
+   equal on both devices, the buffers within 1e-4 of each one's norm until
+   the last step; there the oracles run at an aggregate the byzantine
+   rows left far off, so a buffer that moves by more than
+   ``ILL_CONDITIONED`` when the CPU's entering variables move by 1e-7 is
+   only logged (the variables must not be such), and each guarded
+   reduction the card ran is rerun on the CPU on the card's input rows
+   and held to 1e-4; the unguarded run non-finite on both.  Then the train
+   CLI with faults: a spec edited to ``nan_rate`` 1.0 from round 1,
+   screen off, retry budget 2 rolls back twice to step 2, writes
+   ``<ckpt-dir>/diagnostic`` and exits non-zero naming round 4; the
+   committed spec under ``--max-restarts 1 --restart-backoff 0
+   --crash-at-step 2`` exits 0 and ends bit for bit as the uninterrupted
+   run (every line, every array of the final checkpoint, ``retries``);
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
-   ``fedbioacc_local.json`` and ``fedbioacc_straggler.json``, each at full
-   Mamba-2-130M width (bf16, 2 clients, or a sampled path's own: 4 of which
-   2 take part a round, and the straggler path's 8 of which 6 are sampled
-   and those that beat the round's deadline arrive; 1
+   ``fedbioacc_local.json``, ``fedbioacc_straggler.json`` and
+   ``fedbioacc_faulty.json``, each at full
+   Mamba-2-130M width (bf16, 2 clients, or a sampled or faulty path's own:
+   4 of which 2 take part a round, the straggler path's 8 of which 6 are
+   sampled and those that beat the round's deadline arrive, the faulty
+   path's 8; the straggler path at 12 of the 24 layers, the others at all; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -94,6 +115,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    deadline bit for bit those of the uninterrupted run, each step's
    arrivals, extensions and deadlines equal, ``storm3_step`` once per
    buffer a step (counted into the kernels line) and no other kernel;
+   the faulty path (``fedbioacc_faulty.json``, its own 8 clients, round 1
+   faulted: NaN clients screened, byzantine ×25 ones clipped) runs
+   through a ``RollbackGuard`` as the train CLI runs it with
+   ``--log-every 2`` (host snapshots, after checking the host has the
+   ring's bytes available), each guarded reduction's verdict held to the
+   screen recomputed from scratch and timed between CUDA events, the state
+   finite after every round; after step 4 a non-finite loss is observed in
+   place of the real one: the step-2 snapshot must come back into the
+   live tensors bit for bit, ``retry`` 1, and round 1 is rerun on its
+   ``(1, 1)`` draws (12 ``storm3_step`` launches in all); its step times,
+   the guarded reductions' share of each, peak memory, snapshot and
+   restore seconds and the ring's host bytes are logged;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -147,6 +180,8 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -181,6 +216,8 @@ from repro_torch.examples import data_cleaning as cleaning_ex  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     hyper_representation as hyperrep_ex)
 from repro_torch.federation import trainer  # noqa: E402
+from repro_torch.federation.faults import (RollbackGuard,  # noqa: E402
+                                           make_faults)
 from repro_torch.federation.stragglers import simulate_rounds  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.flash import ops as flash_ops  # noqa: E402
@@ -215,16 +252,30 @@ PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
          "fedbioacc_int8_topk": {"storm3_step": 8, "quantpack": 8,
                                  "quantunpack": 8, "storm_update": 0},
          "fedbioacc_local": {"storm3_step": 8, "storm_update": 0},
-         "fedbioacc_straggler": {"storm3_step": 8, "storm_update": 0}}
+         "fedbioacc_straggler": {"storm3_step": 8, "storm_update": 0},
+         "fedbioacc_faulty": {"storm3_step": 8, "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
 SAMPLED = "fedbioacc_local"
 STRAGGLED = "fedbioacc_straggler"
-# clients at full width; a path that samples its clients keeps the spec's
-# own count, so that the sampler leaves clients out
+FAULTY = "fedbioacc_faulty"
+# clients at full width; a path that samples its clients or injects faults
+# keeps the spec's own count, so that the sampler leaves clients out and
+# the screen has its participants
 CLIENTS = 2
+# the faulty path: the dropout rate of the edit that gates phase 3's
+# launches and one cross-check of phase 4; the guard observes at the steps
+# the train CLI does with --log-every 2; a buffer whose last step moves by
+# more than this (relative) when the entering variables move by 1e-7 is
+# too ill-conditioned to compare between devices end to end
+FAULT_DROPOUT = 0.25
+FAULT_LOG_EVERY = 2
+ILL_CONDITIONED = 1e-3
 # the straggler path is checkpointed after this many of its steps and
-# resumed from there
+# resumed from there; its full-width run keeps the published widths and 8
+# clients and cuts the depth to this many of Mamba-2-130M's 24 layers, so
+# that the faulty path's phases fit in the script's time
 RESUME_AT = 2
+STRAGGLER_LAYERS = 12
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 # the serving path: full-width RecurrentGemma-9B prefill and greedy decode
 SERVE_ARCH = "recurrentgemma-9b"
@@ -298,11 +349,25 @@ def raw_ms(fn_name: str, lib, *args) -> float:
     return timed_ms(call, KERNEL_RUNS)
 
 
+@contextlib.contextmanager
+def _depth(layers: int):
+    """Builds inside take the published widths of their arch with only its
+    first ``layers`` layers."""
+    from repro_torch import configs
+    orig = configs.get_config
+    configs.get_config = lambda name: dataclasses.replace(
+        orig(name), num_layers=layers)
+    try:
+        yield
+    finally:
+        configs.get_config = orig
+
+
 def full_width_experiment(exp: Experiment) -> Experiment:
-    sampled = exp.participation.sampler != "full"
+    own = exp.participation.sampler != "full" or exp.faults is not None
     return exp.edit(**{"problem.reduced": False,
                        "problem.num_clients": (exp.problem.num_clients
-                                               if sampled else CLIENTS),
+                                               if own else CLIENTS),
                        "problem.per_client": 1, "problem.seq_len": 512,
                        "schedule.steps": 4})
 
@@ -530,7 +595,8 @@ def compression_phase(groups, dev) -> None:
 
 # the gated launches: (kernel, the path whose buffers it is held at)
 GATED = [("storm3_step", SAMPLED), ("sgd3_step", "fedbio"),
-         ("momsgd3_step", "fedavg"), ("storm3_step", STRAGGLED)]
+         ("momsgd3_step", "fedavg"), ("storm3_step", STRAGGLED),
+         ("storm3_step", FAULTY)]
 
 
 def gate_mask(run, m: int):
@@ -539,7 +605,18 @@ def gate_mask(run, m: int):
     straggler path round 0's launch mask as its late policy makes it from
     the round's decision, and a client that was sampled but arrived late;
     elsewhere every other client left out, and the first of them."""
-    strag = run.step.stragglers
+    strag, faults = run.step.stragglers, run.step.faults
+    if faults is not None:
+        # the first faulted round whose keep mask, under the spec edited to
+        # FAULT_DROPOUT, drops two clients
+        edited = make_faults(faults.spec._replace(dropout_rate=FAULT_DROPOUT),
+                             m)
+        r = next(r for r in itertools.count(faults.spec.start_round)
+                 if int((edited.round_masks(r)[0] == 0).sum()) == 2)
+        keep = edited.round_masks(r)[0]
+        out = [i for i in range(m) if keep[i] == 0]
+        return (keep, out[0], f"round {r}'s keep mask under dropout_rate "
+                f"{FAULT_DROPOUT}, clients {out} dropped")
     if strag is None:
         mask = torch.ones(m)
         mask[1::2] = 0.0
@@ -943,8 +1020,8 @@ def _straggler_report(name: str, strag, part, rounds: list,
 
 def _cli(args: list, code: int = 0) -> tuple:
     """``python -m repro_torch.launch.train *args`` in a subprocess from the
-    checkout; checks its exit code and returns (its JSON lines without
-    ``wall_s``, its standard output)."""
+    checkout; checks its exit code and returns (its step lines without
+    ``wall_s``, its standard output and error)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", *args],
         capture_output=True, text=True, cwd=ROOT, timeout=600,
@@ -954,10 +1031,10 @@ def _cli(args: list, code: int = 0) -> tuple:
                          f"expected {code}:\n{out.stdout[-2000:]}\n"
                          f"{out.stderr[-4000:]}")
     lines = [json.loads(ln) for ln in out.stdout.splitlines()
-             if ln.startswith("{")]
+             if ln.startswith('{"step"')]
     for ln in lines:
         del ln["wall_s"]
-    return lines, out.stdout
+    return lines, out.stdout + out.stderr
 
 
 def _final_arrays(d: str) -> list:
@@ -1022,6 +1099,178 @@ def cli_resume_phase() -> None:
         f"counters equal; {time.perf_counter() - t0:.1f} s for 4 runs")
     if not worst <= 1e-4:
         raise SystemExit("train CLI: the CPU resume is off the card's run")
+
+
+def _spread(run, state: FlatState, batch, after: FlatState) -> list:
+    """Each buffer's relative response of the step of ``run`` from
+    ``state`` (which led to ``after``) to a 1e-7 relative change of the
+    entering variables: the step's conditioning, how far two devices'
+    last-bit differences can carry."""
+    b, _ = run.step(state._replace(vars=tuple(v * (1 + 1e-7)
+                                              for v in state.vars)), batch)
+    return [float((x.float() - y.float()).norm() / x.float().norm())
+            for x, y in zip(after.vars + after.mom, b.vars + b.mom)]
+
+
+def _fault_decisions(metrics) -> tuple:
+    return (tuple(m.tolist() for m in metrics["faults"]),
+            [v.tolist() for v in metrics.get("health", [])])
+
+
+def _capturing(orig, captured: list):
+    """``flat._robust_mean_into`` that also keeps each call's input and
+    output rows on the host, with its weights, faults and policy."""
+    def capture(seg, w, corrupt, rob, verdicts=None):
+        x0 = seg.cpu()
+        orig(seg, w, corrupt, rob, verdicts)
+        captured.append((x0, seg.cpu(), w, corrupt, rob))
+    return capture
+
+
+def fault_cross_check(name: str, exp: Experiment, dev) -> None:
+    """The reduced faulty spec over two rounds, card against CPU: each
+    step's fault masks and health verdicts equal on both devices; every
+    buffer within 1e-4 of its norm after every step but the last.  The
+    last step's oracles run at an aggregate that the byzantine rows left
+    far off, where a 1e-7 relative change of the variables can move the
+    momenta by per cents or more (the CPU's own response, measured here):
+    a buffer whose response exceeds ``ILL_CONDITIONED`` is only logged,
+    every other one held to 1e-4, and each guarded reduction the card ran
+    in that step is rerun on the CPU on the card's input rows and held to
+    1e-4.  Without robustness both devices' states must go non-finite."""
+    steps = 2 * exp.schedule.local_steps
+    cpu_run, gpu_run = build(exp, device="cpu"), build(exp, device=dev)
+    cpu_state = cpu_run.init(torch.Generator().manual_seed(0))
+    gpu_state = _to(cpu_state, dev)
+    data = torch.Generator().manual_seed(1)
+    rounds, spread, captured = [], None, []
+    orig = flat._robust_mean_into
+    for t in range(steps):
+        batch = cpu_run.batch_fn(data)
+        last = t == steps - 1 and exp.robustness is not None
+        before = cpu_state
+        cpu_state, cm = cpu_run.step(cpu_state, batch)
+        if last:
+            spread = _spread(cpu_run, before, batch, cpu_state)
+        del before
+        if last:
+            flat._robust_mean_into = _capturing(orig, captured)
+        try:
+            gpu_state, gm = gpu_run.step(
+                gpu_state, {k: {kk: v.to(dev) for kk, v in b.items()}
+                            for k, b in batch.items()})
+        finally:
+            flat._robust_mean_into = orig
+        if t < steps - 1 and exp.robustness is not None:
+            early = [float((g.cpu().float() - c.float()).norm()
+                           / c.float().norm()) for g, c in
+                     zip(gpu_state.vars + gpu_state.mom,
+                         cpu_state.vars + cpu_state.mom)]
+            if not max(early) <= 1e-4:
+                raise SystemExit(f"cross-check of {name}: step {t + 1}'s "
+                                 f"buffers differ by {early} (limit 1e-4)")
+        decided = [_fault_decisions(m) for m in (cm, gm)]
+        if decided[0] != decided[1]:
+            raise SystemExit(f"cross-check of {name}: step {t + 1}'s fault "
+                             f"masks or verdicts differ between devices: "
+                             f"{decided}")
+        if (t + 1) % exp.schedule.local_steps == 0:
+            (_, nan, byz), verdicts = decided[0]
+            rounds.append({"round": t // exp.schedule.local_steps,
+                           "nan": [i for i, v in enumerate(nan) if v],
+                           "byzantine": [i for i, v in enumerate(byz) if v],
+                           "screened": cm.get("screened")})
+    pairs = list(zip(gpu_state.vars + gpu_state.mom,
+                     cpu_state.vars + cpu_state.mom))
+    if exp.robustness is None:
+        finite = [all(bool(torch.isfinite(b).all()) for b in side)
+                  for side in ((g for g, _ in pairs), (c for _, c in pairs))]
+        log(f"reduced cross-check, {name}: card and CPU after {steps} steps, "
+            f"rounds {rounds}, state finite (card, CPU) {finite}: the "
+            f"unguarded mean is poisoned on both")
+        if any(finite):
+            raise SystemExit(f"cross-check of {name}: the unguarded run "
+                             f"stayed finite")
+        return
+    held = [sp <= ILL_CONDITIONED for sp in spread]
+    rels = [float((g.cpu().float() - c.float()).norm() / c.float().norm())
+            for g, c in pairs]
+    reduced = []
+    for x0, out, w, corrupt, rob in captured:
+        orig(x0, w, corrupt, rob)
+        reduced.append(float((out.float() - x0.float()).norm()
+                             / x0.float().norm()))
+    log(f"reduced cross-check, {name}: card vs CPU after {steps} steps, "
+        f"rounds {rounds}, masks and verdicts equal at every step, every "
+        f"buffer within 1e-4 until the last step; after it relative buffer "
+        f"differences {[f'{r:.3e}' for r in rels]}, the CPU's response of "
+        f"the last step to a 1e-7 relative change of the variables "
+        f"{[f'{x:.3e}' for x in spread]}, so held at 1e-4: {held}; the last "
+        f"step's {len(reduced)} guarded reductions rerun on the CPU on the "
+        f"card's inputs: {[f'{r:.3e}' for r in reduced]} (limit 1e-4)")
+    if not (all(r <= 1e-4 for r, h in zip(rels, held) if h)
+            and all(held[:len(gpu_state.vars)]) and len(reduced) >= 2
+            and all(r <= 1e-4 for r in reduced)):
+        raise SystemExit(f"reduced cross-check of {name} failed")
+
+
+def cli_fault_phase() -> None:
+    """The train CLI on the card with faults: a spec edited so that every
+    retry of round 1 sends NaN unscreened must roll back twice to step 2,
+    write ``<ckpt-dir>/diagnostic`` and exit non-zero naming round 4; the
+    committed spec under ``--max-restarts 1 --crash-at-step 2`` must exit
+    0 and end bit for bit as the uninterrupted run (in this process):
+    every logged line, every array of the final checkpoint, ``retries``."""
+    from repro_torch.launch import train
+    spec = os.path.join(ROOT, "experiments", f"{FAULTY}.json")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+        forced, ck = os.path.join(tmp, "forced.json"), os.path.join(tmp, "f")
+        Experiment.load(spec).edit(**{
+            "faults.nan_rate": 1.0, "faults.start_round": 1,
+            "robustness.screen": False,
+            "robustness.retry_budget": 2}).save(forced)
+        _, out = _cli(["--experiment", forced, "--ckpt-dir", ck,
+                       "--log-every", "2"], code=1)
+        rolled = [json.loads(ln) for ln in out.splitlines()
+                  if ln.startswith('{"rollback_to"')]
+        if [(r["rollback_to"], r["retry"]) for r in rolled] != \
+                [(2, 1), (2, 2)] or "round 4: eval loss" not in out or \
+                not os.path.isfile(os.path.join(ck, "diagnostic",
+                                                "manifest.json")):
+            raise SystemExit(f"train CLI, forced rollbacks: {rolled}\n"
+                             f"{out[-3000:]}")
+        sup, whole = os.path.join(tmp, "sup"), os.path.join(tmp, "whole")
+        common = ["--experiment", spec, "--ckpt-every", "2", "--log-every",
+                  "1"]
+        lines, out = _cli(common + ["--ckpt-dir", sup, "--max-restarts", "1",
+                                    "--restart-backoff", "0",
+                                    "--crash-at-step", "2"])
+        if "crash-at-step: hard exit after step 2" not in out or \
+                f"resumed from {sup} @ step 2" not in out:
+            raise SystemExit(f"train CLI, supervisor: no crash or no "
+                             f"resume:\n{out[-3000:]}")
+        full = [{k: v for k, v in h.items() if k != "wall_s"}
+                for h in train.main(common + ["--ckpt-dir", whole])]
+        got, want = _final_arrays(sup), _final_arrays(whole)
+        md = (checkpoint_metadata(sup), checkpoint_metadata(whole))
+        if lines != full or md[0] != md[1] or len(got) != len(want) or \
+                not all(a.dtype == b.dtype and np.array_equal(
+                    a.reshape(-1).view(np.uint8),
+                    b.reshape(-1).view(np.uint8))
+                    for a, b in zip(got, want)):
+            raise SystemExit(f"train CLI, supervisor: the restarted run "
+                             f"differs from the uninterrupted one: {lines} "
+                             f"vs {full}; {md}")
+    steps = [(r["rollback_to"], r["retry"]) for r in rolled]
+    log(f"train CLI, {FAULTY}: with every retry of round 1 sending NaN "
+        f"unscreened, rollbacks {steps} (to step, retry), then exit 1 "
+        f"naming round 4 and a diagnostic checkpoint; --max-restarts 1 "
+        f"--crash-at-step 2: crashed, resumed by the supervisor, steps "
+        f"1-{full[-1]['step']} (val_loss, nan, byzantine, screened) {full} "
+        f"and the final checkpoint's {len(want)} arrays bit for bit the "
+        f"uninterrupted run's, retries {md[0]['retries']}; "
+        f"{time.perf_counter() - t0:.1f} s for 4 runs")
 
 
 def _decision(metrics) -> tuple:
@@ -1120,6 +1369,191 @@ def resume_full_width(name: str, run, final: dict, ckpt: tuple, batches,
     return launches
 
 
+def _host_available() -> int:
+    """Bytes of host memory available to new allocations (``MemAvailable``
+    of ``/proc/meminfo``)."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise SystemExit("/proc/meminfo has no MemAvailable line")
+
+
+def _screen_from_scratch(seg, w, corrupt, robust) -> tuple:
+    """The reference's health screen recomputed apart from the port's
+    reduction, on the card: each client's row as sent (scaled in its dtype
+    if byzantine, NaN if corrupted, as it is if the client sends nothing),
+    its finiteness and its norm (the squares in f32, as the rule takes
+    them, so that a row beyond 1.8e19 squares to inf; summed in f64), then
+    ``_health_mask``'s rule.  Returns (verdict, the least margin
+    ``||n − mu| − tol| / tol``, inf where an infinite norm decides every
+    verdict)."""
+    nan, byz, scale = corrupt
+    m = seg.shape[0]
+    sends = [w is None or float(w[i]) > 0 for i in range(m)]
+    norms, finite = [], []
+    for i in range(m):
+        row = seg[i]
+        if sends[i] and byz[i] > 0:
+            row = row * torch.tensor(scale, dtype=row.dtype, device=row.device)
+        ok = not (sends[i] and nan[i] > 0) and bool(torch.isfinite(row).all())
+        finite.append(ok)
+        sq = torch.sum(row.float().square(), dtype=torch.float64)
+        norms.append(float(sq.to(torch.float32).sqrt()) if ok else 0.0)
+    h = [s and f for s, f in zip(sends, finite)]
+    n = [v if ok else 0.0 for v, ok in zip(norms, h)]
+    cnt = max(sum(h), 1)
+    mu = sum(v for v, ok in zip(n, h) if ok) / cnt
+    sd = math.sqrt(sum((v - mu) ** 2 for v, ok in zip(n, h) if ok) / cnt)
+    tol = robust.z_thresh * sd + 1e-4 * mu + 1e-12
+    verdict = [float(ok and abs(v - mu) <= tol) for v, ok in zip(n, h)]
+    margin = min((abs(abs(v - mu) - tol) / tol for v, ok in zip(n, h) if ok),
+                 default=math.inf) if math.isfinite(tol) else math.inf
+    return verdict, margin
+
+
+def faulty_path(name: str, exp: Experiment, dev) -> dict:
+    """The full-width faulty path driven as the train CLI drives it with
+    ``--log-every 2``: a ``RollbackGuard`` observes the validation loss at
+    the reference's log steps and keeps host snapshots.  Each guarded
+    reduction's verdict is held to the screen recomputed from scratch
+    (``_screen_from_scratch``) and timed between two CUDA events; after
+    step 4 a non-finite loss is observed in place of the real one, the
+    rollback must restore the step-2 snapshot bit for bit into the live
+    tensors and set ``retry`` to 1, and round 1 is rerun on its
+    ``(round, retry=1)`` masks.  Returns the launches of all six steps."""
+    run = build(exp, device=dev)
+    faults, robust = run.step.faults, exp.robustness
+    state = run.init(torch.Generator(device=dev)
+                     .manual_seed(exp.schedule.seed))
+    data = torch.Generator().manual_seed(exp.schedule.seed)
+    ring_bytes = robust.ring * _state_bytes(state)
+    free = _host_available()
+    if free < ring_bytes:
+        raise SystemExit(f"path {name}: the host has {free} B available, "
+                         f"{ring_bytes - free} B short of the rollback "
+                         f"ring's {ring_bytes} B ({robust.ring} snapshots)")
+    guard = RollbackGuard(robust)
+    calls = []
+    orig = flat._robust_mean_into
+
+    def checked(seg, w, corrupt, rob, verdicts=None):
+        want, margin = _screen_from_scratch(seg, w, corrupt, rob)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        got = []
+        start.record()
+        orig(seg, w, corrupt, rob, got)
+        end.record()
+        if got[0].tolist() != want:
+            raise SystemExit(f"path {name}: the screen decided "
+                             f"{got[0].tolist()}, recomputed from scratch "
+                             f"{want}")
+        verdicts.extend(got)
+        calls.append((margin, start, end))
+
+    local, steps = exp.schedule.local_steps, exp.schedule.steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    flat._robust_mean_into = checked
+    step_ms, shares, rounds, snap_s, margins = [], [], [], [], []
+    restore = None
+    t = 0
+    forced = False
+    try:
+        while t < steps:
+            n_calls = len(calls)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = run.step(state, run.batch_fn(data))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            shares.append(round(sum(s.elapsed_time(e) for _, s, e in
+                                    calls[n_calls:]) / step_ms[-1], 4))
+            margins += [mg for mg, _, _ in calls[n_calls:]]
+            t += 1
+            if t % local == 0:
+                if not all(bool(torch.isfinite(b).all())
+                           for b in state.vars + state.mom):
+                    raise SystemExit(f"path {name}: round {t // local - 1} "
+                                     f"left a non-finite state")
+                keep, nan, byz = metrics["faults"]
+                rounds.append({"round": t // local - 1,
+                               "retry": int(state.retry),
+                               "nan": nan.nonzero().flatten().tolist(),
+                               "byzantine": byz.nonzero().flatten().tolist(),
+                               "screened": metrics["screened"]})
+            if not (t % FAULT_LOG_EVERY == 0 or t == 1):
+                continue
+            loss = run.eval_fn(state)
+            if t == steps and not forced:
+                forced, real = True, loss
+                loss = math.nan
+                snap = guard._good[-1]
+                ptrs = [b.data_ptr() for b in state.vars + state.mom]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rb = guard.observe(t, state, data, loss)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if rb is None:
+                snap_s.append(round(secs, 3))
+                continue
+            t, state, _ = rb
+            # no name may hold this state past the next step, or the card
+            # holds two
+            del rb
+            if not (t == snap[0] == local and int(state.retry) == 1
+                    and [b.data_ptr() for b in state.vars + state.mom] == ptrs
+                    and all(same_bits(b.cpu(), h) for b, h in
+                            zip(state.vars + state.mom,
+                                snap[1].vars + snap[1].mom))):
+                raise SystemExit(f"path {name}: the rollback to step {t} did "
+                                 f"not restore the snapshot in place")
+            restore = (round(secs, 3), real)
+    finally:
+        flat._robust_mean_into = orig
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rerun = faults.round_masks(1, 1)
+    if rounds[-1]["retry"] != 1 or \
+            [rounds[-1]["nan"], rounds[-1]["byzantine"]] != \
+            [rerun[1].nonzero().flatten().tolist(),
+             rerun[2].nonzero().flatten().tolist()]:
+        raise SystemExit(f"path {name}: the rerun round {rounds[-1]} is not "
+                         f"the (round 1, retry 1) draw")
+    want = {**dict.fromkeys(launches, 0),
+            "storm3_step": len(state.vars) * len(step_ms)}
+    if launches != want or restore is None:
+        raise SystemExit(f"path {name} launched {launches}, expected {want}"
+                         f" (rollback {restore})")
+    val = run.eval_fn(state)
+    if not math.isfinite(val):
+        raise SystemExit(f"non-finite validation loss {val} on path {name}")
+    sizes = [f"{str(g.dtype).replace('torch.', '')}[{exp.problem.num_clients}"
+             f", {g.padded}]" for g in run.init.spec.groups]
+    held = sum(_state_bytes(snap[1]) for snap in guard._good)
+    log(f"path {name}: full-width {run.model_cfg.name} ("
+        f"{run.model_cfg.num_layers} layers), buffers {sizes}, "
+        f"steps {len(step_ms)} (4, then round 1 again), step ms "
+        f"{[round(x, 3) for x in step_ms]}, share of each step in the "
+        f"guarded reductions (CUDA events; each step's time includes the "
+        f"screen recomputed from scratch) {shares}, peak memory {peak} B, "
+        f"launches {launches}, val_loss {val}, on {card_line()}")
+    log(f"path {name}: rounds (injected NaN and byzantine clients, screened) "
+        f"{rounds}; every verdict the screen recomputed from scratch, least "
+        f"margin {min(margins):.3e} of tol; the state finite after every "
+        f"round")
+    log(f"path {name}: host snapshots at steps {[g[0] for g in guard._good]}"
+        f" held, {held} B of host memory ({robust.ring} × {held // 2} B), "
+        f"snapshot s {snap_s} (the first ones allocate, the last reuses the "
+        f"evicted one's host tensors); a non-finite loss observed at step "
+        f"{steps} in place of {restore[1]}: restored step {local} in "
+        f"{restore[0]} s into the live tensors bit for bit, retry 1, round "
+        f"1 rerun on its (1, 1) draws")
+    return launches
+
+
 def main_path(name: str, exp: Experiment, dev) -> dict:
     oracle_events = []
     over_clients = trainer._over_clients
@@ -1202,7 +1636,8 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
     val = run.eval_fn(state)
     sizes = [f"{str(g.dtype).replace('torch.', '')}[{clients}, {g.padded}]"
              for g in run.init.spec.groups]
-    log(f"path {name}: full-width {run.model_cfg.name}, buffers {sizes}, "
+    log(f"path {name}: full-width {run.model_cfg.name} ("
+        f"{run.model_cfg.num_layers} layers), buffers {sizes}, "
         f"steps {len(step_ms)}, step ms {[round(t, 3) for t in step_ms]}, "
         f"peak memory {peak} B, launches {launches}, "
         f"val_loss {val}")
@@ -1912,8 +2347,25 @@ def main() -> None:
                 **{"stragglers.late_policy": policy}), dev,
                 steps=2 * base.schedule.local_steps)
     cli_resume_phase()
+    base = bases[FAULTY]
+    for what, edits in (("clip", {}), ("trim", {"robustness.aggregator":
+                                                "trim"}),
+                        ("mean", {"robustness.aggregator": "mean"}),
+                        (f"clip, dropout_rate {FAULT_DROPOUT}",
+                         {"faults.dropout_rate": FAULT_DROPOUT}),
+                        ("robustness null", None)):
+        exp = (base.edit(**edits) if edits is not None else
+               dataclasses.replace(base, robustness=None))
+        fault_cross_check(f"{FAULTY} ({what})", exp, dev)
+    cli_fault_phase()
     for name, full in fulls.items():
-        launches = main_path(name, full, dev)
+        if name == FAULTY:
+            launches = faulty_path(name, full, dev)
+        elif name == STRAGGLED:
+            with _depth(STRAGGLER_LAYERS):
+                launches = main_path(name, full, dev)
+        else:
+            launches = main_path(name, full, dev)
         torch.cuda.empty_cache()
         for kname, k in kernels.items():
             k["launches"] += launches[kname]

@@ -79,8 +79,7 @@ def unported_features(exp: Experiment) -> list:
     algos, part = "queue 1, 'Remaining algorithms'", \
         "queue 1, 'Participation, staleness and cadence'"
     compress_rest = "queue 1, 'Compression, the rest'"
-    guards, shard = "queue 1, 'Faults, robustness and checkpoint " \
-        "hardening'", "queue 1, 'Sharded substrate'"
+    shard = "queue 1, 'Sharded substrate'"
     model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
     kernel_training = "queue 1, 'Training through the model kernels'"
     no_grad = ("the reference's train step cannot differentiate through its "
@@ -96,8 +95,6 @@ def unported_features(exp: Experiment) -> list:
         (exp.stragglers is not None and exp.compression is not None,
          "stragglers with compression: the participation-weighted "
          "compressed mean", compress_rest),
-        (exp.faults is not None, "faults", guards),
-        (exp.robustness is not None, "robustness", guards),
         (exp.telemetry is not None, "telemetry", "queue 1, 'Telemetry'"),
         (ex.mesh is not None, "execution.mesh", shard),
         (ex.overlap, "execution.overlap", shard),
@@ -176,7 +173,7 @@ def build(experiment: Experiment, *, device=None) -> Run:
         fuse_oracles=ex.fuse_oracles, fuse_storm=ex.fuse_storm,
         storm_block=ex.storm_block, compression=exp.compression,
         participation=participation, stragglers=exp.stragglers,
-        **factory_kw)
+        faults=exp.faults, robustness=exp.robustness, **factory_kw)
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

@@ -5,9 +5,10 @@ schema, version 1, so every committed ``experiments/*.json`` loads unchanged.
 The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
 reference's declarative tuples — same fields, same defaults; the ported
-layers' (``CompressionSpec``, ``ParticipationSpec``, ``StragglerSpec``) are
-their modules' own — so a spec that sets an unported one can be recognised
-and refused by :func:`repro_torch.api.build` until the layer is ported.
+layers' (``FaultSpec``, ``RobustnessSpec``, ``CompressionSpec``,
+``ParticipationSpec``, ``StragglerSpec``) are their modules' own — so a
+spec that sets an unported one can be recognised and refused by
+:func:`repro_torch.api.build` until the layer is ported.
 :meth:`Experiment.validate` makes every check of the reference's, in its
 order, for ported and unported layers alike, so a spec the reference
 refuses never reaches the feature refusals of build.
@@ -20,6 +21,8 @@ from dataclasses import dataclass, field, fields
 from typing import Any, NamedTuple, Optional, Tuple
 
 from repro_torch.federation.compression import QUANTS, CompressionSpec
+from repro_torch.federation.faults import (AGGREGATORS, FaultSpec,
+                                           RobustnessSpec)
 from repro_torch.federation.participation import SAMPLERS, ParticipationSpec
 from repro_torch.federation.stragglers import LATE_POLICIES, StragglerSpec
 
@@ -57,7 +60,6 @@ ALGORITHMS = {
 ARCH_NAMES = ("recurrentgemma-9b", "gemma2-2b", "mamba2-130m", "llama3-405b",
               "olmoe-1b-7b", "granite-3-8b", "hubert-xlarge",
               "granite-moe-1b-a400m", "internvl2-76b", "granite-8b")
-AGGREGATORS = ("mean", "clip", "trim")
 METRIC_GROUPS = ("norms", "drift", "compression", "health", "stragglers")
 
 
@@ -67,26 +69,6 @@ class SpecError(ValueError):
 
 def _err(fieldname: str, msg: str):
     raise SpecError(f"Experiment.{fieldname}: {msg}")
-
-
-class FaultSpec(NamedTuple):
-    dropout_rate: float = 0.0
-    nan_rate: float = 0.0
-    byzantine_rate: float = 0.0
-    byzantine_scale: float = 10.0
-    seed: int = 0
-    start_round: int = 0
-
-
-class RobustnessSpec(NamedTuple):
-    aggregator: str = "mean"
-    screen: bool = True
-    z_thresh: float = 3.0
-    clip_factor: float = 2.0
-    trim_frac: float = 0.2
-    spike_factor: float = 10.0
-    retry_budget: int = 3
-    ring: int = 2
 
 
 class TelemetrySpec(NamedTuple):

@@ -17,9 +17,10 @@ arrays) pair intact.  Manifests without an ``arrays`` key point at
 
 The engine's :class:`~repro_torch.optim.sequences.FlatState` is written as
 the reference's ``FlatState`` is: fields ``vars, mom, step, stale, retry,
-ef, deadline``, the step a 0-d int32 leaf, ``retry`` empty (the port has
-no fault engine).  The port's own field order (``vars, mom, step, ef,
-stale, deadline``) is mapped on save and load.
+ef, deadline``, the step a 0-d int32 leaf, ``retry`` the fault engine's
+0-d int32 retry counter (empty without faults).  The port's own field
+order (``vars, mom, step, ef, stale, deadline, retry``) is mapped on save
+and load.
 
 ``experiment=`` (an :class:`repro_torch.api.Experiment`) also writes
 ``<dir>/experiment.json``, so ``load_experiment(ckpt_dir)`` and
@@ -59,14 +60,15 @@ def _to_reference(tree):
     return _ReferenceFlatState(
         vars=tree.vars, mom=tree.mom,
         step=torch.tensor(tree.step, dtype=torch.int32), stale=tree.stale,
-        retry=(), ef=tree.ef, deadline=tree.deadline)
+        retry=tree.retry, ef=tree.ef, deadline=tree.deadline)
 
 
 def _from_reference(tree, like):
     if not isinstance(like, FlatState):
         return tree
     return FlatState(vars=tree.vars, mom=tree.mom, step=int(tree.step),
-                     ef=tree.ef, stale=tree.stale, deadline=tree.deadline)
+                     ef=tree.ef, stale=tree.stale, deadline=tree.deadline,
+                     retry=tree.retry)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

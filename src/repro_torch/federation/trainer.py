@@ -27,7 +27,12 @@ spec's ``over_provision``, the means average the arrivals only, and the
 late-arrival policy decides whether a straggler's rows are frozen; the
 compiled spec is recorded on ``init.stragglers`` /
 ``train_step.stragglers``, and each step's metrics carry the round's
-decision.
+decision.  Every factory takes ``faults=`` / ``robustness=`` (a
+``federation.faults.FaultSpec`` / ``RobustnessSpec``): each round injects
+the spec's dropout, NaN and byzantine sends, and the means health-screen
+and aggregate them robustly; the compiled faults and the robustness spec
+are recorded on ``train_step.faults`` / ``train_step.robustness``, and
+each step's metrics carry the round's fault masks and health verdicts.
 
 ``fuse_oracles`` picks the fused oracles (one shared linearization) or the
 separate ones (``grad_y``, ``nu_direction``, ``u_residual``;
@@ -50,6 +55,7 @@ from repro_torch.core.model_problem import (check_model_options,
                                             make_model_bilevel)
 from repro_torch.core.tree_util import (client_slice, tree_map, tree_stack,
                                         tree_zeros_like)
+from repro_torch.federation.faults import make_faults
 from repro_torch.federation.participation import make_participation
 from repro_torch.federation.stragglers import make_stragglers, over_provision
 from repro_torch.models.registry import Model
@@ -57,10 +63,11 @@ from repro_torch.optim import sequences as seqs
 from repro_torch.optim.sequences import FlatState
 
 
-# ``stale`` and ``deadline`` on every state: the per-client staleness
-# counters [M] int32 of a participation or straggler engine
-# (``FlatState.stale``) and the straggler engine's round deadline
-# (``FlatState.deadline``), each () without one.
+# ``stale``, ``deadline`` and ``retry`` on every state: the per-client
+# staleness counters [M] int32 of a participation or straggler engine
+# (``FlatState.stale``), the straggler engine's round deadline
+# (``FlatState.deadline``) and the fault engine's rollback retry counter
+# (``FlatState.retry``), each () without one.
 
 class FedBiOTrainState(NamedTuple):
     x: Any               # [M, ...] body
@@ -69,6 +76,7 @@ class FedBiOTrainState(NamedTuple):
     step: int
     stale: Any = ()
     deadline: Any = ()
+    retry: Any = ()
 
 
 class FedBiOAccTrainState(NamedTuple):
@@ -81,6 +89,7 @@ class FedBiOAccTrainState(NamedTuple):
     step: int
     stale: Any = ()
     deadline: Any = ()
+    retry: Any = ()
 
 
 class FedBiOAccLocalTrainState(NamedTuple):
@@ -91,6 +100,7 @@ class FedBiOAccLocalTrainState(NamedTuple):
     step: int
     stale: Any = ()
     deadline: Any = ()
+    retry: Any = ()
 
 
 class FedAvgTrainState(NamedTuple):
@@ -99,6 +109,7 @@ class FedAvgTrainState(NamedTuple):
     step: int
     stale: Any = ()
     deadline: Any = ()
+    retry: Any = ()
 
 
 def _bcast(tree, m: int):
@@ -201,19 +212,37 @@ def _straggler_setup(cfg: FederatedConfig, stragglers, participation):
             over_provision(stragglers, participation, cfg.num_clients))
 
 
+def _fault_setup(cfg: FederatedConfig, faults, robustness, fuse_storm: bool):
+    """Compile the fault spec (``federation.faults.make_faults``) and pass
+    the robustness policy through.  Fault injection and the robust
+    reductions live on the fused sequence-spec engine only, as in the
+    reference."""
+    if faults is None and robustness is None:
+        return None, None
+    if not fuse_storm:
+        raise ValueError(
+            "faults=/robustness= require fuse_storm=True — fault injection "
+            "and the robust reductions are features of the fused "
+            "sequence-spec engine")
+    return make_faults(faults, cfg.num_clients), robustness
+
+
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
                     init_trees, storm_block, to_state, compression=None,
-                    participation=None, stragglers=None):
+                    participation=None, stragglers=None, faults=None,
+                    robustness=None):
     """The fuse_storm=True (init, train_step) pair over the engine;
     ``to_state(vars, moms or None, step)`` builds the pytree state.  With
     stragglers, each step's metrics also carry the round's decision:
     ``arrivals`` ([M] f32 mask), ``deadline`` (effective),
-    ``deadline_next``, ``extensions`` and ``quorum``."""
+    ``deadline_next``, ``extensions`` and ``quorum``; with faults, the
+    round's ``faults`` masks and the reductions' ``health`` verdicts."""
     strag, participation = _straggler_setup(cfg, stragglers, participation)
     part = make_participation(participation, cfg.num_clients)
     engine = seqs.make_engine(cfg, aspec, templates, voracle,
                               block=storm_block, compression=compression,
-                              participation=part, stragglers=strag)
+                              participation=part, stragglers=strag,
+                              faults=faults, robustness=robustness)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
@@ -227,13 +256,15 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
     def views(state: FlatState):
         vt, mt = engine.views(state)
         return to_state(vt, mt, state.step)._replace(
-            stale=state.stale, deadline=state.deadline)
+            stale=state.stale, deadline=state.deadline, retry=state.retry)
 
     for fn in (init, train_step):
         fn.spec = engine.spec
         fn.views = views
         fn.participation = part
         fn.stragglers = strag
+        fn.faults = faults
+        fn.robustness = robustness
     return init, train_step
 
 
@@ -249,10 +280,11 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               fuse_oracles: bool = False,
                               storm_block: int | None = None,
                               compression=None, participation=None,
-                              stragglers=None):
+                              stragglers=None, faults=None, robustness=None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
+    fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -266,7 +298,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation, stragglers)
+                           participation, stragglers, fault, robust)
 
 
 @register("fedbio", seqs.SPECS["fedbio"])
@@ -278,9 +310,10 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_oracles: bool = False,
                            storm_block: int | None = None,
                            compression=None, participation=None,
-                           stragglers=None):
+                           stragglers=None, faults=None, robustness=None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
+    fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -293,7 +326,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation, stragglers)
+                           participation, stragglers, fault, robust)
 
 
 @register("fedbio_local", seqs.SPECS["fedbio_local"])
@@ -305,11 +338,13 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  fuse_oracles: bool = False,
                                  storm_block: int | None = None,
                                  compression=None, participation=None,
-                                 stragglers=None):
+                                 stragglers=None, faults=None,
+                                 robustness=None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
     the body x is averaged."""
+    fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -324,7 +359,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
                            voracle, init_trees, storm_block, to_state,
-                           compression, participation, stragglers)
+                           compression, participation, stragglers,
+                           fault, robust)
 
 
 @register("fedbioacc_local", seqs.SPECS["fedbioacc_local"],
@@ -339,12 +375,14 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
                                     fuse_oracles: bool = False,
                                     storm_block: int | None = None,
                                     compression=None, participation=None,
-                                    stragglers=None):
+                                    stragglers=None, faults=None,
+                                    robustness=None):
     """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
     private lower problems.  The heads y and their momenta ω are the
     PRIVATE section, never reduced; the body x and its momentum ν are
     averaged; one fused ``storm3_step`` launch per dtype buffer between the
     two evaluations of the (Φ, ω) oracle pair."""
+    fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -358,7 +396,8 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc_local"], templates,
                            voracle, init_trees, storm_block, to_state,
-                           compression, participation, stragglers)
+                           compression, participation, stragglers,
+                           fault, robust)
 
 
 @register("fedavg", seqs.SPECS["fedavg"], hparams={"momentum": 0.9})
@@ -370,10 +409,11 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_oracles: bool = False,   # one oracle: no-op
                            storm_block: int | None = None,
                            compression=None, participation=None,
-                           stragglers=None):
+                           stragglers=None, faults=None, robustness=None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
+    fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
     _require_fused_storm(fuse_storm)
     check_model_options(n_micro, remat, use_flash, use_lru_kernel)
     M = cfg.num_clients
@@ -393,4 +433,5 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     aspec = seqs.SPECS["fedavg"]._replace(beta=momentum)
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
-                           to_state, compression, participation, stragglers)
+                           to_state, compression, participation, stragglers,
+                           fault, robust)

@@ -22,23 +22,40 @@ checkpoint, so a resume needs no re-specified flags.
         --ckpt-every 2
     PYTHONPATH=src python -m repro_torch.launch.train --resume D
 
+    # supervised: a crash restarts the run from the latest checkpoint
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --experiment experiments/fedbioacc_faulty.json --ckpt-dir D \
+        --ckpt-every 2 --max-restarts 2
+
 The run goes on the card (``--device cuda``, the default; without a card it
 stops unless ``--device cpu`` is given).  The device is a run knob, never
 part of the spec: a checkpoint written on the card resumes on the CPU and
 the other way round.  One JSON line ``{"step", "val_loss", "wall_s"}`` is
-printed per log interval; with stragglers the line also carries that step's
-round: ``arrivals`` (the clients that beat the deadline) and ``deadline``
-(the effective one, in simulated seconds).
+printed per log interval (and one at the last step); with stragglers the
+line also carries that step's round: ``arrivals`` (the clients that beat
+the deadline) and ``deadline`` (the effective one, in simulated seconds);
+with faults, the clients the step's round injected (``nan``,
+``byzantine``) and, with the health screen, those its reductions screened
+out (``screened``).
+
+Fault tolerance (``repro_torch.federation.faults``): with
+``experiment.robustness`` set, the loop snapshots last-known-good states
+(host copies, ``robustness.ring`` of them) at the reference's log steps
+and rolls back on a non-finite or spiking eval loss, printing
+``{"rollback_to", "retry", "bad_loss"}`` and redrawing the retried rounds'
+batches and fault masks, until ``retry_budget`` is spent: then it writes
+a diagnostic checkpoint to ``<ckpt-dir>/diagnostic`` and exits non-zero,
+naming the round.  Without it a non-finite eval loss does the same at
+once.  ``--max-restarts N`` supervises the run in a subprocess and
+resumes it from the latest checkpoint after a crash, up to N times
+(``--crash-at-step`` hard-exits, code 17, after that step of a fresh run,
+to test it).
 
 A checkpoint holds the raw train state (``FlatState``), the embedded spec
-and the metadata ``step``, ``arch``, ``retries`` (0: the port has no
-rollback yet) and ``data_gen``: the exact state of the CPU
-``torch.Generator`` that draws the batches, restored on resume (the
-reference records its JAX batch key instead, so a reference checkpoint
-cannot be resumed by this CLI).  A non-finite validation loss writes a
-diagnostic checkpoint to ``<ckpt-dir>/diagnostic`` and exits non-zero,
-naming the round.  ``--crash-at-step`` hard-exits (code 17) after that
-step of a fresh run, for testing resumes.
+and the metadata ``step``, ``arch``, ``retries`` (the rollbacks taken) and
+``data_gen``: the exact state of the CPU ``torch.Generator`` that draws
+the batches, restored on resume (the reference records its JAX batch key
+instead, so a reference checkpoint cannot be resumed by this CLI).
 """
 from __future__ import annotations
 
@@ -46,11 +63,15 @@ import argparse
 import json
 import math
 import os
+import subprocess
+import sys
 import time
+import zlib
 
 import torch
 
-from repro_torch.api import Experiment, SpecError, build
+from repro_torch.api import (Experiment, RollbackError, RollbackGuard,
+                             SpecError, build)
 from repro_torch.api.spec import ARCH_NAMES
 from repro_torch.checkpoint import (checkpoint_metadata, load_checkpoint,
                                     load_experiment, save_checkpoint)
@@ -86,7 +107,8 @@ _FLAG_PATHS = {
 }
 # run knobs: never part of the spec or the trajectory
 _RUN_KNOBS = {"experiment", "resume", "ckpt_dir", "ckpt_every",
-              "log_every", "crash_at_step", "device"}
+              "log_every", "max_restarts", "restart_backoff", "crash_at_step",
+              "device"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -162,9 +184,17 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--max-restarts", type=int, default=0,
+                    help="supervise the run in a subprocess and resume it "
+                         "from the latest --ckpt-dir checkpoint after a "
+                         "crash, up to N times (requires --ckpt-dir)")
+    ap.add_argument("--restart-backoff", type=float, default=1.0,
+                    help="base seconds between restart attempts (doubles "
+                         "each retry)")
     ap.add_argument("--crash-at-step", type=int, default=0,
                     help="testing: hard-exit (code 17) after this step of a "
-                         "fresh run (inert on --resume)")
+                         "fresh run (inert on --resume, so a supervised "
+                         "restart runs to completion)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; not part of the spec")
     return ap
@@ -252,6 +282,56 @@ def _strip_flag(argv: list, flag: str) -> list:
     return out
 
 
+_RESTART_WAIT_CAP = 60.0   # seconds: a supervised restart never sleeps longer
+
+
+def _restart_wait(backoff: float, attempt: int, token: str = "") -> float:
+    """Bounded exponential backoff with deterministic jitter: the wait
+    ``backoff · 2**attempt`` is capped at :data:`_RESTART_WAIT_CAP`, then
+    spread by a ±25 % factor from ``crc32(token:attempt)`` (reproducible,
+    and different across checkpoint directories, so that supervisors do
+    not restart in lockstep), the result capped again."""
+    base = min(backoff * (2 ** attempt), _RESTART_WAIT_CAP)
+    frac = zlib.crc32(f"{token}:{attempt}".encode()) % 1000 / 999.0
+    return min(base * (0.75 + 0.5 * frac), _RESTART_WAIT_CAP)
+
+
+def _supervise(ns, raw_argv: list) -> list:
+    """--max-restarts: run the train loop in a child process (the same
+    flags, ``--device`` included, the supervisor's own stripped), resuming
+    from the latest --ckpt-dir checkpoint after each crash (non-zero exit)
+    until it succeeds or the restart budget runs out."""
+    if not ns.ckpt_dir:
+        raise SystemExit("--max-restarts requires --ckpt-dir (restarts "
+                         "resume from the latest checkpoint)")
+    base = raw_argv
+    for flag in ("--max-restarts", "--restart-backoff"):
+        base = _strip_flag(base, flag)
+    for attempt in range(ns.max_restarts + 1):
+        child = list(base)
+        if attempt:
+            # the crash knob fires only on fresh runs, but a retry that
+            # crashed before its first checkpoint is fresh
+            child = _strip_flag(child, "--crash-at-step")
+            if os.path.exists(os.path.join(ns.ckpt_dir, "manifest.json")):
+                child = _strip_flag(child, "--resume")
+                child += ["--resume", ns.ckpt_dir]
+        rc = subprocess.call([sys.executable, "-m",
+                              "repro_torch.launch.train", *child])
+        if rc == 0:
+            return []
+        if attempt < ns.max_restarts:
+            wait = _restart_wait(ns.restart_backoff, attempt,
+                                 ns.ckpt_dir or "")
+            print(f"run crashed (exit {rc}); restart "
+                  f"{attempt + 1}/{ns.max_restarts} in {wait:.1f}s",
+                  flush=True)
+            time.sleep(wait)
+    raise SystemExit(f"run still crashing after {ns.max_restarts} "
+                     f"restarts (last exit {rc}) — inspect "
+                     f"{ns.ckpt_dir}/diagnostic or the traceback above")
+
+
 def _gen_state(gen: torch.Generator) -> str:
     return bytes(gen.get_state().tolist()).hex()
 
@@ -272,8 +352,25 @@ def _diagnostic_checkpoint(ns, state, step: int, exp) -> None:
     print(f"diagnostic checkpoint -> {d}", flush=True)
 
 
+def _fault_fields(metrics) -> dict:
+    """The JSON line's fault fields of a step: the clients its round
+    injected and, with the health screen, those its reductions screened
+    out."""
+    out = {}
+    if "faults" in metrics:
+        _, nan, byz = metrics["faults"]
+        out.update(nan=nan.nonzero().flatten().tolist(),
+                   byzantine=byz.nonzero().flatten().tolist())
+    if "screened" in metrics:
+        out["screened"] = metrics["screened"]
+    return out
+
+
 def main(argv=None):
     ns = _parser().parse_args(argv)
+    if ns.max_restarts > 0:
+        return _supervise(ns, list(argv) if argv is not None
+                          else sys.argv[1:])
     # SUPPRESS-defaulted flags exist on the namespace only when passed
     overrides = {k: v for k, v in vars(ns).items() if k not in _RUN_KNOBS}
     exp, start = _resolve_experiment(ns, overrides)
@@ -311,6 +408,8 @@ def main(argv=None):
               f"quorum={sg.quorum} over_provision={sg.over_provision} "
               f"tail={sg.tail}", flush=True)
 
+    guard = (RollbackGuard(exp.robustness) if exp.robustness is not None
+             else None)
     state = run.init(torch.Generator(device=run.device)
                      .manual_seed(exp.schedule.seed))
     data_gen = torch.Generator().manual_seed(exp.schedule.seed)
@@ -318,19 +417,42 @@ def main(argv=None):
         # copied in place into init's tensors: no second copy of the state
         state = load_checkpoint(ns.resume, state)
         _set_gen_state(data_gen, md["data_gen"])
+        if guard is not None:
+            guard.retries = int(md.get("retries", 0))
         print(f"resumed from {ns.resume} @ step {start}", flush=True)
 
     history = []
     t0 = time.perf_counter()
-    for t in range(start + 1, exp.schedule.steps + 1):
+    t = start
+    while t < exp.schedule.steps:
         state, metrics = run.step(state, run.batch_fn(data_gen))
-        if t % ns.log_every == 0 or t == start + 1 or t == exp.schedule.steps:
+        t += 1
+        # the reference's evaluation steps; the port also prints the last
+        # step's loss, which feeds nothing
+        is_log = t % ns.log_every == 0 or t == start + 1
+        if is_log or t == exp.schedule.steps:
             loss = run.eval_fn(state)
-            if not math.isfinite(loss):
+            if guard is not None and is_log:
+                try:
+                    rb = guard.observe(t, state, data_gen, loss)
+                except RollbackError as e:
+                    _diagnostic_checkpoint(ns, state, t, exp)
+                    raise SystemExit(f"round {t}: {e}")
+                if rb is not None:
+                    t, state, _ = rb
+                    # else the tuple keeps this state on the device after
+                    # the next step has replaced it
+                    del rb
+                    print(json.dumps({"rollback_to": t,
+                                      "retry": guard.retries,
+                                      "bad_loss": loss}), flush=True)
+                    continue
+            elif guard is None and not math.isfinite(loss):
                 _diagnostic_checkpoint(ns, state, t, exp)
                 raise SystemExit(
                     f"non-finite eval loss ({loss}) at round {t}: training "
-                    f"diverged — inspect the diagnostic checkpoint or lower "
+                    f"diverged — inspect the diagnostic checkpoint, enable "
+                    f"robustness guards (experiment.robustness), or lower "
                     f"the learning rates")
             history.append({"step": t, "val_loss": loss,
                             "wall_s": round(time.perf_counter() - t0, 3)})
@@ -338,14 +460,17 @@ def main(argv=None):
                 history[-1].update(
                     arrivals=metrics["arrivals"].nonzero().flatten().tolist(),
                     deadline=metrics["deadline"])
+            history[-1].update(_fault_fields(metrics))
             print(json.dumps(history[-1]), flush=True)
         if ns.ckpt_dir and t % ns.ckpt_every == 0:
             # the raw state and the embedded spec: --resume rebuilds the
             # structure from the spec alone; the generator's state makes
-            # the batches that follow the uninterrupted run's
+            # the batches that follow the uninterrupted run's, and the
+            # retry count those after a rollback
             save_checkpoint(ns.ckpt_dir, state,
                             {"step": t, "arch": run.model_cfg.name,
-                             "retries": 0, "data_gen": _gen_state(data_gen)},
+                             "retries": guard.retries if guard else 0,
+                             "data_gen": _gen_state(data_gen)},
                             experiment=exp)
             print(f"checkpoint @ step {t} -> {ns.ckpt_dir}", flush=True)
         if ns.crash_at_step and start == 0 and t == ns.crash_at_step:

@@ -13,12 +13,13 @@ mean.  The layout is the JAX package's, element for element:
   per-section (lr, decay) scalars become per-tile tables for the kernel);
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
-Only the unsharded layout (``shards=1``) and the fault-free reductions are
-ported so far: exact means, unweighted or weighted by participation
-(``weights=``), and unweighted compressed means (:class:`CompressCfg`: bf16
-or per-tile int8 quantization, per-tile top-k with per-client error
-feedback).  The fused launches take a participation ``mask=``, which gates
-their tile tables (:func:`_gate`).
+Only the unsharded layout (``shards=1``) is ported so far, with exact
+means, unweighted or weighted by participation (``weights=``), unweighted
+compressed means (:class:`CompressCfg`: bf16 or per-tile int8
+quantization, per-tile top-k with per-client error feedback) and the
+guarded reductions of the fault layer (``corrupt=``, ``robust=``:
+:class:`RobustCfg`, :func:`_robust_mean_into`).  The fused launches take
+a participation ``mask=``, which gates their tile tables (:func:`_gate`).
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
 into the buffers it is given (the engine always passes buffers it has just
@@ -349,16 +350,199 @@ def _bcast_mean(x, w=None):
     out = torch.empty_like(flat_x)
     for a in range(0, flat_x.shape[1], _CHUNK):
         seg = flat_x[:, a:a + _CHUNK]
-        acc = torch.zeros(seg.shape[1], dtype=torch.float32, device=x.device)
-        for i in range(m):
-            acc = (acc.double() + seg[i].double() * c[i]).float()
-        mean = (acc * inv).to(x.dtype)
+        mean = (_weighted_sum(seg, c) * inv).to(x.dtype)
         out[:, a:a + _CHUNK] = torch.where(keep, mean[None], seg)
     return out.reshape(x.shape)
 
 
 def _inv(m: int, device) -> torch.Tensor:
     return torch.tensor(1.0 / m, dtype=torch.float32, device=device)
+
+
+def _weighted_sum(seg, c):
+    """Σ_m seg_m · c_m over the leading axis, in f32, as the compiled
+    reference sums ``x · col``: one rounding per client, in client order
+    (see :func:`_bcast_mean`); ``c`` [M] f64 on ``seg``'s device."""
+    acc = torch.zeros(seg.shape[1], dtype=torch.float32, device=seg.device)
+    for i in range(seg.shape[0]):
+        acc = (acc.double() + seg[i].double() * c[i]).float()
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Guarded communication: fault injection and robust aggregation
+# ---------------------------------------------------------------------------
+
+class RobustCfg(NamedTuple):
+    """Robust-reduction policy of :func:`client_mean_masked` (the substrate
+    half of ``repro_torch.federation.faults.RobustnessSpec``, lowered by
+    ``sequences.make_engine``).
+
+    ``screen`` enables the per-client health mask: a participant is healthy
+    iff its row as sent is all-finite and its norm lies within ``z_thresh``
+    standard deviations of the finite participants' mean norm
+    (``z_thresh <= 0`` keeps the finite check only).  ``aggregator``:
+    ``"mean"`` (the participants-only weighted mean over healthy rows, with
+    the unguarded path's arithmetic, so an all-healthy round reproduces it
+    bit for bit), ``"clip"`` (each healthy row scaled to at most
+    ``clip_factor`` × the healthy participants' weighted mean norm, then
+    the mean) or ``"trim"`` (the coordinate-wise ``trim_frac``-trimmed mean
+    over healthy rows)."""
+    aggregator: str = "mean"
+    screen: bool = True
+    z_thresh: float = 3.0
+    clip_factor: float = 2.0
+    trim_frac: float = 0.2
+
+
+def _rows(v, x):
+    """[M] → an [M, 1] column on ``x``'s device."""
+    return v.to(x.device).reshape(-1, 1)
+
+
+def _corrupt_rows(x, corrupt):
+    """The round's fault transform of what the clients send into one
+    reduction: ``corrupt = (nan, byz, scale)`` with [M] {0, 1} masks; byz
+    rows are scaled in the rows' dtype, nan rows replaced wholesale.
+    ``where`` selects, so unfaulted rows pass through bit for bit."""
+    if corrupt is None:
+        return x
+    nan, byz, scale = corrupt
+    x = torch.where(_rows(byz, x) > 0,
+                    x * torch.tensor(scale, dtype=x.dtype, device=x.device), x)
+    return torch.where(_rows(nan, x) > 0,
+                       torch.tensor(math.nan, dtype=x.dtype, device=x.device),
+                       x)
+
+
+def _sent(x0, w, corrupt):
+    """The rows as sent: corrupted, except a zero-weight client's, which
+    sends nothing (its faults never reach the round)."""
+    x = _corrupt_rows(x0, corrupt)
+    if w is None or corrupt is None:
+        return x
+    return torch.where(_rows(w, x) > 0, x, x0)
+
+
+def _row_stats(x0, w, corrupt):
+    """Per client, over the whole run as sent: (all entries finite, Σ x²),
+    in a pass over column chunks so that no [M, N] temporary outlives one
+    chunk.  The squares are taken in f32 and summed in f64 (the reference's
+    f32 sum runs in XLA's order, which is not reproduced); both on the
+    host."""
+    m = x0.shape[0]
+    finite = torch.ones(m, dtype=torch.bool, device=x0.device)
+    sq = torch.zeros(m, dtype=torch.float64, device=x0.device)
+    for a in range(0, x0.shape[1], _CHUNK):
+        x = _sent(x0[:, a:a + _CHUNK], w, corrupt).to(torch.float32)
+        finite &= torch.isfinite(x).all(dim=1)
+        sq += x.square().sum(dim=1, dtype=torch.float64)
+    return finite.cpu(), sq.cpu()
+
+
+def _health_stats(finite, sq, p, robust: RobustCfg):
+    """The health screen's verdict [M] f32 (1 = healthy participant) and
+    its statistics ``(n, mu, tol)`` (None with ``z_thresh <= 0``): a
+    participant with a finite row is healthy when its norm ``n`` lies
+    within ``tol = z·sd + 1e-4·mu + 1e-12`` of the finite participants'
+    mean norm ``mu`` (``sd`` their standard deviation); excluded rows count
+    with norm 0.  The reference's ``_health_mask``, in f32 on the host."""
+    h = p & finite
+    if robust.z_thresh <= 0:
+        return h.to(torch.float32), None
+    n = torch.where(h, sq, 0.0).to(torch.float32).sqrt()
+    hf = h.to(torch.float32)
+    cnt = torch.clamp_min(hf.sum(), 1.0)
+    mu = (n * hf).sum() / cnt
+    sd = ((n - mu).square() * hf).sum().div(cnt).sqrt()
+    # relative tolerance: an all-equal-norm round has sd = 0 and must not
+    # screen everyone out over rounding in |n − mu|
+    tol = robust.z_thresh * sd + 1e-4 * mu + 1e-12
+    return (h & ((n - mu).abs() <= tol)).to(torch.float32), (n, mu, tol)
+
+
+def _clip_scale(sq, hf, w_eff, clip_factor: float):
+    """Per-client clip factors [M] f32: ``min(1, tau / n)`` with ``n`` the
+    norm of each healthy row (0 otherwise) and ``tau = clip_factor ×`` the
+    healthy participants' weighted mean norm."""
+    n = torch.where(hf > 0, sq.to(torch.float32).sqrt(),
+                    torch.zeros((), dtype=torch.float32))
+    wsum = torch.clamp_min(w_eff.sum(), 1e-12)
+    tau = clip_factor * ((n * w_eff).sum() / wsum)
+    return torch.minimum(torch.ones(()),
+                         tau / torch.maximum(n, torch.tensor(1e-12)))
+
+
+def _trim_bounds(nh: torch.Tensor, trim_frac: float, m: int):
+    """(first kept, one past the last kept sorted position, divisor) of
+    the trimmed mean over ``nh`` healthy rows sorted to the front: positions
+    [k, nh − k) survive, k clamped so that one row always does."""
+    k = torch.minimum(torch.floor(trim_frac * nh),
+                      torch.clamp_min(torch.floor((nh - 1.0) / 2.0), 0.0))
+    return (int(k), min(int(nh - k), m),
+            torch.clamp_min(nh - 2.0 * k, 1.0))
+
+
+def _robust_mean_into(seg, w, corrupt, robust: RobustCfg | None,
+                      verdicts: list | None = None) -> None:
+    """Fault- and robustness-aware participant mean of one communicated run
+    [M, L], written into ``seg`` in place.
+
+    The fault transform applies to what the clients send (:func:`_sent`).
+    With ``robust=None`` this is the unguarded faulty mean: corrupted rows
+    enter the sum and poison every participant.  With a
+    :class:`RobustCfg`, a first pass over column chunks takes each row's
+    finiteness and squared norm (:func:`_row_stats`), the screen decides
+    the healthy senders on the host (:func:`_health_stats`), and a second
+    pass writes the chosen aggregate chunk by chunk: unhealthy senders are
+    left out of it and then recovered (they receive the aggregate), while
+    non-participants keep their rows; if no healthy weight remains, every
+    row stays as it was.  ``verdicts``: a list that gets the screen's
+    health mask [M] (1 = healthy participant) of this run."""
+    m = seg.shape[0]
+    if robust is None:
+        for a in range(0, seg.shape[1], _CHUNK):
+            s = seg[:, a:a + _CHUNK]
+            s.copy_(_bcast_mean(_sent(s, w, corrupt), w))
+        return
+    wv = torch.ones(m) if w is None else w.to(torch.float32).cpu()
+    p = wv > 0
+    stats = (_row_stats(seg, w, corrupt)
+             if robust.screen or robust.aggregator == "clip" else None)
+    hf = (_health_stats(*stats, p, robust)[0] if robust.screen
+          else p.to(torch.float32))
+    if verdicts is not None and robust.screen:
+        verdicts.append(hf)
+    w_eff = wv * hf
+    if not bool(w_eff.sum() > 0):
+        return
+    keep = _rows(p, seg)
+    healthy = _rows(hf, seg) > 0
+    if robust.aggregator == "trim":
+        lo, hi, div = _trim_bounds(hf.sum(), robust.trim_frac, m)
+        div = div.to(seg.device)
+    else:
+        # the unguarded path's _weight_col arithmetic: an all-healthy round
+        # (w_eff = wv bit for bit) reproduces it
+        c = _weight_col(seg, w_eff).to(device=seg.device,
+                                       dtype=torch.float64)
+        inv = _inv(m, seg.device)
+        if robust.aggregator == "clip":
+            scale = _rows(_clip_scale(stats[1], hf, w_eff,
+                                      robust.clip_factor), seg).to(seg.dtype)
+    zero = torch.zeros((), dtype=seg.dtype, device=seg.device)
+    for a in range(0, seg.shape[1], _CHUNK):
+        s = seg[:, a:a + _CHUNK]
+        xh = torch.where(healthy, _sent(s, w, corrupt), zero)
+        if robust.aggregator == "trim":
+            xs = torch.where(healthy, xh.to(torch.float32), math.inf)
+            xs = torch.sort(xs, dim=0).values
+            mean = xs[lo:hi].sum(dim=0) / div
+        else:
+            if robust.aggregator == "clip":
+                xh = xh * scale
+            mean = _weighted_sum(xh, c) * inv
+        s.copy_(torch.where(keep, mean.to(seg.dtype)[None], s))
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +638,8 @@ def _section_runs(grp: _Group, modes, comp_of_sec=None):
 
 
 def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
-                       compress=None, ef=None):
+                       corrupt=None, robust: RobustCfg | None = None,
+                       verdicts: list | None = None, compress=None, ef=None):
     """Section-masked client communication over flat [M, N] buffers, in
     place: every ``"mean"`` run is replaced by its client mean, ``"none"``
     (private) runs are not touched.  Returns ``bufs``.
@@ -469,12 +654,26 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
     mean of :func:`_compressed_mean`, whole-run, and the call returns
     ``(bufs, ef)``: the updated per-client error-feedback buffers, one f32
     [M, N] buffer per dtype group (pass the current ones as ``ef=``), or
-    ``()`` when ``compress.has_ef`` is false.  The weighted compressed mean,
-    faults, robust aggregators, the grouped mean and sharding are not
-    ported yet."""
+    ``()`` when ``compress.has_ef`` is false.
+
+    ``corrupt``: the round's ``(nan, byz, scale)`` fault masks ([M] {0, 1}
+    tensors and a scalar), applied to what the clients send into each
+    ``"mean"`` run (:func:`_corrupt_rows`).  ``robust``: a
+    :class:`RobustCfg`: health-screen the senders and reduce with its
+    aggregator (:func:`_robust_mean_into`), the screen's statistics over
+    each whole run; ``verdicts`` (a list) then gets each run's health mask.
+    Neither composes with compression.  The weighted compressed mean, the
+    grouped mean and sharding are not ported yet."""
     n_sections = max(len(spec.sections), 1)
     if len(modes) != n_sections:
         raise ValueError(f"modes {modes} do not match sections {spec.sections}")
+    guarded = corrupt is not None or robust is not None
+    if guarded and any(m not in ("none", "mean") for m in modes):
+        raise ValueError(f"corrupt=/robust= do not compose with grouped "
+                         f"(hierarchical) means: modes {modes}")
+    if guarded and compress is not None:
+        raise ValueError("compress= does not compose with corrupt=/robust= "
+                         "(the guarded reductions consume raw client rows)")
     if any(m not in ("none", "mean") for m in modes):
         raise NotImplementedError(
             f"modes {modes}: only 'none' and 'mean' are ported; the grouped "
@@ -502,6 +701,9 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
             if mode == "none":
                 continue
             seg = buf[..., start:stop]
+            if guarded:
+                _robust_mean_into(seg, weights, corrupt, robust, verdicts)
+                continue
             if not comp:
                 seg.copy_(_bcast_mean(seg, weights))
                 continue

@@ -22,7 +22,11 @@ participants only, and per-client staleness counters on ``FlatState.stale``
 age returning clients' weights by α^k) and stragglers (``stragglers=``:
 each round's arrival set, decided on the host against the deadline on
 ``FlatState.deadline``, narrows the mean to the arrivals and, under the
-``drop`` and ``cancel`` policies, the launch mask too); no faults,
+``drop`` and ``cancel`` policies, the launch mask too) and faults
+(``faults=``: each round's ``(keep, nan, byz)`` masks, drawn on the host
+from the round and the retry count on ``FlatState.retry``; ``keep``
+narrows the launch mask and the weights, and the corruption and
+``robustness=``'s guarded reductions act inside both means); no
 telemetry, sharding or per-sequence cadences.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
@@ -151,13 +155,17 @@ def advance_stale(cfg, step: int, mask, stale):
 
 
 def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
-                 weights=None, compress=None, ef=()):
+                 weights=None, corrupt=None, robust=None, verdicts=None,
+                 compress=None, ef=()):
     """Apply the per-section policies to flat [M, N] buffers at a
     communication step: one masked reduction per communicated run, private
     sections untouched.  Other steps return ``bufs`` as they are.
 
     ``weights``: participation weights [M] (or None): the means are over
     participants only.
+    ``corrupt`` / ``robust`` / ``verdicts``: the round's fault transform,
+    the :class:`flat.RobustCfg` and a list for the health verdicts, as
+    :func:`flat.client_mean_masked` takes them.
     ``compress`` / ``ef``: a :class:`flat.CompressCfg` and the current
     error-feedback buffers; with ``compress`` set the call returns
     ``(bufs, ef)``, and a step that does not communicate leaves both as
@@ -172,7 +180,9 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
     if not is_comm or all(m == "none" for m in modes):
         return bufs if compress is None else (bufs, ef)
     return flat.client_mean_masked(spec, bufs, modes, weights=weights,
-                                   compress=compress, ef=ef)
+                                   corrupt=corrupt, robust=robust,
+                                   verdicts=verdicts, compress=compress,
+                                   ef=ef)
 
 
 class FlatState(NamedTuple):
@@ -185,23 +195,34 @@ class FlatState(NamedTuple):
     missed since the last participation or arrival: an [M] int32 CPU tensor
     when participation or stragglers are attached, ``()`` otherwise), and
     the adaptive round deadline of the straggler engine (a 0-d f32 CPU
-    tensor, moved once a round by the EMA; ``()`` without stragglers)."""
+    tensor, moved once a round by the EMA; ``()`` without stragglers), and
+    the rollback retry counter of the fault engine (a 0-d int32 CPU tensor,
+    folded into the fault draws and set by ``RollbackGuard``; ``()``
+    without faults).  ``retry`` comes last so that positional
+    constructions and ``checkpoint/io.py``'s field mapping keep their
+    order."""
     vars: Any
     mom: Any
     step: int
     ef: Any = ()
     stale: Any = ()
     deadline: Any = ()
+    retry: Any = ()
 
 
 class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
-    step=0, ef=None, stale=None, deadline=None)``, ``step(state, batch,
-    metrics=None) -> state`` and ``views(state) -> (var_dict, mom_dict)``
-    (``mom_dict`` None without momentum).  With stragglers, ``step``
-    writes the round's decision into ``metrics`` when given a dict:
-    ``arrivals`` ([M] f32 host mask), ``deadline`` (effective),
-    ``deadline_next``, ``extensions`` and ``quorum``."""
+    step=0, ef=None, stale=None, deadline=None, retry=None)``,
+    ``step(state, batch, metrics=None) -> state`` and ``views(state) ->
+    (var_dict, mom_dict)`` (``mom_dict`` None without momentum).  With
+    stragglers, ``step`` writes the round's decision into ``metrics`` when
+    given a dict: ``arrivals`` ([M] f32 host mask), ``deadline``
+    (effective), ``deadline_next``, ``extensions`` and ``quorum``; with
+    faults, the round's ``faults`` (the ``(keep, nan, byz)`` host masks)
+    and, with the health screen, ``health``: the verdict [M] (1 = healthy
+    participant) of each guarded reduction of the step, in order, and
+    ``screened``: the participants that any of them screened out (both
+    empty at a step that does not communicate)."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
     init_state: Any
@@ -248,9 +269,23 @@ def _compress_cfg(cfg, aspec: AlgoSpec, compression):
                             sections=csecs)
 
 
+def _robust_cfg(robustness):
+    """Lower a ``RobustnessSpec`` to the substrate's :class:`flat.RobustCfg`
+    (the reference's check)."""
+    rcfg = flat.RobustCfg(
+        aggregator=robustness.aggregator, screen=robustness.screen,
+        z_thresh=robustness.z_thresh, clip_factor=robustness.clip_factor,
+        trim_frac=robustness.trim_frac)
+    if rcfg.aggregator not in ("mean", "clip", "trim"):
+        raise ValueError(f"unknown robust aggregator "
+                         f"{rcfg.aggregator!r} (mean|clip|trim)")
+    return rcfg
+
+
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 block: int | None = None, compression=None,
-                participation=None, stragglers=None) -> Engine:
+                participation=None, stragglers=None, faults=None,
+                robustness=None) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
@@ -280,14 +315,34 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
     age every client that did not arrive (``cancel``: that was not
     sampled).  The deadline moves once a round, at the communication
     step.  Each step writes its round's decision into the ``metrics`` dict
-    it is given (see :class:`Engine`)."""
+    it is given (see :class:`Engine`).
+
+    ``faults``: a compiled :class:`~repro_torch.federation.faults.Faults`
+    (or None): each round draws ``(keep, nan, byz)`` from its index and
+    ``FlatState.retry``; ``keep`` multiplies into the launch mask, the
+    weights and the staleness mask after the participation and straggler
+    steps (a dropped client is frozen like a non-participant), and
+    ``(nan, byz, byzantine_scale)`` corrupts what the clients send into
+    both means.  ``robustness``: a ``RobustnessSpec`` (or None): both means
+    health-screen the senders and reduce with its aggregator."""
     if aspec.kind not in ("storm", "sgd"):
         raise ValueError(f"unknown engine kind {aspec.kind!r}")
+    rcfg = None if robustness is None else _robust_cfg(robustness)
+    if (faults is not None or rcfg is not None) and cfg.hierarchy_period > 0:
+        raise ValueError(
+            "faults=/robustness= do not compose with the hierarchical "
+            "grouped mean (cfg.hierarchy_period > 0) — the robust "
+            "reductions and the fault model are global; set "
+            "hierarchy_period=0")
     if stragglers is not None and cfg.hierarchy_period > 0:
         raise ValueError(
             "stragglers= does not compose with the hierarchical grouped "
             "mean (cfg.hierarchy_period > 0) — the deadline/quorum "
             "decision is global; set hierarchy_period=0")
+    if compression is not None and (faults is not None or rcfg is not None):
+        raise ValueError(
+            "compression= does not compose with faults=/robustness= — the "
+            "guarded reductions consume raw client rows; drop one layer")
     if compression is not None and (participation is not None
                                     or stragglers is not None):
         raise NotImplementedError(
@@ -316,12 +371,14 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                                  batch_dims=1, dtype=torch.float32)
 
     def _round_ctx(state: FlatState, metrics):
-        """(launch mask, comm weights, staleness mask, next deadline) of
-        the round ``state.step`` belongs to, all on the host, in the
-        reference's order: the sampled mask, the arrival decision, the
-        launch mask by policy, the weights times the arrivals, then the
-        α^staleness discount.  All None with neither participation nor
-        stragglers; the straggler decision also goes into ``metrics``."""
+        """(launch mask, comm weights, corrupt transform, staleness mask,
+        next deadline) of the round ``state.step`` belongs to, all on the
+        host, in the reference's order: the sampled mask, the arrival
+        decision, the launch mask by policy, the weights times the
+        arrivals, the fault masks, then the α^staleness discount.  Masks
+        and weights None with neither participation, stragglers nor
+        faults; the straggler decision and the fault masks also go into
+        ``metrics``."""
         r = state.step // cfg.local_steps
         if part is None:
             mask, w = None, None
@@ -345,9 +402,20 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             w = arrivals if w is None else w * arrivals
             # "cancel" treats a straggler as served: it does not age
             stale_mask = sampled if late == "cancel" else arrivals
+        corrupt = None
+        if faults is not None:
+            keep, nan, byz = faults.round_masks(r, int(state.retry))
+            if metrics is not None:
+                metrics["faults"] = (keep, nan, byz)
+            # a dropped client behaves exactly like a non-participant:
+            # frozen bit for bit in the launches, averaged around in comm
+            mask = keep if mask is None else mask * keep
+            w = keep if w is None else w * keep
+            stale_mask = keep if stale_mask is None else stale_mask * keep
+            corrupt = (nan, byz, faults.spec.byzantine_scale)
         if w is not None:
             w = staleness_weights(w, state.stale, alpha)
-        return mask, w, stale_mask, next_dl
+        return mask, w, corrupt, stale_mask, next_dl
 
     def _next_stale(state: FlatState, stale_mask):
         if not need_stale:
@@ -361,16 +429,17 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             return state.deadline
         return next_dl
 
-    def comm(step: int, bufs, ef, weights):
+    def comm(step: int, bufs, ef, weights, corrupt=None, verdicts=None):
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
         if ccfg is None:
             return comm_buffers(spec, cfg, step, bufs, policies,
-                                weights=weights), ef
+                                weights=weights, corrupt=corrupt,
+                                robust=rcfg, verdicts=verdicts), ef
         return comm_buffers(spec, cfg, step, bufs, policies, compress=ccfg,
                             ef=ef)
 
     def init_state(var_trees, mom_trees=None, step: int = 0, ef=None,
-                   stale=None, deadline=None):
+                   stale=None, deadline=None, retry=None):
         vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
                                    batch_dims=1)
         if not has_mom:
@@ -406,11 +475,33 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         else:
             dl_b = _f32(float(strag.spec.deadline if deadline is None
                               else deadline))
-        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b, dl_b)
+        retry_b = () if faults is None else torch.tensor(
+            0 if retry is None else int(retry), dtype=torch.int32)
+        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b, dl_b,
+                         retry_b)
+
+    def _verdicts(metrics):
+        """The list the guarded reductions of a step append their health
+        verdicts to (``metrics["health"]``), or None."""
+        if metrics is None or rcfg is None or not rcfg.screen:
+            return None
+        return metrics.setdefault("health", [])
+
+    def _screened(metrics, wts) -> None:
+        """``metrics["screened"]``: the senders (``wts > 0``) that a guarded
+        reduction of the step screened out."""
+        verdicts = None if metrics is None else metrics.get("health")
+        if verdicts is None:
+            return
+        failed = [i for i in range(len(verdicts[0]))
+                  if any(v[i] == 0 for v in verdicts)] if verdicts else []
+        metrics["screened"] = [i for i in failed
+                               if wts is None or wts[i] > 0]
 
     def _storm_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts, stale_mask, next_dl = _round_ctx(state, metrics)
+        mask, wts, corrupt, stale_mask, next_dl = _round_ctx(state, metrics)
+        verdicts = _verdicts(metrics)
         a = alpha_schedule(cfg, t)
         lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
         decays = tuple(_f32(1.0) - _f32(getattr(cfg, q.decay)) * a * a
@@ -425,21 +516,23 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         del g_old
         efv, efm = state.ef if state.ef else ((), ())
         # 3) communicate the variables
-        vars_c, efv = comm(t, vars_b, efv, wts)
+        vars_c, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
         # 4) new-iterate oracle, same batch; the STORM correction is one add
         g_new = flat.mask_buffers(_flatten_grads(oracle(
             flat.unflatten_tree(spec, vars_c), batch)), mask)
         mom_b = flat.buffers_add(mom_b, g_new)
         del g_new
-        mom_b, efm = comm(t, mom_b, efm, wts)
+        mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
+        _screened(metrics, wts)
         return FlatState(vars_c, mom_b, t + 1,
                          (efv, efm) if state.ef else (),
                          _next_stale(state, stale_mask),
-                         _next_deadline(state, next_dl))
+                         _next_deadline(state, next_dl), state.retry)
 
     def _sgd_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts, stale_mask, next_dl = _round_ctx(state, metrics)
+        mask, wts, corrupt, stale_mask, next_dl = _round_ctx(state, metrics)
+        verdicts = _verdicts(metrics)
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
         g = flat.mask_buffers(_flatten_grads(oracle(
             flat.unflatten_tree(spec, state.vars), batch)), mask)
@@ -449,17 +542,18 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             vars_b, mom_b = flat.momentum_sgd_step(spec, state.vars,
                                                    state.mom, g, lrs, betas,
                                                    mask=mask)
-            mom_b, efm = comm(t, mom_b, efm, wts)
+            mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
         else:
             # no momentum: the plain-SGD launch reads and writes no momentum
             vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask)
             mom_b = ()
         del g
-        vars_b, efv = comm(t, vars_b, efv, wts)
+        vars_b, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
+        _screened(metrics, wts)
         return FlatState(vars_b, mom_b, t + 1,
                          (efv, efm) if state.ef else (),
                          _next_stale(state, stale_mask),
-                         _next_deadline(state, next_dl))
+                         _next_deadline(state, next_dl), state.retry)
 
     step = _storm_step if aspec.kind == "storm" else _sgd_step
 

@@ -30,9 +30,10 @@ SAMPLED = {"fedbioacc_local.json": ("uniform", 2)}
 # committed specs with stragglers: (late policy, clients the over-provisioned
 # sampler takes a round)
 STRAGGLED = {"fedbioacc_straggler.json": ("drop", 6)}
+# committed specs with faults: (aggregator, retry budget)
+FAULTED = {"fedbioacc_faulty.json": ("clip", 2)}
 # what each other committed spec sets that the port does not run yet
 REFUSED = {
-    "fedbioacc_faulty.json": ["faults", "robustness"],
     "fedbioacc_sharded_overlap.json": ["execution.mesh", "execution.overlap"],
     "fedbioacc_telemetry.json": ["telemetry"],
 }
@@ -87,7 +88,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_committed_specs_are_all_covered():
     assert sorted(p.name for p in EXPERIMENTS) == \
         sorted(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *SAMPLED,
-                *STRAGGLED, *REFUSED])
+                *STRAGGLED, *FAULTED, *REFUSED])
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -253,3 +254,24 @@ def test_entry_points_default_to_the_card():
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc.json"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build(exp)
+
+
+@pytest.mark.parametrize("name", sorted(FAULTED))
+def test_faulty_spec_builds_and_steps_on_cpu(name):
+    exp = Experiment.load(str(ROOT / "experiments" / name))
+    run = build(exp.edit(**{"schedule.steps": 1}), device="cpu")
+    faults, rob = run.step.faults, run.step.robustness
+    assert faults is run.init.faults is not None
+    assert faults.spec == exp.faults and rob == exp.robustness
+    assert (rob.aggregator, rob.retry_budget) == FAULTED[name]
+    state = run.init(torch.Generator().manual_seed(0))
+    assert state.retry.dtype == torch.int32 and int(state.retry) == 0
+    assert state.retry.shape == ()
+    state, metrics = run.step(state, run.batch_fn(
+        torch.Generator().manual_seed(1)))
+    assert state.step == metrics["step"] == 1
+    keep, nan, byz = metrics["faults"]
+    # round 0 is before the spec's start_round: clean, all 8 clients sent
+    assert keep.tolist() == [1.0] * 8 and not nan.any() and not byz.any()
+    # step 1 does not communicate: no guarded reduction ran
+    assert metrics["health"] == [] and metrics["screened"] == []

@@ -538,3 +538,65 @@ def test_cuda_checkpoint_roundtrip_in_place(card, tmp_path):
         np.testing.assert_array_equal(bits(a), bits(b))
     assert got.vars[0].device.type == "cuda"
     assert got.deadline.device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aggregator", ["mean", "clip", "trim"])
+def test_cuda_guarded_reduction_matches_cpu(aggregator, card):
+    """The guarded reduction on the card, at a reduced size with chunks
+    (8 clients, one NaN and two ×25 senders, one left out): the verdicts
+    equal the CPU's and every entry lies within 1e-4 of the CPU's
+    output's norm."""
+    from repro_torch.optim import flat
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 3 * flat._CHUNK // 2 + 37, generator=g)
+    x[6] *= 4.0
+    w = torch.tensor([1.0, 1, 1, 1, 1, 0, 1, 1])
+    nan = torch.tensor([0.0, 1, 0, 0, 0, 0, 0, 0])
+    byz = torch.tensor([0.0, 0, 0, 1, 0, 0, 0, 1])
+    rob = flat.RobustCfg(aggregator, screen=True, z_thresh=1.5)
+    outs, verdicts = [], []
+    for dev in ("cpu", card):
+        seg, v = x.clone().to(dev), []
+        flat._robust_mean_into(seg, w, (nan, byz, 25.0), rob, v)
+        outs.append(seg.cpu())
+        verdicts.append([t.tolist() for t in v])
+    assert verdicts[0] == verdicts[1]
+    assert 0.0 in verdicts[0][0]                 # the NaN sender screened
+    cpu, gpu = outs
+    assert bool(torch.isfinite(gpu).all())
+    assert float((gpu - cpu).norm()) <= 1e-4 * float(cpu.norm())
+    np.testing.assert_array_equal(bits(gpu[5]), bits(x[5]))   # left out
+
+
+@pytest.mark.cuda
+def test_cuda_rollback_restores_in_place(card):
+    """A guard rollback copies its host snapshot back into the live
+    state's tensors on the card: the same data pointers, the snapshot's
+    bits, ``retry`` set."""
+    from repro_torch.federation.faults import RobustnessSpec, RollbackGuard
+    from repro_torch.optim.sequences import FlatState
+
+    def state(seed):
+        g = torch.Generator(device=card).manual_seed(seed)
+        return FlatState(
+            (torch.randn(4, 1000, generator=g, device=card)
+             .to(torch.bfloat16),), (torch.randn(4, 1000, generator=g,
+                                                 device=card),), 2,
+            retry=torch.tensor(0, dtype=torch.int32))
+
+    guard = RollbackGuard(RobustnessSpec(ring=2))
+    good = state(0)
+    want = [b.cpu() for b in good.vars + good.mom]
+    data = torch.Generator().manual_seed(1)
+    assert guard.observe(2, good, data, 1.0) is None
+    live = state(1)
+    ptrs = [b.data_ptr() for b in live.vars + live.mom]
+    step, back, _ = guard.observe(4, live, data, float("nan"))
+    torch.cuda.synchronize()
+    assert step == 2 and back.step == 2 and int(back.retry) == 1
+    got = back.vars + back.mom
+    assert [b.data_ptr() for b in got] == ptrs
+    assert all(b.device.type == "cuda" for b in got)
+    for b, w in zip(got, want):
+        np.testing.assert_array_equal(bits(b), bits(w))

@@ -156,12 +156,11 @@ def test_committed_spec_validates_in_both(path):
 
 
 def test_known_but_unported_spec_validates_then_build_refuses():
-    exp = Experiment.load(str(ROOT / "experiments" / FAULTY))
+    exp = Experiment.load(str(ROOT / "experiments" / TELEMETRY))
     assert exp.validate() is exp
     with pytest.raises(NotImplementedError) as err:
         build(exp, device="cpu")
-    assert "ROADMAP queue 1, 'Faults, robustness and checkpoint " \
-        "hardening'" in str(err.value)
+    assert "ROADMAP queue 1, 'Telemetry'" in str(err.value)
 
 
 def test_name_lists_equal_the_reference():

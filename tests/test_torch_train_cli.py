@@ -16,6 +16,12 @@ reference's (``repro.api.spec.Experiment.to_json``, ``repro.api.validate``,
   continues bit for bit for the reduced ``fedbioacc_int8_topk.json`` (the
   error feedback), ``fedbioacc_local.json`` (the staleness counters, the
   PRIVATE rows), ``fedbio.json`` and ``fedavg.json``.
+- Faults (``experiments/fedbioacc_faulty.json`` cut to 4 clients): a spec
+  whose every retry sends NaN rolls back at the reference CLI's steps with
+  its retry counts and exits naming its round; a run that rolls back once,
+  checkpoints and crashes is resumed by ``--max-restarts`` bit for bit as
+  the uninterrupted run, ``retries`` in the metadata; the reference's
+  supervisor test on the port; ``_restart_wait`` equal to the reference's.
 - The ``participation:`` banner is the reference's (``m=4/8`` for the
   straggler spec: ``Run.participation`` is the spec before
   over-provisioning, as the reference's is; checked against the
@@ -24,6 +30,7 @@ reference's (``repro.api.spec.Experiment.to_json``, ``repro.api.validate``,
   round.
 """
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -312,3 +319,131 @@ def test_examples_run_on_cpu(example, argv, tmp_path):
         assert [h["step"] for h in history] == [1, 2]
     else:
         assert np.isfinite(mod.main(argv))
+
+
+# ---------------------------------------------------------------------------
+# faults: rollbacks, restarts
+# ---------------------------------------------------------------------------
+
+FAULTY = _spec("fedbioacc_faulty.json")
+
+
+def _faulty(tmp_path, name, **edits):
+    """The committed faulty spec cut to 4 clients, with ``edits``, saved
+    for both CLIs."""
+    exp = Experiment.load(FAULTY).edit(**{"problem.num_clients": 4,
+                                          **edits})
+    path = str(tmp_path / f"{name}.json")
+    exp.save(path)
+    return path
+
+
+def _rollbacks(text):
+    return [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith('{"rollback_to"')]
+
+
+def test_forced_rollbacks_match_the_reference_cli(tmp_path, capsys):
+    """Every retry of round 1 sends NaN and nothing screens it: two
+    rollbacks to the last good step, then the budget runs out at the
+    reference's round, with a diagnostic checkpoint."""
+    path = _faulty(tmp_path, "forced", **{
+        "faults.nan_rate": 1.0, "faults.byzantine_rate": 0.0,
+        "faults.start_round": 1, "robustness.screen": False,
+        "robustness.retry_budget": 2})
+    common = ["--experiment", path, "--log-every", "2"]
+    with pytest.raises(SystemExit) as mine:
+        train.main(common + ["--device", "cpu", "--ckpt-dir",
+                             str(tmp_path / "ck")])
+    out = capsys.readouterr().out
+    with pytest.raises(SystemExit) as theirs:
+        jtrain.main(common)
+    ref = capsys.readouterr().out
+    got, want = _rollbacks(out), _rollbacks(ref)
+    assert [(r["rollback_to"], r["retry"]) for r in got] == \
+        [(r["rollback_to"], r["retry"]) for r in want] == [(2, 1), (2, 2)]
+    assert all(np.isnan(r["bad_loss"]) for r in got + want)
+    assert str(mine.value).split(":")[0] == str(theirs.value).split(":")[0] \
+        == "round 4"
+    assert "exhausting the retry budget (2; rollbacks at steps [4, 4])" in \
+        str(mine.value)
+    diag = str(tmp_path / "ck" / "diagnostic")
+    assert checkpoint_metadata(diag) == {"step": 4, "diagnostic": True}
+
+
+def test_rollback_then_supervised_restart_is_bit_for_bit(tmp_path):
+    """Round 1 sends NaN at retry 0 (clients 1, 2; seed 18) and none at
+    retry 1: the run rolls back to step 3, checkpoints step 4 with
+    ``retries`` 1 and crashes; ``--max-restarts 1`` resumes it, and it ends
+    as the uninterrupted run, bit for bit."""
+    path = _faulty(tmp_path, "once", **{
+        "schedule.steps": 6, "faults.nan_rate": 0.2,
+        "faults.byzantine_rate": 0.0, "faults.seed": 18,
+        "robustness.aggregator": "mean", "robustness.screen": False})
+    common = ["--experiment", path, "--device", "cpu", "--log-every", "1",
+              "--ckpt-every", "2"]
+    sup, whole = str(tmp_path / "sup"), str(tmp_path / "whole")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *common,
+         "--ckpt-dir", sup, "--max-restarts", "1", "--restart-backoff", "0",
+         "--crash-at-step", "4"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=_env())
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "crash-at-step: hard exit after step 4" in out.stdout
+    assert "run crashed (exit 17); restart 1/1 in 0.0s" in out.stdout
+    assert f"resumed from {sup} @ step 4" in out.stdout
+    history = train.main(common + ["--ckpt-dir", whole])
+    rolled = _rollbacks(out.stdout)
+    assert [(r["rollback_to"], r["retry"]) for r in rolled] == [(3, 1)]
+    assert np.isnan(rolled[0]["bad_loss"])
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith('{"step"')]
+    strip = [{k: v for k, v in h.items() if k != "wall_s"} for h in history]
+    assert [{k: v for k, v in h.items() if k != "wall_s"}
+            for h in lines] == strip
+    assert [h["step"] for h in strip] == [1, 2, 3, 4, 5, 6]
+    assert strip[3]["nan"] == [] and "screened" not in strip[3]
+    md = checkpoint_metadata(sup)
+    assert md == checkpoint_metadata(whole)
+    assert md["step"] == 6 and md["retries"] == 1
+    mine, want = _final_arrays(sup), _final_arrays(whole)
+    assert sorted(mine) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(bits(mine[k]), bits(want[k]))
+    assert int(mine[f"a{len(mine) - 1}"]) == 1     # FlatState.retry
+
+
+def test_crash_auto_resume_supervisor(tmp_path):
+    """The reference's supervisor test on the port: a hard crash after the
+    step-2 checkpoint is survived by relaunching with --resume."""
+    exp = Experiment.load(_spec("fedavg.json")).edit(
+        **{"schedule.steps": 4})
+    path = str(tmp_path / "exp.json")
+    exp.save(path)
+    ckpt = str(tmp_path / "ckpt")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--experiment",
+         path, "--device", "cpu", "--ckpt-dir", ckpt, "--ckpt-every", "2",
+         "--log-every", "2", "--max-restarts", "2", "--restart-backoff",
+         "0", "--crash-at-step", "3"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=_env())
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "crash-at-step" in res.stdout
+    assert "resumed from" in res.stdout
+    assert checkpoint_metadata(ckpt)["step"] == 4
+    assert checkpoint_metadata(ckpt).get("data_gen") is not None
+
+
+def test_max_restarts_needs_a_checkpoint_dir():
+    with pytest.raises(SystemExit, match="--max-restarts requires "
+                                         "--ckpt-dir"):
+        train.main(["--experiment", FAULTY, "--max-restarts", "1"])
+
+
+def test_restart_wait_is_the_references():
+    assert train._RESTART_WAIT_CAP == jtrain._RESTART_WAIT_CAP
+    for backoff in (0.0, 0.1, 0.5, 1.0):
+        for token in ("", "ckpt-a", "/tmp/run/ck", "b"):
+            for attempt in range(50):
+                assert train._restart_wait(backoff, attempt, token) == \
+                    jtrain._restart_wait(backoff, attempt, token)
