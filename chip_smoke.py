@@ -78,15 +78,22 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``<ckpt-dir>/diagnostic`` and exits non-zero naming round 4; the
    committed spec under ``--max-restarts 1 --restart-backoff 0
    --crash-at-step 2`` exits 0 and ends bit for bit as the uninterrupted
-   run (every line, every array of the final checkpoint, ``retries``);
+   run (every line, every array of the final checkpoint, ``retries``).
+   Then telemetry: the reduced ``fedbioacc_telemetry.json`` through the
+   train CLI in process for 4 steps with ``--telemetry-sink``, on the card
+   and on the CPU from the CPU's initial state: both streams pass
+   ``repro_torch.telemetry.validate``, their ``(event, step, round)``
+   sequences and ``comm`` events are equal, every in-band and evaluation
+   metric within ``METRIC_TOL`` (relative);
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
-   ``fedbioacc_local.json``, ``fedbioacc_straggler.json`` and
-   ``fedbioacc_faulty.json``, each at full
-   Mamba-2-130M width (bf16, 2 clients, or a sampled or faulty path's own:
-   4 of which 2 take part a round, the straggler path's 8 of which 6 are
-   sampled and those that beat the round's deadline arrive, the faulty
-   path's 8; the straggler path at 12 of the 24 layers, the others at all; 1
+   ``fedbioacc_local.json``, ``fedbioacc_straggler.json``,
+   ``fedbioacc_faulty.json`` and ``fedbioacc_telemetry.json``, each at full
+   Mamba-2-130M width (bf16, 2 clients, or a sampled, faulty or telemetry
+   path's own: 4 of which 2 take part a round, the straggler path's 8 of
+   which 6 are sampled and those that beat the round's deadline arrive,
+   the faulty path's 8, the telemetry path's 4; the straggler path at 12
+   of the 24 layers, the others at all; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -105,7 +112,10 @@ Phases, each of which stops the script with a non-zero exit on failure:
    has ``simulate_rounds``' arrival count, quorum, extensions and
    effective deadline, that the arrivals are the sampled clients whose
    drawn time is within that deadline, and that every step leaves the
-   non-arrivals' rows at their entering bits (``drop``); after its step
+   non-arrivals' rows at their entering bits (``drop``); it runs with
+   every telemetry group that applies to it (norms, drift, health,
+   stragglers), and each step's in-band straggler metrics must be the
+   decision the engine recorded; after its step
    2, outside the timed steps, the straggler path's state is checkpointed
    (``repro_torch.checkpoint``, once the directory is known to hold twice
    the state) with its bytes and the seconds to save and to load logged,
@@ -126,7 +136,14 @@ Phases, each of which stops the script with a non-zero exit on failure:
    live tensors bit for bit, ``retry`` 1, and round 1 is rerun on its
    ``(1, 1)`` draws (12 ``storm3_step`` launches in all); its step times,
    the guarded reductions' share of each, peak memory, snapshot and
-   restore seconds and the ring's host bytes are logged;
+   restore seconds and the ring's host bytes are logged; the telemetry
+   path runs through ``repro_torch.launch.train.main`` in process
+   (``--device cuda``, ``--log-every 2``, a sink in a temporary
+   directory), each step between two synchronizations and each metric
+   pass between CUDA events: its stream must validate with both comm
+   events reconciled, its in-band values be finite, its launches as
+   ``PATHS`` says; its step times, the passes' share of each step, the
+   peak memory and the ``launch.metrics`` summary are logged;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -182,6 +199,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -229,11 +247,14 @@ from repro_torch.kernels.storm import kernel as storm  # noqa: E402
 from repro_torch.kernels.storm import storm_update  # noqa: E402
 from repro_torch.kernels.storm import quantpack as qp  # noqa: E402
 from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
+from repro_torch.launch import metrics as tel_metrics  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import flat  # noqa: E402
 from repro_torch.optim import sequences as seqs  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
+from repro_torch.telemetry import read_events, validate_events  # noqa: E402
 from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
                                  bf16_ulps, flash_attention_fault,
                                  int8_flips, leaf_topk_flips, topk_flips)
@@ -253,14 +274,17 @@ PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
                                  "quantunpack": 8, "storm_update": 0},
          "fedbioacc_local": {"storm3_step": 8, "storm_update": 0},
          "fedbioacc_straggler": {"storm3_step": 8, "storm_update": 0},
-         "fedbioacc_faulty": {"storm3_step": 8, "storm_update": 0}}
+         "fedbioacc_faulty": {"storm3_step": 8, "storm_update": 0},
+         "fedbioacc_telemetry": {"storm3_step": 8, "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
 SAMPLED = "fedbioacc_local"
 STRAGGLED = "fedbioacc_straggler"
 FAULTY = "fedbioacc_faulty"
-# clients at full width; a path that samples its clients or injects faults
-# keeps the spec's own count, so that the sampler leaves clients out and
-# the screen has its participants
+TELEMETRY = "fedbioacc_telemetry"
+# clients at full width; a path that samples its clients, injects faults
+# or reports telemetry keeps the spec's own count, so that the sampler
+# leaves clients out, the screen has its participants and the drift its
+# four clients
 CLIENTS = 2
 # the faulty path: the dropout rate of the edit that gates phase 3's
 # launches and one cross-check of phase 4; the guard observes at the steps
@@ -276,6 +300,13 @@ ILL_CONDITIONED = 1e-3
 # that the faulty path's phases fit in the script's time
 RESUME_AT = 2
 STRAGGLER_LAYERS = 12
+# the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
+# CPU in-band metrics agree within this (relative)
+TEL_LOG_EVERY = 2
+METRIC_TOL = 1e-4
+# the metric passes of the engine's telemetry groups (timed in phase 5)
+METRIC_PASSES = ("section_norms", "section_drift", "quant_roundtrip_err",
+                 "health_screen")
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 # the serving path: full-width RecurrentGemma-9B prefill and greedy decode
 SERVE_ARCH = "recurrentgemma-9b"
@@ -364,7 +395,8 @@ def _depth(layers: int):
 
 
 def full_width_experiment(exp: Experiment) -> Experiment:
-    own = exp.participation.sampler != "full" or exp.faults is not None
+    own = (exp.participation.sampler != "full" or exp.faults is not None
+           or exp.telemetry is not None)
     return exp.edit(**{"problem.reduced": False,
                        "problem.num_clients": (exp.problem.num_clients
                                                if own else CLIENTS),
@@ -908,8 +940,7 @@ def cross_check(name: str, exp: Experiment, dev, steps: int = 2) -> None:
         # decided on the host from the step counter, the sampled mask and
         # the deadline each state carries: equal unless the deadline was
         # threaded through the card's steps otherwise
-        decided = [[(m["arrivals"].tolist(), m["extensions"], m["deadline"],
-                     m["deadline_next"]) for m in metrics[side]]
+        decided = [[_decision(m) for m in metrics[side]]
                    for side in ("cpu", "gpu")]
         if decided[0] != decided[1] or not same_bits(cpu_state.deadline,
                                                      gpu_state.deadline):
@@ -1113,8 +1144,9 @@ def _spread(run, state: FlatState, batch, after: FlatState) -> list:
 
 
 def _fault_decisions(metrics) -> tuple:
-    return (tuple(m.tolist() for m in metrics["faults"]),
-            [v.tolist() for v in metrics.get("health", [])])
+    dec = metrics["decision"]
+    return (tuple(m.tolist() for m in dec["faults"]),
+            [v.tolist() for v in dec.get("health", [])])
 
 
 def _capturing(orig, captured: list):
@@ -1179,7 +1211,7 @@ def fault_cross_check(name: str, exp: Experiment, dev) -> None:
             rounds.append({"round": t // exp.schedule.local_steps,
                            "nan": [i for i, v in enumerate(nan) if v],
                            "byzantine": [i for i, v in enumerate(byz) if v],
-                           "screened": cm.get("screened")})
+                           "screened": cm["decision"].get("screened")})
     pairs = list(zip(gpu_state.vars + gpu_state.mom,
                      cpu_state.vars + cpu_state.mom))
     if exp.robustness is None:
@@ -1274,13 +1306,35 @@ def cli_fault_phase() -> None:
 
 
 def _decision(metrics) -> tuple:
-    return (metrics["arrivals"].tolist(), metrics["extensions"],
-            metrics["deadline"], metrics["deadline_next"])
+    """A straggler step's recorded decision (the engine's record):
+    (arrivals mask, extensions, effective deadline, next deadline)."""
+    dec = metrics["decision"]
+    return (dec["arrivals"].tolist(), dec["extensions"], dec["deadline"],
+            dec["deadline_next"])
 
 
 def _state_bytes(state: FlatState) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(state)
                if torch.is_tensor(t))
+
+
+def _inband_is_decision(name: str, t: int, metrics, dec) -> None:
+    """The straggler path's in-band ``stragglers`` group (the telemetry
+    metrics the event stream reads) against the decision the engine
+    recorded for the step: the same deadlines, arrival count, quorum and
+    extensions."""
+    if "deadline" not in metrics:
+        raise SystemExit(f"path {name}: step {t + 1} carries no in-band "
+                         f"straggler metrics")
+    inband = (float(metrics["deadline"]), float(metrics["deadline_next"]),
+              int(metrics["arrivals"]), int(metrics["quorum"]),
+              int(metrics["extensions"]))
+    recorded = (dec["deadline"], dec["deadline_next"],
+                int(dec["arrivals"].sum()), dec["quorum"], dec["extensions"])
+    if inband != recorded:
+        raise SystemExit(f"path {name}: step {t + 1}'s in-band straggler "
+                         f"metrics {inband} differ from its recorded "
+                         f"decision {recorded}")
 
 
 def save_full_width(run, state: FlatState) -> tuple:
@@ -1477,12 +1531,12 @@ def faulty_path(name: str, exp: Experiment, dev) -> dict:
                            for b in state.vars + state.mom):
                     raise SystemExit(f"path {name}: round {t // local - 1} "
                                      f"left a non-finite state")
-                keep, nan, byz = metrics["faults"]
+                keep, nan, byz = metrics["decision"]["faults"]
                 rounds.append({"round": t // local - 1,
                                "retry": int(state.retry),
                                "nan": nan.nonzero().flatten().tolist(),
                                "byzantine": byz.nonzero().flatten().tolist(),
-                               "screened": metrics["screened"]})
+                               "screened": metrics["decision"]["screened"]})
             if not (t % FAULT_LOG_EVERY == 0 or t == 1):
                 continue
             loss = run.eval_fn(state)
@@ -1554,6 +1608,182 @@ def faulty_path(name: str, exp: Experiment, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 5: telemetry, the event stream through the train CLI
+# ---------------------------------------------------------------------------
+
+def _cli_in_process(args: list, hook) -> list:
+    """``repro_torch.launch.train.main(args)`` in this process, each run it
+    builds passed through ``hook(run) -> run``."""
+    orig = train_cli.build
+    train_cli.build = lambda exp, device=None: hook(orig(exp, device=device))
+    try:
+        return train_cli.main(args)
+    finally:
+        train_cli.build = orig
+
+
+def _events_seq(events: list) -> list:
+    return [(e["event"], e.get("step"), e.get("round")) for e in events]
+
+
+def _envelope_free(ev: dict) -> dict:
+    return {k: v for k, v in ev.items() if k not in ("seq", "ts", "wall_s")}
+
+
+def telemetry_cross_check(dev) -> None:
+    """The reduced ``fedbioacc_telemetry.json`` through the train CLI in
+    process for 4 steps (two rounds) with ``--telemetry-sink``, on the
+    card and on the CPU, both from the CPU's initial state: the streams
+    validate, their ``(event, step, round)`` sequences are equal, the
+    ``comm`` events equal, and every ``metrics`` value within
+    ``METRIC_TOL`` of the CPU's (relative)."""
+    spec = os.path.join(ROOT, "experiments", f"{TELEMETRY}.json")
+    exp = Experiment.load(spec)
+    init0 = build(exp, device="cpu").init(
+        torch.Generator().manual_seed(exp.schedule.seed))
+
+    def same_start(run):
+        return run._replace(init=lambda _gen: init0._replace(
+            vars=tuple(b.to(run.device, copy=True) for b in init0.vars),
+            mom=tuple(b.to(run.device, copy=True) for b in init0.mom)))
+
+    streams = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as tmp:
+        for side, device in (("cpu", "cpu"), ("card", dev.type)):
+            sink = os.path.join(tmp, f"{side}.jsonl")
+            _cli_in_process(["--experiment", spec, "--steps", "4",
+                             "--log-every", str(TEL_LOG_EVERY), "--device",
+                             device, "--telemetry-sink", sink], same_start)
+            validate_events(sink, expect=("run_start", "metrics", "comm",
+                                          "run_end"))
+            streams[side] = read_events(sink)
+    cpu, gpu = streams["cpu"], streams["card"]
+    if _events_seq(cpu) != _events_seq(gpu):
+        raise SystemExit(f"telemetry cross-check: the event sequences "
+                         f"differ: {_events_seq(cpu)} vs {_events_seq(gpu)}")
+    worst, n = 0.0, 0
+    for c, g in zip(cpu, gpu):
+        if c["event"] == "comm" and _envelope_free(c) != _envelope_free(g):
+            raise SystemExit(f"telemetry cross-check: comm events differ: "
+                             f"{c} vs {g}")
+        if c["event"] != "metrics":
+            continue
+        c, g = _envelope_free(c), _envelope_free(g)
+        if list(c) != list(g):
+            raise SystemExit(f"telemetry cross-check: metrics keys differ: "
+                             f"{list(c)} vs {list(g)}")
+        for k in c:
+            for x, y in zip(np.ravel(c[k]), np.ravel(g[k])):
+                if k in ("step", "retry") or x == y:
+                    continue
+                worst = max(worst, abs(x - y) / max(abs(x), 1e-30))
+                n += 1
+    log(f"telemetry cross-check, {TELEMETRY} (reduced, 4 steps, train CLI "
+        f"in process): card and CPU streams valid, (event, step, round) "
+        f"sequences equal ({len(cpu)} events), comm events equal, {n} "
+        f"metrics values differ, worst relative difference {worst:.3e} "
+        f"(limit {METRIC_TOL}); {time.perf_counter() - t0:.1f} s")
+    if not worst <= METRIC_TOL:
+        raise SystemExit("telemetry cross-check: metrics off the CPU's")
+
+
+def _timed_passes(passes: list, step_ms: list):
+    """The engine's metric passes (``METRIC_PASSES`` of ``optim.flat``),
+    each between two CUDA events recorded on the current stream, with the
+    index of the step it belongs to (no synchronization inside a step)."""
+    def timed(fn):
+        def wrapped(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            passes.append((len(step_ms), start, end))
+            return out
+        return wrapped
+    return {name: timed(getattr(flat, name)) for name in METRIC_PASSES}
+
+
+def telemetry_path(name: str, exp: Experiment, dev) -> dict:
+    """The full-width telemetry path through the train CLI in process
+    (``--device cuda``, a sink in a temporary directory, ``--log-every
+    2``): each step between two synchronizations, the metric passes
+    between CUDA events; the stream must validate (comm bytes reconciled),
+    every in-band value must be finite, and the path must launch as
+    ``PATHS`` says.  Logs the step times, the passes' share of each step,
+    the peak memory and the ``launch.metrics`` summary.  Returns the
+    launches."""
+    step_ms, passes = [], []
+
+    def timed_steps(run):
+        step = run.step
+
+        @functools.wraps(step)
+        def stepped(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run._replace(step=stepped)
+
+    orig = {n: getattr(flat, n) for n in METRIC_PASSES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as tmp:
+        spec, sink = (os.path.join(tmp, f) for f in ("spec.json",
+                                                     "events.jsonl"))
+        exp.save(spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        for n, fn in _timed_passes(passes, step_ms).items():
+            setattr(flat, n, fn)
+        try:
+            history = _cli_in_process(
+                ["--experiment", spec, "--device", dev.type, "--log-every",
+                 str(TEL_LOG_EVERY), "--telemetry-sink", sink], timed_steps)
+        finally:
+            for n, fn in orig.items():
+                setattr(flat, n, fn)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        summary = validate_events(sink, expect=("run_start", "metrics",
+                                                "comm", "span", "run_end"))
+        events = read_events(sink)
+        log(f"path {name}: launch.metrics summary of its stream:")
+        tel_metrics.main([sink, "--table"])
+    inband = [e for e in events if e["event"] == "metrics" and
+              any(k.startswith("upd_norm/") for k in e)]
+    values = [v for e in inband for k, v in e.items()
+              if "/" in k for v in np.ravel(v)]
+    if len(inband) != 3 or not all(math.isfinite(v) for v in values):
+        raise SystemExit(f"path {name}: in-band metrics events {inband}")
+    if summary["comm_reconciled"] != 2:
+        raise SystemExit(f"path {name}: {summary}")
+    if not all(math.isfinite(h["val_loss"]) for h in history):
+        raise SystemExit(f"non-finite validation loss on path {name}: "
+                         f"{history}")
+    want = {**dict.fromkeys(launches, 0), **PATHS[name]}
+    if launches != want or len(step_ms) != exp.schedule.steps:
+        raise SystemExit(f"path {name} launched {launches}, expected {want}"
+                         f" ({len(step_ms)} steps)")
+    shares = [round(sum(s.elapsed_time(e) for i, s, e in passes if i == t)
+                    / step_ms[t], 5) for t in range(len(step_ms))]
+    pass_ms = [round(sum(s.elapsed_time(e) for i, s, e in passes if i == t),
+                     3) for t in range(len(step_ms))]
+    log(f"path {name}: full-width through the train CLI, "
+        f"{exp.problem.num_clients} clients, steps {len(step_ms)}, step ms "
+        f"{[round(t, 3) for t in step_ms]}, metric passes ms {pass_ms} "
+        f"(share of each step {shares}; CUDA events), peak memory {peak} B, "
+        f"launches {launches}, val_loss {[h['val_loss'] for h in history]}, "
+        f"stream {summary['events']} events valid, "
+        f"{summary['comm_reconciled']} comm events reconciled, "
+        f"{summary['by_type']}, on {card_line()}")
+    return launches
+
+
 def main_path(name: str, exp: Experiment, dev) -> dict:
     oracle_events = []
     over_clients = trainer._over_clients
@@ -1597,7 +1827,9 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
         packs.append(qp.LAUNCHES["quantpack"] - before)
         launch = entered = mask if gated else None
         if strag is not None:
-            entered = metrics["arrivals"]
+            dec = metrics["decision"]
+            _inband_is_decision(name, t, metrics, dec)
+            entered = dec["arrivals"]
             if strag.spec.late_policy != "carry":
                 launch = entered
             if bool(torch.any(entered > mask)):
@@ -1616,10 +1848,10 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
                 rounds.append({
                     "round": t // local,
                     "sampled": [i for i in range(clients) if mask[i] > 0],
-                    "arrived": ins, "quorum": metrics["quorum"],
-                    "extensions": metrics["extensions"],
-                    "deadline": metrics["deadline"],
-                    "deadline_next": metrics["deadline_next"]})
+                    "arrived": ins, "quorum": dec["quorum"],
+                    "extensions": dec["extensions"],
+                    "deadline": dec["deadline"],
+                    "deadline_next": dec["deadline_next"]})
         if gated:
             out = [i for i in range(clients) if launch[i] == 0]
             ins = [i for i in range(clients) if entered[i] > 0]
@@ -2326,6 +2558,9 @@ def main() -> None:
                                                 f"{name}.json"))
              for name in PATHS}
     fulls = {name: full_width_experiment(b) for name, b in bases.items()}
+    # the straggler path also computes every telemetry group it applies
+    # to (health and stragglers at its 8 clients)
+    fulls[STRAGGLED] = fulls[STRAGGLED].edit(**{"telemetry.metrics": None})
     runs = {name: build(f, device=dev) for name, f in fulls.items()}
     groups_of = {name: r.init.spec.groups for name, r in runs.items()}
     gates = {path: gate_mask(runs[path], fulls[path].problem.num_clients)
@@ -2358,9 +2593,12 @@ def main() -> None:
                dataclasses.replace(base, robustness=None))
         fault_cross_check(f"{FAULTY} ({what})", exp, dev)
     cli_fault_phase()
+    telemetry_cross_check(dev)
     for name, full in fulls.items():
         if name == FAULTY:
             launches = faulty_path(name, full, dev)
+        elif name == TELEMETRY:
+            launches = telemetry_path(name, full, dev)
         elif name == STRAGGLED:
             with _depth(STRAGGLER_LAYERS):
                 launches = main_path(name, full, dev)

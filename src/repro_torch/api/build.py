@@ -95,7 +95,6 @@ def unported_features(exp: Experiment) -> list:
         (exp.stragglers is not None and exp.compression is not None,
          "stragglers with compression: the participation-weighted "
          "compressed mean", compress_rest),
-        (exp.telemetry is not None, "telemetry", "queue 1, 'Telemetry'"),
         (ex.mesh is not None, "execution.mesh", shard),
         (ex.overlap, "execution.overlap", shard),
         (ex.scatter_comm, "execution.scatter_comm", shard),
@@ -173,7 +172,8 @@ def build(experiment: Experiment, *, device=None) -> Run:
         fuse_oracles=ex.fuse_oracles, fuse_storm=ex.fuse_storm,
         storm_block=ex.storm_block, compression=exp.compression,
         participation=participation, stragglers=exp.stragglers,
-        faults=exp.faults, robustness=exp.robustness, **factory_kw)
+        faults=exp.faults, robustness=exp.robustness,
+        telemetry=exp.telemetry, **factory_kw)
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

@@ -4,11 +4,12 @@ schema, version 1, so every committed ``experiments/*.json`` loads unchanged.
 
 The optional layers (faults, robustness, compression, telemetry, stragglers)
 and the participation scenario are parsed into the port's own copies of the
-reference's declarative tuples — same fields, same defaults; the ported
-layers' (``FaultSpec``, ``RobustnessSpec``, ``CompressionSpec``,
-``ParticipationSpec``, ``StragglerSpec``) are their modules' own — so a
-spec that sets an unported one can be recognised and refused by
-:func:`repro_torch.api.build` until the layer is ported.
+reference's declarative tuples — same fields, same defaults, each its
+module's own (``FaultSpec``, ``RobustnessSpec``, ``CompressionSpec``,
+``ParticipationSpec``, ``StragglerSpec``, ``TelemetrySpec``, the last
+re-exported here as the reference's ``repro/api/spec.py`` does) — so a
+spec that sets an unported feature can be recognised and refused by
+:func:`repro_torch.api.build` until it is ported.
 :meth:`Experiment.validate` makes every check of the reference's, in its
 order, for ported and unported layers alike, so a spec the reference
 refuses never reaches the feature refusals of build.
@@ -25,6 +26,7 @@ from repro_torch.federation.faults import (AGGREGATORS, FaultSpec,
                                            RobustnessSpec)
 from repro_torch.federation.participation import SAMPLERS, ParticipationSpec
 from repro_torch.federation.stragglers import LATE_POLICIES, StragglerSpec
+from repro_torch.telemetry.spec import METRIC_GROUPS, TelemetrySpec
 
 SPEC_VERSION = 1
 
@@ -41,12 +43,12 @@ class KnownAlgorithm(NamedTuple):
 # its registered model-scale trainers with their hyperparameters and
 # sections (repro/api/registry.py, filled by repro/federation/trainer.py),
 # the PRIVATE sections of its SPECS (repro/optim/sequences.py), its
-# architectures (repro/configs ARCHS), samplers, robust aggregators,
-# late-arrival policies and telemetry metric groups.  What the port runs
-# of them is decided by build, not here.  ALGORITHMS is the port's one
-# table of these names: api/registry.py takes each ported trainer's
-# sections from it and refuses one whose hyperparameters, sequence
-# sections or PRIVATE sections disagree.
+# architectures (repro/configs ARCHS), samplers, robust aggregators and
+# late-arrival policies (the telemetry metric groups are telemetry/spec.py's).
+# What the port runs of them is decided by build, not here.  ALGORITHMS is
+# the port's one table of these names: api/registry.py takes each ported
+# trainer's sections from it and refuses one whose hyperparameters,
+# sequence sections or PRIVATE sections disagree.
 ALGORITHMS = {
     "fedavg": KnownAlgorithm(("momentum",), ("params",)),
     "fedbio": KnownAlgorithm((), ("x", "y", "u")),
@@ -60,7 +62,6 @@ ALGORITHMS = {
 ARCH_NAMES = ("recurrentgemma-9b", "gemma2-2b", "mamba2-130m", "llama3-405b",
               "olmoe-1b-7b", "granite-3-8b", "hubert-xlarge",
               "granite-moe-1b-a400m", "internvl2-76b", "granite-8b")
-METRIC_GROUPS = ("norms", "drift", "compression", "health", "stragglers")
 
 
 class SpecError(ValueError):
@@ -69,12 +70,6 @@ class SpecError(ValueError):
 
 def _err(fieldname: str, msg: str):
     raise SpecError(f"Experiment.{fieldname}: {msg}")
-
-
-class TelemetrySpec(NamedTuple):
-    sink: Optional[str] = None
-    metrics: Optional[Tuple[str, ...]] = None
-    trace: bool = True
 
 
 _LAYERS = {"faults": FaultSpec, "robustness": RobustnessSpec,

@@ -42,6 +42,10 @@ from repro_torch import random as jr
 
 LATE_POLICIES = ("drop", "carry", "cancel")
 
+#: bins of the per-round arrival histogram: arrival time over effective
+#: deadline, 8 bins of width 0.25 covering [0, 2x); the last bin is open.
+ARRIVAL_HIST_BINS = 8
+
 
 class StragglerSpec(NamedTuple):
     """Declarative straggler process and elastic-round policy.
@@ -182,6 +186,20 @@ def over_provision(spec: StragglerSpec, pspec, num_clients: int):
     m = int(pspec.clients_per_round) or num_clients
     return pspec._replace(
         clients_per_round=min(num_clients, m + int(spec.over_provision)))
+
+
+def arrival_histogram(times, arrivals_deadline, sampled) -> torch.Tensor:
+    """[ARRIVAL_HIST_BINS] f32 histogram of the round's sampled compute
+    times relative to the effective deadline: bin i counts sampled clients
+    with ``t / deadline`` in ``[0.25 i, 0.25 (i + 1))`` (last bin open),
+    the in-band arrival shape behind the ``deadline`` telemetry event.  On
+    the host in f32, as the reference computes it."""
+    times = _f32(times)
+    ratio = times / torch.clamp_min(_f32(arrivals_deadline), 1e-12)
+    idx = torch.clamp(torch.floor(ratio * 4.0), 0, ARRIVAL_HIST_BINS - 1)
+    on = (_f32(sampled) > 0).to(torch.float32)
+    return torch.zeros(ARRIVAL_HIST_BINS, dtype=torch.float32).index_add_(
+        0, idx.to(torch.int64), on)
 
 
 def simulate_rounds(strag: Stragglers, part, num_rounds: int) -> list:

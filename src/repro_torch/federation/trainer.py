@@ -32,7 +32,11 @@ decision.  Every factory takes ``faults=`` / ``robustness=`` (a
 the spec's dropout, NaN and byzantine sends, and the means health-screen
 and aggregate them robustly; the compiled faults and the robustness spec
 are recorded on ``train_step.faults`` / ``train_step.robustness``, and
-each step's metrics carry the round's fault masks and health verdicts.
+each step's metrics carry the round's fault masks and health verdicts
+(under ``decision``, with the straggler decision).  Every factory takes
+``telemetry=`` (a ``telemetry.TelemetrySpec``): each step's metrics then
+also carry the in-band metric groups it resolves to
+(``train_step.telemetry_groups``), under the reference's keys.
 
 ``fuse_oracles`` picks the fused oracles (one shared linearization) or the
 separate ones (``grad_y``, ``nu_direction``, ``u_residual``;
@@ -227,22 +231,42 @@ def _fault_setup(cfg: FederatedConfig, faults, robustness, fuse_storm: bool):
     return make_faults(faults, cfg.num_clients), robustness
 
 
+def _telemetry_setup(telemetry, fuse_storm: bool):
+    """Pass the telemetry spec through to the engine.  The in-band metrics
+    read the fused engine's flat buffers, so explicit metric groups on the
+    unfused path are refused, as the reference refuses them; a
+    metrics-free spec (``metrics=()``) is an events-only stream on either
+    path and costs the step nothing."""
+    if telemetry is None:
+        return None
+    metrics = getattr(telemetry, "metrics", None)
+    if not fuse_storm:
+        if metrics:
+            raise ValueError(
+                "in-band telemetry metrics require fuse_storm=True — they "
+                "are a side output of the fused sequence-spec engine; use "
+                "metrics=() for an events-only stream")
+        return None     # events-only: nothing for the engine to compute
+    return telemetry
+
+
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
                     init_trees, storm_block, to_state, compression=None,
                     participation=None, stragglers=None, faults=None,
-                    robustness=None):
+                    robustness=None, telemetry=None):
     """The fuse_storm=True (init, train_step) pair over the engine;
-    ``to_state(vars, moms or None, step)`` builds the pytree state.  With
-    stragglers, each step's metrics also carry the round's decision:
-    ``arrivals`` ([M] f32 mask), ``deadline`` (effective),
-    ``deadline_next``, ``extensions`` and ``quorum``; with faults, the
-    round's ``faults`` masks and the reductions' ``health`` verdicts."""
+    ``to_state(vars, moms or None, step)`` builds the pytree state.  Each
+    step's metrics carry ``step`` and what the engine writes
+    (``seqs.Engine``): with stragglers or faults the round's decision
+    under ``decision``; with telemetry the in-band metric groups of
+    ``train_step.telemetry_groups``."""
     strag, participation = _straggler_setup(cfg, stragglers, participation)
     part = make_participation(participation, cfg.num_clients)
     engine = seqs.make_engine(cfg, aspec, templates, voracle,
                               block=storm_block, compression=compression,
                               participation=part, stragglers=strag,
-                              faults=faults, robustness=robustness)
+                              faults=faults, robustness=robustness,
+                              telemetry=telemetry)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
@@ -260,11 +284,14 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
 
     for fn in (init, train_step):
         fn.spec = engine.spec
+        fn.aspec = engine.aspec
         fn.views = views
         fn.participation = part
         fn.stragglers = strag
         fn.faults = faults
         fn.robustness = robustness
+        fn.telemetry = telemetry
+        fn.telemetry_groups = engine.step.telemetry_groups
     return init, train_step
 
 
@@ -280,11 +307,13 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               fuse_oracles: bool = False,
                               storm_block: int | None = None,
                               compression=None, participation=None,
-                              stragglers=None, faults=None, robustness=None):
+                              stragglers=None, faults=None, robustness=None,
+                              telemetry=None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
+    tel = _telemetry_setup(telemetry, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -298,7 +327,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation, stragglers, fault, robust)
+                           participation, stragglers, fault, robust, tel)
 
 
 @register("fedbio", seqs.SPECS["fedbio"])
@@ -310,10 +339,12 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_oracles: bool = False,
                            storm_block: int | None = None,
                            compression=None, participation=None,
-                           stragglers=None, faults=None, robustness=None):
+                           stragglers=None, faults=None, robustness=None,
+                           telemetry=None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
+    tel = _telemetry_setup(telemetry, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -326,7 +357,7 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
 
     return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
                            init_trees, storm_block, to_state, compression,
-                           participation, stragglers, fault, robust)
+                           participation, stragglers, fault, robust, tel)
 
 
 @register("fedbio_local", seqs.SPECS["fedbio_local"])
@@ -339,12 +370,13 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  storm_block: int | None = None,
                                  compression=None, participation=None,
                                  stragglers=None, faults=None,
-                                 robustness=None):
+                                 robustness=None, telemetry=None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
     the body x is averaged."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
+    tel = _telemetry_setup(telemetry, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -360,7 +392,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
     return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
                            voracle, init_trees, storm_block, to_state,
                            compression, participation, stragglers,
-                           fault, robust)
+                           fault, robust, tel)
 
 
 @register("fedbioacc_local", seqs.SPECS["fedbioacc_local"],
@@ -376,13 +408,14 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
                                     storm_block: int | None = None,
                                     compression=None, participation=None,
                                     stragglers=None, faults=None,
-                                    robustness=None):
+                                    robustness=None, telemetry=None):
     """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
     private lower problems.  The heads y and their momenta ω are the
     PRIVATE section, never reduced; the body x and its momentum ν are
     averaged; one fused ``storm3_step`` launch per dtype buffer between the
     two evaluations of the (Φ, ω) oracle pair."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
+    tel = _telemetry_setup(telemetry, fuse_storm)
     _require_fused_storm(fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
@@ -397,7 +430,7 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
     return _make_flat_pair(cfg, seqs.SPECS["fedbioacc_local"], templates,
                            voracle, init_trees, storm_block, to_state,
                            compression, participation, stragglers,
-                           fault, robust)
+                           fault, robust, tel)
 
 
 @register("fedavg", seqs.SPECS["fedavg"], hparams={"momentum": 0.9})
@@ -409,11 +442,13 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            fuse_oracles: bool = False,   # one oracle: no-op
                            storm_block: int | None = None,
                            compression=None, participation=None,
-                           stragglers=None, faults=None, robustness=None):
+                           stragglers=None, faults=None, robustness=None,
+                           telemetry=None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
+    tel = _telemetry_setup(telemetry, fuse_storm)
     _require_fused_storm(fuse_storm)
     check_model_options(n_micro, remat, use_flash, use_lru_kernel)
     M = cfg.num_clients
@@ -434,4 +469,4 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
                            to_state, compression, participation, stragglers,
-                           fault, robust)
+                           fault, robust, tel)

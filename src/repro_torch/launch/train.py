@@ -23,9 +23,16 @@ checkpoint, so a resume needs no re-specified flags.
     PYTHONPATH=src python -m repro_torch.launch.train --resume D
 
     # supervised: a crash restarts the run from the latest checkpoint
-    PYTHONPATH=src python -m repro_torch.launch.train \
-        --experiment experiments/fedbioacc_faulty.json --ckpt-dir D \
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --experiment experiments/fedbioacc_faulty.json --ckpt-dir D \\
         --ckpt-every 2 --max-restarts 2
+
+    # the event stream, then its checks and its summary
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --experiment experiments/fedbioacc_telemetry.json \\
+        --telemetry-sink ev.jsonl
+    PYTHONPATH=src python -m repro_torch.telemetry.validate ev.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.metrics ev.jsonl --table
 
 The run goes on the card (``--device cuda``, the default; without a card it
 stops unless ``--device cpu`` is given).  The device is a run knob, never
@@ -36,7 +43,22 @@ line also carries that step's round: ``arrivals`` (the clients that beat
 the deadline) and ``deadline`` (the effective one, in simulated seconds);
 with faults, the clients the step's round injected (``nan``,
 ``byzantine``) and, with the health screen, those its reductions screened
-out (``screened``).
+out (``screened``).  Those extra fields are the port's own; the event
+stream carries the reference's records.
+
+With ``experiment.telemetry`` (or ``--telemetry-sink EVENTS.jsonl``, which
+sets it) the run writes the reference's JSONL event stream
+(``repro_torch.telemetry``): the banners as ``note`` events, the in-band
+``metrics`` of every communication and log step, ``clients_screened``,
+``deadline`` and ``quorum_miss`` events read off them, one ``comm`` event
+a communication round from the analytic bytes plan, the ``eval`` span,
+``rollback``, ``retry_budget_exhausted``, ``checkpoint`` and a ``run_end``
+whose status is ``ok``, ``diverged`` or ``retry_budget_exhausted``.  The
+stream lands at ``telemetry.sink``, else at ``events.jsonl`` in the
+checkpoint (or resumed) directory, else in the working directory; a
+resumed run appends a new segment.  Read it with ``python -m
+repro_torch.telemetry.validate`` and ``python -m
+repro_torch.launch.metrics``.
 
 Fault tolerance (``repro_torch.federation.faults``): with
 ``experiment.robustness`` set, the loop snapshots last-known-good states
@@ -75,6 +97,7 @@ from repro_torch.api import (Experiment, RollbackError, RollbackGuard,
 from repro_torch.api.spec import ARCH_NAMES
 from repro_torch.checkpoint import (checkpoint_metadata, load_checkpoint,
                                     load_experiment, save_checkpoint)
+from repro_torch.telemetry import EventLog, comm_plan, phase, round_bytes
 
 # CLI dest → dotted Experiment path, for every flag that sets one spec field
 # (the reference's table).  Flags with coupled semantics (--seed,
@@ -352,18 +375,85 @@ def _diagnostic_checkpoint(ns, state, step: int, exp) -> None:
     print(f"diagnostic checkpoint -> {d}", flush=True)
 
 
-def _fault_fields(metrics) -> dict:
-    """The JSON line's fault fields of a step: the clients its round
-    injected and, with the health screen, those its reductions screened
-    out."""
+def _line_fields(metrics) -> dict:
+    """The JSON line's fields of a step's round, from the engine's decision
+    record (``metrics["decision"]``): with stragglers the clients that beat
+    the deadline (``arrivals``) and the effective ``deadline``; with
+    faults the clients the round injected (``nan``, ``byzantine``) and,
+    with the health screen, those its reductions screened out
+    (``screened``).  The port's own; the event stream carries the
+    reference's records."""
+    dec = metrics.get("decision", {})
     out = {}
-    if "faults" in metrics:
-        _, nan, byz = metrics["faults"]
+    if "arrivals" in dec:
+        out.update(arrivals=dec["arrivals"].nonzero().flatten().tolist(),
+                   deadline=dec["deadline"])
+    if "faults" in dec:
+        _, nan, byz = dec["faults"]
         out.update(nan=nan.nonzero().flatten().tolist(),
                    byzantine=byz.nonzero().flatten().tolist())
-    if "screened" in metrics:
-        out["screened"] = metrics["screened"]
+    if "screened" in dec:
+        out["screened"] = dec["screened"]
     return out
+
+
+def _host_metrics(metrics) -> dict:
+    """The step's in-band metrics as JSON scalars and lists, rounded as the
+    reference rounds them and in its order (its jitted step returns the
+    dict with sorted keys); the ``screened`` verdict vector is read
+    separately, and ``decision`` is the engine's record, not a metric."""
+    out = {}
+    for k, v in sorted(metrics.items()):
+        if k in ("step", "screened", "decision"):
+            continue
+        a = torch.as_tensor(v).detach().cpu()
+        out[k] = (round(float(a), 8) if a.dim() == 0
+                  else [round(x, 8) for x in a.reshape(-1).tolist()])
+    return out
+
+
+def _event_log(exp, ns, start: int):
+    """The run's :class:`EventLog` (None without ``experiment.telemetry``):
+    at ``telemetry.sink``, or ``events.jsonl`` in the checkpoint (or
+    resumed) directory, or in the working directory; a resumed run appends
+    its segment to the same stream."""
+    if exp.telemetry is None:
+        return None
+    ckdir = ns.ckpt_dir or ns.resume
+    sink = exp.telemetry.sink or (os.path.join(ckdir, "events.jsonl")
+                                  if ckdir else "events.jsonl")
+    return EventLog(sink, experiment=json.loads(exp.to_json()),
+                    start_step=start)
+
+
+def _round_events(emit, metrics, exp, t: int, retry: int) -> None:
+    """The events read off a communication step's in-band metrics:
+    ``clients_screened`` (with the health group and the screen),
+    ``deadline`` and, after an extension, ``quorum_miss`` (with the
+    stragglers group; a warm-up round, deadline 0, emits none)."""
+    r = t // exp.schedule.local_steps
+    screened = metrics.get("screened")
+    if (screened is not None and exp.robustness is not None
+            and exp.robustness.screen):
+        idx = torch.nonzero(torch.as_tensor(screened) > 0).flatten()
+        if idx.numel():
+            emit("clients_screened", step=t, round=r, retry=retry,
+                 clients=idx.tolist())
+    if exp.stragglers is None or "deadline" not in metrics:
+        return
+    dl = round(float(metrics["deadline"]), 6)
+    ext = int(metrics["extensions"])
+    if dl <= 0:
+        return
+    emit("deadline", step=t, round=r, retry=retry, deadline=dl,
+         deadline_next=round(float(metrics["deadline_next"]), 6),
+         arrivals=int(metrics["arrivals"]), quorum=int(metrics["quorum"]),
+         extensions=ext,
+         arrival_hist=[int(round(x)) for x in
+                       metrics["arrival_hist"].tolist()])
+    if ext > 0:
+        emit("quorum_miss", step=t, round=r, retry=retry, extensions=ext,
+             deadline=dl)
 
 
 def main(argv=None):
@@ -389,8 +479,25 @@ def main(argv=None):
         raise SystemExit(str(e))
     exp = run.spec
 
-    print(f"arch={run.model_cfg.name} family={run.model_cfg.family} "
-          f"algo={exp.algorithm.name} device={run.device}", flush=True)
+    # every line the CLI reports goes through the event stream (with
+    # experiment.telemetry) and stdout renders the same records
+    log = _event_log(exp, ns, start)
+    tracing = log is not None and exp.telemetry.trace
+
+    def emit(event, render=None, **fields):
+        if log is not None:
+            log.emit(event, **fields)
+        if render is not None:
+            print(render, flush=True)
+
+    def end(status: str, t: int) -> None:
+        if log is not None:
+            log.emit("run_end", step=t, status=status)
+            log.close()
+
+    banner = (f"arch={run.model_cfg.name} family={run.model_cfg.family} "
+              f"algo={exp.algorithm.name} device={run.device}")
+    emit("note", render=banner, text=banner)
     pspec = run.participation
     if pspec is not None:
         M = exp.problem.num_clients
@@ -400,13 +507,14 @@ def main(argv=None):
             detail = f"rate={pspec.availability_rate}"
         else:
             detail = f"m={pspec.clients_per_round or M}/{M}"
-        print(f"participation: {pspec.sampler} {detail} seed={pspec.seed}",
-              flush=True)
+        banner = f"participation: {pspec.sampler} {detail} seed={pspec.seed}"
+        emit("note", render=banner, text=banner)
     sg = exp.stragglers
     if sg is not None:
-        print(f"stragglers: policy={sg.late_policy} deadline={sg.deadline} "
-              f"quorum={sg.quorum} over_provision={sg.over_provision} "
-              f"tail={sg.tail}", flush=True)
+        banner = (f"stragglers: policy={sg.late_policy} "
+                  f"deadline={sg.deadline} quorum={sg.quorum} "
+                  f"over_provision={sg.over_provision} tail={sg.tail}")
+        emit("note", render=banner, text=banner)
 
     guard = (RollbackGuard(exp.robustness) if exp.robustness is not None
              else None)
@@ -419,23 +527,48 @@ def main(argv=None):
         _set_gen_state(data_gen, md["data_gen"])
         if guard is not None:
             guard.retries = int(md.get("retries", 0))
-        print(f"resumed from {ns.resume} @ step {start}", flush=True)
+        banner = f"resumed from {ns.resume} @ step {start}"
+        emit("note", render=banner, text=banner)
 
+    # the analytic per-round bytes plan: one reconcilable `comm` event a
+    # communication round
+    plan = (comm_plan(run.step.spec, run.step.aspec, exp.compression)
+            if log is not None else None)
+    in_band = bool(run.step.telemetry_groups)
+    local_steps = exp.schedule.local_steps
+    retry = lambda: guard.retries if guard is not None else 0  # noqa: E731
     history = []
     t0 = time.perf_counter()
     t = start
     while t < exp.schedule.steps:
         state, metrics = run.step(state, run.batch_fn(data_gen))
         t += 1
+        is_comm = t % local_steps == 0
         # the reference's evaluation steps; the port also prints the last
-        # step's loss, which feeds nothing
+        # step's loss, which feeds nothing and emits no event
         is_log = t % ns.log_every == 0 or t == start + 1
+        if log is not None and in_band and (is_comm or is_log):
+            # host-converted at communication and log steps only
+            emit("metrics", step=t, retry=retry(), **_host_metrics(metrics))
+            if is_comm:
+                _round_events(emit, metrics, exp, t, retry())
+        if plan is not None and is_comm:
+            rb_ev = round_bytes(plan, t // local_steps)
+            if rb_ev is not None:
+                emit("comm", step=t, retry=retry(), **rb_ev)
         if is_log or t == exp.schedule.steps:
-            loss = run.eval_fn(state)
+            if tracing and is_log:
+                with phase("eval", log, step=t):
+                    loss = run.eval_fn(state)
+            else:
+                loss = run.eval_fn(state)
             if guard is not None and is_log:
                 try:
                     rb = guard.observe(t, state, data_gen, loss)
                 except RollbackError as e:
+                    emit("retry_budget_exhausted", step=t, retry=retry(),
+                         bad_loss=float(loss))
+                    end("retry_budget_exhausted", t)
                     _diagnostic_checkpoint(ns, state, t, exp)
                     raise SystemExit(f"round {t}: {e}")
                 if rb is not None:
@@ -443,25 +576,27 @@ def main(argv=None):
                     # else the tuple keeps this state on the device after
                     # the next step has replaced it
                     del rb
-                    print(json.dumps({"rollback_to": t,
-                                      "retry": guard.retries,
-                                      "bad_loss": loss}), flush=True)
+                    emit("rollback",
+                         render=json.dumps({"rollback_to": t,
+                                            "retry": guard.retries,
+                                            "bad_loss": loss}),
+                         step=t, retry=guard.retries, bad_loss=float(loss))
                     continue
             elif guard is None and not math.isfinite(loss):
+                end("diverged", t)
                 _diagnostic_checkpoint(ns, state, t, exp)
                 raise SystemExit(
                     f"non-finite eval loss ({loss}) at round {t}: training "
                     f"diverged — inspect the diagnostic checkpoint, enable "
                     f"robustness guards (experiment.robustness), or lower "
                     f"the learning rates")
-            history.append({"step": t, "val_loss": loss,
-                            "wall_s": round(time.perf_counter() - t0, 3)})
-            if sg is not None:
-                history[-1].update(
-                    arrivals=metrics["arrivals"].nonzero().flatten().tolist(),
-                    deadline=metrics["deadline"])
-            history[-1].update(_fault_fields(metrics))
-            print(json.dumps(history[-1]), flush=True)
+            rec = {"step": t, "val_loss": loss,
+                   "wall_s": round(time.perf_counter() - t0, 3)}
+            history.append({**rec, **_line_fields(metrics)})
+            if is_log:
+                emit("metrics", render=json.dumps(history[-1]), **rec)
+            else:
+                print(json.dumps(history[-1]), flush=True)
         if ns.ckpt_dir and t % ns.ckpt_every == 0:
             # the raw state and the embedded spec: --resume rebuilds the
             # structure from the spec alone; the generator's state makes
@@ -469,13 +604,16 @@ def main(argv=None):
             # retry count those after a rollback
             save_checkpoint(ns.ckpt_dir, state,
                             {"step": t, "arch": run.model_cfg.name,
-                             "retries": guard.retries if guard else 0,
+                             "retries": retry(),
                              "data_gen": _gen_state(data_gen)},
                             experiment=exp)
-            print(f"checkpoint @ step {t} -> {ns.ckpt_dir}", flush=True)
+            emit("checkpoint",
+                 render=f"checkpoint @ step {t} -> {ns.ckpt_dir}",
+                 step=t, path=ns.ckpt_dir)
         if ns.crash_at_step and start == 0 and t == ns.crash_at_step:
             print(f"crash-at-step: hard exit after step {t}", flush=True)
             os._exit(17)
+    end("ok", t)
     return history
 
 

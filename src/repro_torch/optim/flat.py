@@ -716,3 +716,130 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
     if compress is None:
         return bufs
     return bufs, (tuple(ef_out) if has_ef else ())
+
+
+# ---------------------------------------------------------------------------
+# Telemetry metrics (read-only side outputs: they never touch a trajectory)
+# ---------------------------------------------------------------------------
+#
+# Each metric runs over column chunks of ``_CHUNK``, so that no f32 [M, N]
+# temporary outlives one chunk, and sums its squares in f64 (the
+# reference's f32 sums run in XLA's order, which is not reproduced).
+# Results are 0-d (or [M]) f32 tensors on the buffers' device, read by the
+# host only where the train CLI logs them.
+
+def _section_cols(spec: FlatSpec, grp: _Group) -> dict:
+    """Column ranges of every section in one buffer:
+    ``{section_index: [(start, stop), ...]}`` (the port's layout is the
+    unsharded one, so one range a section)."""
+    out: dict = {}
+    for s, a, b in grp.extents:
+        out.setdefault(int(s), []).append((a, b))
+    return out
+
+
+def _chunks(a: int, b: int, step: int = _CHUNK):
+    for c in range(a, b, step):
+        yield c, min(c + step, b)
+
+
+def section_norms(spec: FlatSpec, bufs, *, mask=None, prefix="norm",
+                  minus=None) -> dict:
+    """Per-section l2 norms of flat [M, N] buffers (telemetry side output):
+    ``{"<prefix>/<section>": 0-d f32}``.  ``mask`` [M] restricts the sum to
+    participant rows (selected, so a left-out row never multiplies a
+    NaN).  ``minus``: buffers of the same layout; the norm is then that of
+    ``bufs − minus``, the difference taken in the buffers' dtype as the
+    reference takes it, a chunk at a time.  Section padding is zero by
+    construction and contributes nothing."""
+    names = spec.sections or ("all",)
+    sq: dict = {}
+    for gi, (grp, buf) in enumerate(zip(spec.groups, bufs)):
+        keep = None if mask is None else _rows(mask > 0, buf)
+        for s, runs in _section_cols(spec, grp).items():
+            for a, b in runs:
+                for c0, c1 in _chunks(a, b):
+                    x = buf[:, c0:c1]
+                    if minus is not None:
+                        x = x - minus[gi][:, c0:c1]
+                    x = x.to(torch.float32)
+                    if keep is not None:
+                        x = torch.where(keep, x, 0.0)
+                    part = x.square().sum(dtype=torch.float64)
+                    sq[s] = part if s not in sq else sq[s] + part
+    return {f"{prefix}/{names[s]}": v.sqrt().to(torch.float32)
+            for s, v in sorted(sq.items())}
+
+
+def section_drift(spec: FlatSpec, bufs, *, mask=None,
+                  prefix="drift") -> dict:
+    """Per-section client-drift dispersion (telemetry side output): the rms
+    distance of participant rows to the participants' mean row, the
+    non-IID heterogeneity term, measured on the LOCAL iterates before
+    averaging.  The mean is taken in f32 as the reference takes it; same
+    masking as :func:`section_norms`."""
+    names = spec.sections or ("all",)
+    m = bufs[0].shape[0]
+    rows = (None if mask is None
+            else torch.nonzero(mask.cpu() > 0).flatten())
+    cnt = m if rows is None else max(int(rows.numel()), 1)
+    sq: dict = {}
+    for grp, buf in zip(spec.groups, bufs):
+        idx = None if rows is None else rows.to(buf.device)
+        for s, runs in _section_cols(spec, grp).items():
+            for a, b in runs:
+                for c0, c1 in _chunks(a, b):
+                    seg = buf[:, c0:c1]
+                    x = (seg if idx is None else seg[idx]).to(torch.float32)
+                    mean = x.sum(dim=0, keepdim=True) / cnt
+                    part = (x - mean).square().sum(dtype=torch.float64)
+                    sq[s] = part if s not in sq else sq[s] + part
+    return {f"{prefix}/{names[s]}": (v / cnt).sqrt().to(torch.float32)
+            for s, v in sorted(sq.items())}
+
+
+def quant_roundtrip_err(bufs, block: int, quant) -> torch.Tensor:
+    """l2 norm of the quantization round-trip error over ``bufs``: the
+    value error the next compressed send of these buffers would incur
+    (telemetry side output).  int8 goes through the ``quantpack`` /
+    ``quantunpack`` wrappers (the kernels on a CUDA tensor, their plain
+    versions on the CPU), a tile-aligned chunk of columns at a time."""
+    if quant not in ("bf16", "int8"):
+        raise ValueError(f"unknown compression quant {quant!r}")
+    step = max(_CHUNK // block, 1) * block
+    sq = torch.zeros((), dtype=torch.float64, device=bufs[0].device)
+    for b in bufs:
+        for c0, c1 in _chunks(0, b.shape[-1], step):
+            x = b[..., c0:c1].to(torch.float32)
+            if quant == "int8":
+                q, s = quantpack_flat(x.reshape(-1), block=block)
+                d = quantunpack_flat(q, s, block=block).reshape(x.shape) - x
+                del q, s
+            else:
+                d = x.to(torch.bfloat16).to(torch.float32) - x
+            sq += d.square().sum(dtype=torch.float64)
+    return sq.sqrt().to(torch.float32)
+
+
+def health_screen(spec: FlatSpec, bufs, mask, corrupt,
+                  robust: RobustCfg) -> torch.Tensor:
+    """Recomputed health-screen verdicts for telemetry: [M] f32 on the
+    host, 1 where a participant (``mask > 0``, every client without a
+    mask) would FAIL the screen on what it sends this round.  The rows are
+    whole client rows over every buffer, cast to f32 before the fault
+    transform, as the reference concatenates them; the verdict is the
+    guarded reduction's rule (:func:`_health_stats`) with its z-score over
+    those whole-row norms, an audit approximation (the guarded reduction
+    itself screens each run)."""
+    m, dev = bufs[0].shape[0], bufs[0].device
+    p = (torch.ones(m, dtype=torch.bool) if mask is None
+         else mask.cpu() > 0)
+    finite = torch.ones(m, dtype=torch.bool, device=dev)
+    sq = torch.zeros(m, dtype=torch.float64, device=dev)
+    for buf in bufs:
+        for c0, c1 in _chunks(0, buf.shape[-1]):
+            x = _corrupt_rows(buf[:, c0:c1].to(torch.float32), corrupt)
+            finite &= torch.isfinite(x).all(dim=1)
+            sq += x.square().sum(dim=1, dtype=torch.float64)
+    h, _ = _health_stats(finite.cpu(), sq.cpu(), p, robust)
+    return p.to(torch.float32) * (1.0 - h)

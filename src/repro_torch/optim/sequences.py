@@ -26,8 +26,12 @@ each round's arrival set, decided on the host against the deadline on
 (``faults=``: each round's ``(keep, nan, byz)`` masks, drawn on the host
 from the round and the retry count on ``FlatState.retry``; ``keep``
 narrows the launch mask and the weights, and the corruption and
-``robustness=``'s guarded reductions act inside both means); no
-telemetry, sharding or per-sequence cadences.
+``robustness=``'s guarded reductions act inside both means) and telemetry
+(``telemetry=``: the resolved metric groups are computed beside each step
+from its flat buffers, into the step's metrics dict); no sharding or
+per-sequence cadences.  The step's phases (oracles, fused update,
+reductions, metric passes) carry ``telemetry.annotate`` ranges for a
+profiler trace.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device; so do
@@ -45,7 +49,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.federation.stragglers import arrival_histogram
 from repro_torch.optim import flat
+from repro_torch.telemetry.spec import resolve_metric_groups
+from repro_torch.telemetry.trace import annotate
 
 AVERAGED = "averaged"
 HIERARCHICAL = "hierarchical"
@@ -214,15 +221,22 @@ class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
     step=0, ef=None, stale=None, deadline=None, retry=None)``,
     ``step(state, batch, metrics=None) -> state`` and ``views(state) ->
-    (var_dict, mom_dict)`` (``mom_dict`` None without momentum).  With
-    stragglers, ``step`` writes the round's decision into ``metrics`` when
-    given a dict: ``arrivals`` ([M] f32 host mask), ``deadline``
-    (effective), ``deadline_next``, ``extensions`` and ``quorum``; with
-    faults, the round's ``faults`` (the ``(keep, nan, byz)`` host masks)
-    and, with the health screen, ``health``: the verdict [M] (1 = healthy
-    participant) of each guarded reduction of the step, in order, and
-    ``screened``: the participants that any of them screened out (both
-    empty at a step that does not communicate)."""
+    (var_dict, mom_dict)`` (``mom_dict`` None without momentum).
+
+    Given a ``metrics`` dict, ``step`` writes into it.  Its round's
+    decision goes under ``metrics["decision"]`` (a dict, present only
+    with stragglers or faults): with stragglers ``arrivals`` ([M] f32 host
+    mask), ``deadline`` (effective), ``deadline_next``, ``extensions`` and
+    ``quorum``; with faults ``faults`` (the ``(keep, nan, byz)`` host
+    masks) and, with the health screen, ``health``: the verdict [M] (1 =
+    healthy participant) of each guarded reduction of the step, in order,
+    and ``screened``: the participants that any of them screened out
+    (both empty at a step that does not communicate).  With telemetry,
+    the in-band metrics of ``step.telemetry_groups`` go in at the top
+    level under the reference's keys and shapes (``upd_norm/<sec>``,
+    ``drift/<sec>``, ``screened`` [M], ``deadline``, ``arrivals``, ...; see
+    :func:`make_engine`), 0-d or 1-d f32 tensors that the host reads only
+    where it logs them."""
     aspec: AlgoSpec
     spec: flat.FlatSpec
     init_state: Any
@@ -285,7 +299,7 @@ def _robust_cfg(robustness):
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 block: int | None = None, compression=None,
                 participation=None, stragglers=None, faults=None,
-                robustness=None) -> Engine:
+                robustness=None, telemetry=None) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
@@ -352,6 +366,28 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             f"'Compression, the rest')")
     ccfg = (None if compression is None
             else _compress_cfg(cfg, aspec, compression))
+    tel_groups = ()
+    if telemetry is not None:
+        tel_groups = resolve_metric_groups(
+            getattr(telemetry, "metrics", None),
+            compressed=ccfg is not None,
+            guarded=faults is not None or rcfg is not None,
+            sampled=participation is not None,
+            straggled=stragglers is not None)
+        if "stragglers" in tel_groups and stragglers is None:
+            raise ValueError(
+                "telemetry metrics group 'stragglers' needs stragglers= — "
+                "there is no deadline or arrival set to report")
+        if "compression" in tel_groups and ccfg is None:
+            raise ValueError(
+                "telemetry metrics group 'compression' needs compression= "
+                "— there is no EF residual or quantization error to report")
+        if "health" in tel_groups and (participation is None
+                                       and faults is None and rcfg is None):
+            raise ValueError(
+                "telemetry metrics group 'health' needs participation "
+                "sampling, faults= or robustness= — there is nothing to "
+                "screen")
     has_ef = ccfg is not None and ccfg.has_ef
     sections = aspec.sections
     has_mom = aspec.has_momentum
@@ -370,31 +406,33 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
                                  batch_dims=1, dtype=torch.float32)
 
-    def _round_ctx(state: FlatState, metrics):
+    def _round_ctx(state: FlatState, decision):
         """(launch mask, comm weights, corrupt transform, staleness mask,
-        next deadline) of the round ``state.step`` belongs to, all on the
+        straggler info) of the round ``state.step`` belongs to, all on the
         host, in the reference's order: the sampled mask, the arrival
         decision, the launch mask by policy, the weights times the
         arrivals, the fault masks, then the α^staleness discount.  Masks
         and weights None with neither participation, stragglers nor
-        faults; the straggler decision and the fault masks also go into
-        ``metrics``."""
+        faults; the straggler info ``(arrivals, eff, ext, next_deadline,
+        sampled)`` None without stragglers.  The straggler decision and
+        the fault masks also go into ``decision`` (a dict, or None)."""
         r = state.step // cfg.local_steps
         if part is None:
             mask, w = None, None
         else:
             mask, w = part.round_weights(r)
-        stale_mask, next_dl = mask, None
+        stale_mask, s_info = mask, None
         if strag is not None:
             sampled = (torch.ones(strag.num_clients, dtype=torch.float32)
                        if mask is None else mask)
             arrivals, eff, ext, next_dl = strag.round_decision(
                 r, sampled, state.deadline)
-            if metrics is not None:
-                metrics.update(arrivals=arrivals, deadline=float(eff),
-                               deadline_next=float(next_dl),
-                               extensions=int(ext),
-                               quorum=int(strag.quorum_count(sampled)))
+            s_info = (arrivals, eff, ext, next_dl, sampled)
+            if decision is not None:
+                decision.update(arrivals=arrivals, deadline=float(eff),
+                                deadline_next=float(next_dl),
+                                extensions=int(ext),
+                                quorum=int(strag.quorum_count(sampled)))
             # "carry" keeps stragglers computing; "drop" and "cancel"
             # freeze them like non-participants
             mask = sampled if late == "carry" else arrivals
@@ -405,8 +443,8 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         corrupt = None
         if faults is not None:
             keep, nan, byz = faults.round_masks(r, int(state.retry))
-            if metrics is not None:
-                metrics["faults"] = (keep, nan, byz)
+            if decision is not None:
+                decision["faults"] = (keep, nan, byz)
             # a dropped client behaves exactly like a non-participant:
             # frozen bit for bit in the launches, averaged around in comm
             mask = keep if mask is None else mask * keep
@@ -415,19 +453,19 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             corrupt = (nan, byz, faults.spec.byzantine_scale)
         if w is not None:
             w = staleness_weights(w, state.stale, alpha)
-        return mask, w, corrupt, stale_mask, next_dl
+        return mask, w, corrupt, stale_mask, s_info
 
     def _next_stale(state: FlatState, stale_mask):
         if not need_stale:
             return state.stale
         return advance_stale(cfg, state.step, stale_mask, state.stale)
 
-    def _next_deadline(state: FlatState, next_dl):
+    def _next_deadline(state: FlatState, s_info):
         """The deadline moves once a round, at the communication step, so
         every local step of a round sees the same arrival set."""
-        if next_dl is None or (state.step + 1) % cfg.local_steps != 0:
+        if s_info is None or (state.step + 1) % cfg.local_steps != 0:
             return state.deadline
-        return next_dl
+        return s_info[3]
 
     def comm(step: int, bufs, ef, weights, corrupt=None, verdicts=None):
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
@@ -480,82 +518,175 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         return FlatState(vars_b, mom_b, int(step), ef_b, stale_b, dl_b,
                          retry_b)
 
-    def _verdicts(metrics):
-        """The list the guarded reductions of a step append their health
-        verdicts to (``metrics["health"]``), or None."""
-        if metrics is None or rcfg is None or not rcfg.screen:
+    def _decision(metrics):
+        """The step's decision record ``metrics["decision"]`` (None without
+        a metrics dict, or when there is nothing to decide)."""
+        if metrics is None or (strag is None and faults is None):
             return None
-        return metrics.setdefault("health", [])
+        return metrics.setdefault("decision", {})
 
-    def _screened(metrics, wts) -> None:
-        """``metrics["screened"]``: the senders (``wts > 0``) that a guarded
-        reduction of the step screened out."""
-        verdicts = None if metrics is None else metrics.get("health")
+    def _verdicts(decision):
+        """The list the guarded reductions of a step append their health
+        verdicts to (``decision["health"]``), or None."""
+        if decision is None or rcfg is None or not rcfg.screen:
+            return None
+        return decision.setdefault("health", [])
+
+    def _screened(decision, wts) -> None:
+        """``decision["screened"]``: the senders (``wts > 0``) that a
+        guarded reduction of the step screened out."""
+        verdicts = None if decision is None else decision.get("health")
         if verdicts is None:
             return
         failed = [i for i in range(len(verdicts[0]))
                   if any(v[i] == 0 for v in verdicts)] if verdicts else []
-        metrics["screened"] = [i for i in failed
-                               if wts is None or wts[i] > 0]
+        decision["screened"] = [i for i in failed
+                                if wts is None or wts[i] > 0]
+
+    def _tel_local(metrics, mask, corrupt, local_vars) -> dict:
+        """The metric groups that read the round's LOCAL (pre-reduction)
+        iterates: drift, the quantization round trip, the health screen.
+        Run before the first reduction writes them over."""
+        if not tel_groups or metrics is None:
+            return {}
+        m = {}
+        with annotate("telemetry/local"):
+            if "drift" in tel_groups:
+                m.update(flat.section_drift(spec, local_vars, mask=mask))
+            if "compression" in tel_groups and ccfg.quant is not None:
+                m["quant_err"] = flat.quant_roundtrip_err(
+                    local_vars, spec.groups[0].block, ccfg.quant)
+            if "health" in tel_groups and rcfg is not None:
+                m["screened"] = flat.health_screen(spec, local_vars, mask,
+                                                   corrupt, rcfg)
+        return m
+
+    def _tel_metrics(metrics, state: FlatState, new: FlatState, mask,
+                     corrupt, s_info, local: dict) -> None:
+        """Write the step's in-band metrics into ``metrics`` in the
+        reference's order; ``local`` holds what :func:`_tel_local` read
+        before the reductions."""
+        if not tel_groups or metrics is None:
+            return
+        m = metrics
+        with annotate("telemetry"):
+            if "norms" in tel_groups:
+                m.update(flat.section_norms(spec, new.vars, mask=mask,
+                                            prefix="upd_norm",
+                                            minus=state.vars))
+                if new.mom:
+                    m.update(flat.section_norms(spec, new.mom, mask=mask,
+                                                prefix="mom_norm"))
+            m.update({k: v for k, v in local.items()
+                      if k.startswith("drift/")})
+            if "compression" in tel_groups:
+                if new.ef:
+                    m.update(flat.section_norms(spec, new.ef[0],
+                                                prefix="ef_norm"))
+                if "quant_err" in local:
+                    m["quant_err"] = local["quant_err"]
+            if "health" in tel_groups:
+                if mask is not None:
+                    m["participants"] = (mask > 0).to(torch.float32).sum()
+                if need_stale:
+                    m["stale_hist"] = torch.bincount(
+                        torch.clamp(new.stale, 0, 7).to(torch.int64),
+                        minlength=8).to(torch.float32)
+                if corrupt is not None:
+                    nan, byz, _ = corrupt
+                    m["injected_nan"] = nan.to(torch.float32).sum()
+                    m["injected_byz"] = byz.to(torch.float32).sum()
+                if "screened" in local:
+                    m["screened"] = local["screened"]
+            if "stragglers" in tel_groups and s_info is not None:
+                arrivals, eff, ext, next_dl, sampled = s_info
+                rt = strag.round_times(state.step // cfg.local_steps)
+                m["deadline"] = eff
+                m["deadline_next"] = next_dl
+                m["arrivals"] = (arrivals > 0).to(torch.float32).sum()
+                m["quorum"] = strag.quorum_count(sampled).to(torch.float32)
+                m["extensions"] = torch.as_tensor(ext).to(torch.float32)
+                m["arrival_hist"] = arrival_histogram(rt, eff, sampled)
 
     def _storm_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts, corrupt, stale_mask, next_dl = _round_ctx(state, metrics)
-        verdicts = _verdicts(metrics)
+        decision = _decision(metrics)
+        mask, wts, corrupt, stale_mask, s_info = _round_ctx(state, decision)
+        verdicts = _verdicts(decision)
         a = alpha_schedule(cfg, t)
         lrs = tuple(_f32(getattr(cfg, q.lr)) * a for q in aspec.sequences)
         decays = tuple(_f32(1.0) - _f32(getattr(cfg, q.decay)) * a * a
                        for q in aspec.sequences)
         # 1) old-iterate oracle on pytree views of the entering iterate;
         #    non-participants' contributions are zeroed
-        g_old = flat.mask_buffers(_flatten_grads(oracle(
-            flat.unflatten_tree(spec, state.vars), batch)), mask)
+        with annotate("oracle/old"):
+            g_old = flat.mask_buffers(_flatten_grads(oracle(
+                flat.unflatten_tree(spec, state.vars), batch)), mask)
         # 2) variable step + partial momentum: one gated launch per buffer
-        vars_b, mom_b = flat.storm_partial_step(spec, state.vars, state.mom,
-                                                g_old, lrs, decays, mask=mask)
+        with annotate("update"):
+            vars_b, mom_b = flat.storm_partial_step(
+                spec, state.vars, state.mom, g_old, lrs, decays, mask=mask)
         del g_old
+        local = _tel_local(metrics, mask, corrupt, vars_b)
         efv, efm = state.ef if state.ef else ((), ())
-        # 3) communicate the variables
-        vars_c, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
+        # 3) communicate the variables (in place: vars_b is overwritten)
+        with annotate("comm/vars"):
+            vars_c, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
         # 4) new-iterate oracle, same batch; the STORM correction is one add
-        g_new = flat.mask_buffers(_flatten_grads(oracle(
-            flat.unflatten_tree(spec, vars_c), batch)), mask)
+        with annotate("oracle/new"):
+            g_new = flat.mask_buffers(_flatten_grads(oracle(
+                flat.unflatten_tree(spec, vars_c), batch)), mask)
         mom_b = flat.buffers_add(mom_b, g_new)
         del g_new
-        mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
-        _screened(metrics, wts)
-        return FlatState(vars_c, mom_b, t + 1,
-                         (efv, efm) if state.ef else (),
-                         _next_stale(state, stale_mask),
-                         _next_deadline(state, next_dl), state.retry)
+        with annotate("comm/mom"):
+            mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
+        _screened(decision, wts)
+        new = FlatState(vars_c, mom_b, t + 1,
+                        (efv, efm) if state.ef else (),
+                        _next_stale(state, stale_mask),
+                        _next_deadline(state, s_info), state.retry)
+        _tel_metrics(metrics, state, new, mask, corrupt, s_info, local)
+        return new
 
     def _sgd_step(state: FlatState, batch, metrics=None) -> FlatState:
         t = state.step
-        mask, wts, corrupt, stale_mask, next_dl = _round_ctx(state, metrics)
-        verdicts = _verdicts(metrics)
+        decision = _decision(metrics)
+        mask, wts, corrupt, stale_mask, s_info = _round_ctx(state, decision)
+        verdicts = _verdicts(decision)
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
-        g = flat.mask_buffers(_flatten_grads(oracle(
-            flat.unflatten_tree(spec, state.vars), batch)), mask)
+        with annotate("oracle"):
+            g = flat.mask_buffers(_flatten_grads(oracle(
+                flat.unflatten_tree(spec, state.vars), batch)), mask)
         efv, efm = state.ef if state.ef else ((), ())
         if has_mom:
             betas = (_f32(aspec.beta),) * len(aspec.sequences)
-            vars_b, mom_b = flat.momentum_sgd_step(spec, state.vars,
-                                                   state.mom, g, lrs, betas,
-                                                   mask=mask)
-            mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
+            with annotate("update"):
+                vars_b, mom_b = flat.momentum_sgd_step(
+                    spec, state.vars, state.mom, g, lrs, betas, mask=mask)
+            local = _tel_local(metrics, mask, corrupt, vars_b)
+            with annotate("comm/mom"):
+                mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
         else:
             # no momentum: the plain-SGD launch reads and writes no momentum
-            vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask)
+            with annotate("update"):
+                vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask)
+            local = _tel_local(metrics, mask, corrupt, vars_b)
             mom_b = ()
         del g
-        vars_b, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
-        _screened(metrics, wts)
-        return FlatState(vars_b, mom_b, t + 1,
-                         (efv, efm) if state.ef else (),
-                         _next_stale(state, stale_mask),
-                         _next_deadline(state, next_dl), state.retry)
+        with annotate("comm/vars"):
+            vars_b, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
+        _screened(decision, wts)
+        new = FlatState(vars_b, mom_b, t + 1,
+                        (efv, efm) if state.ef else (),
+                        _next_stale(state, stale_mask),
+                        _next_deadline(state, s_info), state.retry)
+        _tel_metrics(metrics, state, new, mask, corrupt, s_info, local)
+        return new
 
     step = _storm_step if aspec.kind == "storm" else _sgd_step
+    # what the step computes in-band (() = none): the trainer and the
+    # train CLI branch on this, not on telemetry's presence
+    step.telemetry_groups = tel_groups
 
     def views(state: FlatState):
         vt = flat.unflatten_tree(spec, state.vars)

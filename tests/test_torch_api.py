@@ -1,9 +1,11 @@
 """The port's package boundary and its spec surface: no file of
 ``repro_torch`` (nor ``chip_smoke.py``) imports JAX or the JAX package; every committed experiment
 parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
-``fedavg.json``, ``fedbioacc_int8_topk.json``, ``fedbioacc_local.json`` and
-``fedbioacc_straggler.json`` build; every other committed spec is refused with
-``NotImplementedError`` naming the feature the port does not run yet (so is
+``fedavg.json``, ``fedbioacc_int8_topk.json``, ``fedbioacc_local.json``,
+``fedbioacc_straggler.json``, ``fedbioacc_faulty.json`` and
+``fedbioacc_telemetry.json`` build; the other committed spec (sharded) is
+refused with ``NotImplementedError`` naming the feature the port does not
+run yet (so is the telemetry spec asking for a per-section cadence, and
 training through the model kernels, or of the hybrid family); and the entry
 points want a card unless the CPU is asked for."""
 import ast
@@ -32,10 +34,15 @@ SAMPLED = {"fedbioacc_local.json": ("uniform", 2)}
 STRAGGLED = {"fedbioacc_straggler.json": ("drop", 6)}
 # committed specs with faults: (aggregator, retry budget)
 FAULTED = {"fedbioacc_faulty.json": ("clip", 2)}
-# what each other committed spec sets that the port does not run yet
+# committed specs with telemetry: the metric groups each step computes
+TELEMETRIED = {"fedbioacc_telemetry.json": ("norms", "drift")}
+# each other committed spec, and the telemetry spec edited to ask for an
+# unported feature: (edits, what the port refuses in it)
 REFUSED = {
-    "fedbioacc_sharded_overlap.json": ["execution.mesh", "execution.overlap"],
-    "fedbioacc_telemetry.json": ["telemetry"],
+    "fedbioacc_sharded_overlap.json": (
+        {}, ["execution.mesh", "execution.overlap"]),
+    "fedbioacc_telemetry.json": (
+        {"schedule.comm_every": {"u": 2}}, ["schedule.comm_every"]),
 }
 
 
@@ -87,18 +94,36 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_committed_specs_are_all_covered():
     assert sorted(p.name for p in EXPERIMENTS) == \
-        sorted(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *SAMPLED,
-                *STRAGGLED, *FAULTED, *REFUSED])
+        sorted(set(["fedbioacc.json", *SGD_KIND, *COMPRESSED, *SAMPLED,
+                    *STRAGGLED, *FAULTED, *TELEMETRIED, *REFUSED]))
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_features_are_refused_by_name(name):
-    exp = Experiment.load(str(ROOT / "experiments" / name))
+    edits, features = REFUSED[name]
+    exp = Experiment.load(str(ROOT / "experiments" / name)).edit(**edits)
     with pytest.raises(NotImplementedError) as err:
         build(exp, device="cpu")
-    for feature in REFUSED[name]:
+    for feature in features:
         assert feature in str(err.value), (feature, str(err.value))
     assert "ROADMAP" in str(err.value)
+
+
+@pytest.mark.parametrize("name", sorted(TELEMETRIED))
+def test_telemetry_spec_builds_and_steps_on_cpu(name):
+    exp = Experiment.load(str(ROOT / "experiments" / name))
+    run = build(exp.edit(**{"schedule.steps": 1}), device="cpu")
+    assert run.step.telemetry_groups == TELEMETRIED[name]
+    assert run.step.telemetry == exp.telemetry
+    state = run.init(torch.Generator().manual_seed(0))
+    state, metrics = run.step(state, run.batch_fn(
+        torch.Generator().manual_seed(1)))
+    assert state.step == metrics["step"] == 1
+    for sec in run.init.spec.sections:
+        # STORM steps with the entering momentum: step 1 does not move
+        assert float(metrics[f"upd_norm/{sec}"]) == 0.0
+        assert float(metrics[f"mom_norm/{sec}"]) > 0.0
+        assert float(metrics[f"drift/{sec}"]) == 0.0   # equal clients
 
 
 def test_fedbioacc_spec_builds_on_cpu():
@@ -167,8 +192,9 @@ def test_straggled_spec_builds_and_steps_on_cpu(name):
     state, metrics = run.step(state, run.batch_fn(
         torch.Generator().manual_seed(1)))
     assert state.step == metrics["step"] == 1
-    assert metrics["quorum"] <= int(metrics["arrivals"].sum()) <= 6
-    assert metrics["deadline"] == exp.stragglers.deadline
+    decided = metrics["decision"]
+    assert decided["quorum"] <= int(decided["arrivals"].sum()) <= 6
+    assert decided["deadline"] == exp.stragglers.deadline
 
 
 @pytest.mark.parametrize("edit", [
@@ -270,8 +296,9 @@ def test_faulty_spec_builds_and_steps_on_cpu(name):
     state, metrics = run.step(state, run.batch_fn(
         torch.Generator().manual_seed(1)))
     assert state.step == metrics["step"] == 1
-    keep, nan, byz = metrics["faults"]
+    keep, nan, byz = metrics["decision"]["faults"]
     # round 0 is before the spec's start_round: clean, all 8 clients sent
     assert keep.tolist() == [1.0] * 8 and not nan.any() and not byz.any()
     # step 1 does not communicate: no guarded reduction ran
-    assert metrics["health"] == [] and metrics["screened"] == []
+    assert metrics["decision"]["health"] == [] and \
+        metrics["decision"]["screened"] == []

@@ -487,9 +487,10 @@ def test_cuda_straggler_round_freezes_non_arrivals(card):
         state = eng.init_state({s: v.to(dev) for s, v in init.items()})
         tk.reset_counts()
         for b in (0.3, 0.4):
-            before, decided = state, {}
-            state = eng.step(state, torch.tensor(b, device=dev), decided)
-            assert decided["arrivals"].tolist() == [1.0, 1.0, 1.0, 0.0]
+            before, metrics = state, {}
+            state = eng.step(state, torch.tensor(b, device=dev), metrics)
+            assert metrics["decision"]["arrivals"].tolist() == \
+                [1.0, 1.0, 1.0, 0.0]
             for b0, b1 in zip(before.vars + before.mom,
                               state.vars + state.mom):
                 np.testing.assert_array_equal(bits(b1[3]), bits(b0[3]))

@@ -594,7 +594,8 @@ def _spread(jrun, jstate, batch):
 def _parity(exp_json: dict, steps: int, monkeypatch):
     """Run ``steps`` steps of the spec on both packages from the
     reference's initial state and batches; check masks, verdicts, each
-    guarded reduction and the buffers.  Returns the port's metrics."""
+    guarded reduction and the buffers.  Returns the port's decision
+    records (``metrics["decision"]``)."""
     jexp, exp = JExperiment.from_json(json.dumps(exp_json)), \
         Experiment.from_json(json.dumps(exp_json))
     calls = []
@@ -634,12 +635,12 @@ def _parity(exp_json: dict, steps: int, monkeypatch):
         jstate, _ = jstep(jstate, batch)
         jax.effects_barrier()
         state, metrics = run.step(state, to_torch(batch))
-        out.append(metrics)
-        for g, w in zip(metrics["faults"], want):
+        out.append(metrics["decision"])
+        for g, w in zip(metrics["decision"]["faults"], want):
             np.testing.assert_array_equal(bits(g), bits(w))
         jh = [c[1] for c in calls[n_calls:] if c[0] == "h"]
         jr = [c[1:] for c in calls[n_calls:] if c[0] == "r"]
-        assert [v.tolist() for v in metrics.get("health", [])] == \
+        assert [v.tolist() for v in out[-1].get("health", [])] == \
             [v.tolist() for v in jh]
         # each guarded reduction of the port on the reference's input
         for (x0, y), (w, corrupt) in zip(jr, port_in[-len(jr):]

@@ -28,6 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 EXPERIMENTS = sorted((ROOT / "experiments").glob("*.json"))
 
 FAULTY, TELEMETRY = "fedbioacc_faulty.json", "fedbioacc_telemetry.json"
+SHARDED = "fedbioacc_sharded_overlap.json"
 STRAGGLER, COMPRESSED = "fedbioacc_straggler.json", "fedbioacc_int8_topk.json"
 INT8_ON = {"compression": {"quant": "int8", "sections": ["y"]}}
 
@@ -156,11 +157,12 @@ def test_committed_spec_validates_in_both(path):
 
 
 def test_known_but_unported_spec_validates_then_build_refuses():
-    exp = Experiment.load(str(ROOT / "experiments" / TELEMETRY))
+    # the sharded spec is the one committed spec the port still refuses
+    exp = Experiment.load(str(ROOT / "experiments" / SHARDED))
     assert exp.validate() is exp
     with pytest.raises(NotImplementedError) as err:
         build(exp, device="cpu")
-    assert "ROADMAP queue 1, 'Telemetry'" in str(err.value)
+    assert "ROADMAP queue 1, 'Sharded substrate'" in str(err.value)
 
 
 def test_name_lists_equal_the_reference():

@@ -83,25 +83,26 @@ def test_four_steps_match_reference_with_over_provisioned_sampler():
         jstate, _ = jstep(jstate, batch)
         before = state
         state, metrics = run.step(state, to_torch(batch))
+        decided = metrics["decision"]
         np.testing.assert_array_equal(part.mask_fn(r).numpy(),
                                       np.asarray(jmask))
-        np.testing.assert_array_equal(metrics["arrivals"].numpy(),
+        np.testing.assert_array_equal(decided["arrivals"].numpy(),
                                       np.asarray(want[0]))
-        assert metrics["extensions"] == int(want[2])
-        assert _ulps(metrics["deadline"], want[1]) <= DL_ULPS
-        assert _ulps(metrics["deadline_next"], want[3]) <= DL_ULPS
+        assert decided["extensions"] == int(want[2])
+        assert _ulps(decided["deadline"], want[1]) <= DL_ULPS
+        assert _ulps(decided["deadline_next"], want[3]) <= DL_ULPS
         assert _ulps(state.deadline, jstate.deadline) <= DL_ULPS
         np.testing.assert_array_equal(state.stale.numpy(),
                                       np.asarray(jstate.stale))
-        arrived = metrics["arrivals"]
-        assert int(arrived.sum()) >= metrics["quorum"]
+        arrived = decided["arrivals"]
+        assert int(arrived.sum()) >= decided["quorum"]
         out = [m for m in range(8) if arrived[m] == 0]
         for b0, b1 in zip(before.vars + before.mom, state.vars + state.mom):
             for m in out:
                 np.testing.assert_array_equal(bits(b0[m]), bits(b1[m]))
         if t % run.fed.local_steps == 0:
             rounds.append((np.asarray(jmask).tolist(),
-                           arrived.tolist(), metrics["extensions"]))
+                           arrived.tolist(), decided["extensions"]))
     # the rounds leave stragglers behind: the test exercises the policy
     for sampled, arrived, _ in rounds:
         assert sum(arrived) < sum(sampled) == 6

@@ -299,9 +299,9 @@ def _run(algo, fields, sfields):
     for t, b in enumerate(_batches()):
         sampled = torch.ones(M) if tpart is None else tpart.mask_fn(t // 2)
         jstate = jstep(jstate, jnp.float32(b))
-        before, decided = tstate, {}
-        tstate = te.step(tstate, torch.tensor(b), decided)
-        arrivals = decided["arrivals"]
+        before, metrics = tstate, {}
+        tstate = te.step(tstate, torch.tensor(b), metrics)
+        arrivals = metrics["decision"]["arrivals"]
         late = [c for c in range(M) if sampled[c] > 0 and arrivals[c] == 0]
         for c in late:
             # a STORM step from zero momenta leaves the variables as they
@@ -443,8 +443,9 @@ def test_step_metrics_record_the_round_decision(fields):
         ts.make_stragglers(ts.StragglerSpec(**ENGINE_STRAG), M), tpart, 2)
     seen = []
     for t, b in enumerate(_batches()):
-        decided = {}
-        st = te.step(st, torch.tensor(b), decided)
+        metrics = {}
+        st = te.step(st, torch.tensor(b), metrics)
+        decided = metrics["decision"]
         row = rows[t // 2]
         sampled = torch.ones(M) if tpart is None else tpart.mask_fn(t // 2)
         assert not torch.any(decided["arrivals"] > sampled)

@@ -166,9 +166,16 @@ def test_unported_flags_reach_the_spec_and_are_refused(tmp_path):
     with pytest.raises(SystemExit, match="execution.mesh"):
         train.main(["--experiment", STRAGGLER, "--mesh", "2,2",
                     "--device", "cpu"])
-    with pytest.raises(SystemExit, match="telemetry"):
-        train.main(["--experiment", STRAGGLER, "--telemetry-sink",
-                    str(tmp_path / "ev.jsonl"), "--device", "cpu"])
+    # --telemetry-sink is ported: it reaches the spec; a run that another
+    # unported flag stops at build writes no stream
+    sink = str(tmp_path / "ev.jsonl")
+    exp = train.apply_overrides(Experiment.load(STRAGGLER),
+                                {"telemetry_sink": sink})
+    assert exp.telemetry == exp.telemetry._replace(sink=sink)
+    with pytest.raises(SystemExit, match="schedule.comm_every"):
+        train.main(["--experiment", STRAGGLER, "--telemetry-sink", sink,
+                    "--comm-every", "x=2", "--device", "cpu"])
+    assert not os.path.exists(sink)
 
 
 def test_resume_flag_mismatch_fails_loudly(tmp_path):
