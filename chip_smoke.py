@@ -169,6 +169,33 @@ Phases, each of which stops the script with a non-zero exit on failure:
    kernel, the attention once per ``local`` layer, every other kernel
    never), finite logits, and its
    prefill time, decode time per step and peak memory;
+8b. the dense and MoE families and continuous batching: the flash
+   attention at their prefill shapes (``FLASH_CASES``: granite-8b q
+   [1, 517 | 2047, 32, 128], kv 8 heads; gemma2-2b [2, 4096, 8, 256], kv
+   4, window 4096 and 0, soft cap 50; olmoe-1b-7b [4, 4096, 16, 128], kv
+   16), bf16 within 2e-2 and 2 bf16 ulps (both fault versions breaking
+   the limit), granite's ragged 517 also f32 within 2e-5, timed beside
+   the plain version and SDPA; a reduced prefill plus 8 decode steps of
+   each of gemma2-2b, granite-8b, granite-3-8b, llama3-405b, olmoe-1b-7b,
+   granite-moe-1b-a400m and mamba2-130m, card against CPU within 1e-4 of
+   the largest logit (launches: the attention once per attention layer);
+   a reduced ``ServeEngine`` (5 requests through 2 slots) of granite-8b,
+   mamba2-130m, recurrentgemma-9b and olmoe-1b-7b, each request's tokens
+   held to its isolated greedy decode on the card (at each step the
+   engine's logits within 1e-4 of the largest isolated logit; a step whose
+   top-2 margin is no more than twice their difference, or the arch's
+   card/CPU difference, is logged and ends that request's comparison);
+   then at full width, bf16, each model freed before the next:
+   granite-8b (8.25 B parameters) through ``ServeEngine``, 8 requests of
+   ``ENGINE_PROMPTS`` tokens with ``ENGINE_BUDGETS`` through 4 slots (36
+   attention launches a prefill, 288 in all), each request held to its
+   isolated decode at batch 1 and at the pool's batch of 4 (logits within
+   5e-2 of the largest), the time to each first token, the decode steps
+   and the peak memory logged; gemma2-2b (batch 2, prompt 4096, 16 tokens,
+   26 launches) and olmoe-1b-7b (batch 4, prompt 4096, 16 tokens, 16
+   launches; its prefill's 16,384 tokens take the capacity dispatch)
+   through ``launch/serve.py``; mamba2-130m through ``ServeEngine`` as
+   granite-8b, no kernel;
 9. the paper's problems (``repro_torch.core``): the Threefry generator on
    the card against the CPU (keys, bits, integers, uniforms, permutations
    bit for bit, normals within 4 ulps); (a) two rounds of each of the
@@ -250,14 +277,17 @@ from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
 from repro_torch.launch import metrics as tel_metrics  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models.layers import MOE_DENSE_TOKEN_LIMIT  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import flat  # noqa: E402
 from repro_torch.optim import sequences as seqs  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
+from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.telemetry import read_events, validate_events  # noqa: E402
 from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
                                  bf16_ulps, flash_attention_fault,
-                                 int8_flips, leaf_topk_flips, topk_flips)
+                                 int8_flips, isolated_greedy, leaf_topk_flips,
+                                 top2_margin, topk_flips)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -318,6 +348,31 @@ SERVE_LAUNCHES = {"lru_scan": 26, "flash_attention": 12, "storm_update": 0}
 # (param dtype, momentum dtype) group, bf16 and f32 leaves
 TREE_ARCH, TREE_LR, TREE_DECAY = "mamba2-130m", 0.05, 0.9
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# phase 8b, the dense and MoE families and continuous batching: the
+# attention at their prefill shapes (arch, batch, prompt, layer kind:
+# granite-8b's ragged single prompts, GQA 32:8 and D 128; gemma2-2b's
+# alternating local (window 4096) and global layers, GQA 8:4, D 256, soft
+# cap 50; olmoe-1b-7b's 16:16 heads, D 128)
+FLASH_CASES = (("granite-8b", 1, 517, "attn"), ("granite-8b", 1, 2047, "attn"),
+               ("gemma2-2b", 2, 4096, "local"), ("gemma2-2b", 2, 4096, "attn"),
+               ("olmoe-1b-7b", 4, 4096, "attn"))
+# the reduced card/CPU cross-checks besides RecurrentGemma's, and the
+# reduced engines
+FAMILY_ARCHS = ("gemma2-2b", "granite-8b", "granite-3-8b", "llama3-405b",
+                "olmoe-1b-7b", "granite-moe-1b-a400m", "mamba2-130m")
+ENGINE_ARCHS = ("granite-8b", "mamba2-130m", "recurrentgemma-9b",
+                "olmoe-1b-7b")
+# chat-style traffic at full width: mixed prompts into a fixed pool of
+# decode slots
+ENGINE_PROMPTS = (200, 517, 777, 1031, 1300, 1555, 2047, 1800)
+ENGINE_BUDGETS = (16, 48, 24, 40, 32, 20, 44, 28)
+ENGINE_SLOTS = 4
+# an engine's logits against the isolated decode's at a compared step
+# (the same inputs at another batch size), relative to the largest logit
+ENGINE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# batched serving through launch/serve.py: (batch, prompt, tokens); the
+# olmoe prefill's 16,384 tokens take the capacity dispatch
+BATCHED = {"gemma2-2b": (2, 4096, 16), "olmoe-1b-7b": (4, 4096, 16)}
 
 
 def log(msg: str) -> None:
@@ -2094,12 +2149,21 @@ def flash_phase(dev) -> dict:
     return entry
 
 
-def serve_cross_check(dev) -> None:
-    """The reduced RecurrentGemma: prompt 100 (ragged tiles; the window of
-    64 bites) and 8 teacher-forced decode steps, on the card through both
-    kernels and on the CPU through their plain versions, from the same
-    params."""
-    cfg = get_config(SERVE_ARCH).reduced()
+def _kernel_layers(cfg) -> dict:
+    """What one prefill of ``cfg`` launches: the attention kernel once per
+    attention layer, the scan once per recurrent one."""
+    kinds = cfg.layer_kinds()
+    return {"flash_attention": sum(k in ("local", "attn") for k in kinds),
+            "lru_scan": kinds.count("rec")}
+
+
+def serve_cross_check(dev, arch: str) -> float:
+    """A reduced arch (f32; RecurrentGemma's 3 layers, the others' 2): prompt
+    100 (ragged tiles; the reduced window of 64 bites) and 8 teacher-forced
+    decode steps, on the card through the kernels and on the CPU through
+    their plain versions, from the same params; returns the worst logit
+    difference, relative to the largest logit."""
+    cfg = get_config(arch).reduced()
     model = build_model(cfg, dtype=torch.float32)
     B, S, gen = 2, 100, 8
     tok = torch.randint(0, cfg.vocab_size, (B, S + gen),
@@ -2120,16 +2184,20 @@ def serve_cross_check(dev) -> None:
                                                  t[:, S + i:S + i + 1], S + i)
                 steps[side].append(last.cpu())
     launches = launch_counts()
-    if (launches["lru_scan"], launches["flash_attention"]) != (2, 1):
-        raise SystemExit(f"reduced serving cross-check launched {launches}")
+    want = {**dict.fromkeys(launches, 0), **_kernel_layers(cfg)}
+    if launches != want:
+        raise SystemExit(f"reduced serving cross-check ({arch}) launched "
+                         f"{launches}, expected {want}")
     worst = max(float((g - c).abs().max() / c.abs().max())
                 for g, c in zip(steps["card"], steps["cpu"]))
-    log(f"reduced serving cross-check ({cfg.num_layers} layers, f32): card "
-        f"(kernels) vs CPU (plain versions), prefill {S} + {gen} decode "
-        f"steps, worst logit difference {worst:.3e} of the largest (limit "
-        f"1e-4)")
+    log(f"reduced serving cross-check {arch} ({cfg.family}, "
+        f"{cfg.num_layers} layers, f32): card (kernels: "
+        f"{ {k: v for k, v in launches.items() if v} }) vs CPU (plain "
+        f"versions), prefill {S} + {gen} decode steps, worst logit "
+        f"difference {worst:.3e} of the largest (limit 1e-4)")
     if not worst <= 1e-4:
-        raise SystemExit("reduced serving cross-check failed")
+        raise SystemExit(f"reduced serving cross-check failed ({arch})")
+    return worst
 
 
 def serving_path(dev) -> dict:
@@ -2158,6 +2226,341 @@ def serving_path(dev) -> dict:
         raise SystemExit("serving path: wrong token shape or non-finite "
                          "logits")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the dense and MoE families and continuous batching
+# ---------------------------------------------------------------------------
+
+def _flash_case_inputs(case, gen, dev):
+    arch, B, S, kind = case
+    cfg = get_config(arch)
+    H, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    kw = dict(causal=cfg.causal,
+              window=cfg.window_size if kind == "local" else 0,
+              softcap=cfg.attn_softcap, scale=1.0 / math.sqrt(D))
+    q = torch.randn(B, S, H, D, generator=gen, device=dev)
+    k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev)
+            for _ in range(2))
+    return (q, k, v), kw
+
+
+def flash_families_phase(dev) -> None:
+    """The attention at the families' prefill shapes (``FLASH_CASES``): in
+    bf16 on ``flash_fwd_tc`` within 2e-2 and ``BF16_ULPS`` bf16 ulps of the
+    plain version, a limit both fault versions must break at each shape;
+    granite-8b's ragged prompt of 517 also in f32 (``flash_fwd``, 2e-5).
+    Median CUDA-event times beside the plain version and SDPA with the band
+    as a boolean mask, and the bound (as phase 6 prices it)."""
+    for i, case in enumerate(FLASH_CASES):
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        ins, kw = _flash_case_inputs(case, gen, dev)
+        if case == FLASH_CASES[0]:
+            got = flash_ops.flash_attention(*ins, **kw)
+            want = flash_attention_ref(*ins, **kw)
+            f32_err = float((got - want).abs().max())
+            log(f"flash_attention f32 {case}: max abs err {f32_err:.3e} "
+                f"(limit {FLASH_TOL[torch.float32]})")
+            if not f32_err <= FLASH_TOL[torch.float32]:
+                raise SystemExit(f"flash_attention f32 differs from the "
+                                 f"plain version at {case}")
+            del got, want
+        q, k, v = (t.to(torch.bfloat16) for t in ins)
+        del ins
+        got = flash_ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ulps = bf16_ulps(got, want)
+        faults = {f: bf16_ulps(flash_attention_fault(q, k, v, f, **kw), want)
+                  for f in ("p0", "tile")}
+        if not (err <= FLASH_TOL[torch.bfloat16] and ulps <= BF16_ULPS):
+            raise SystemExit(f"flash_attention bf16 differs from the plain "
+                             f"version at {case}: {err}, {ulps} ulps")
+        if not min(faults.values()) > BF16_ULPS:
+            raise SystemExit(f"the bf16 ulp check passes a faulty plain "
+                             f"version at {case}: {faults}")
+        B, S = case[1], case[2]
+        mask = band_mask(S, causal=kw["causal"], window=kw["window"],
+                         device=dev)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True)
+
+        # SDPA takes no soft cap: its time is the library column where the
+        # case has none, and is logged beside an uncapped reference
+        lib_out = library().transpose(1, 2)
+        lib_want = flash_attention_ref(q, k, v, **{**kw, "softcap": 0.0}) \
+            if kw["softcap"] else want
+        lib_err = float((lib_out.float() - lib_want.float()).abs().max())
+        del lib_out, lib_want, got, want
+        if not lib_err <= FLASH_TOL[torch.bfloat16]:
+            raise SystemExit(f"the library call differs from the plain "
+                             f"version at {case} ({lib_err})")
+        torch.cuda.empty_cache()
+        H, D = q.shape[2], q.shape[3]
+        moved = 2 * q.numel() * q.element_size() + \
+            2 * k.numel() * k.element_size()
+        pairs = int(mask.sum())
+        half = 2 * D * pairs * B * H
+        ops_ms = 4 * half / BF16_TC_FLOPS_PER_S * 1e3
+        bound = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms)
+        k_ms = timed_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
+                        KERNEL_RUNS)
+        p_ms = timed_ms(lambda: flash_attention_ref(q, k, v, **kw), 3)
+        l_ms = timed_ms(library, KERNEL_RUNS)
+        log(f"flash_attention bf16 {case[0]} q {list(q.shape)} kv "
+            f"{list(k.shape)} {kw}: max abs err {err:.3e}, {ulps:.4g} bf16 "
+            f"ulps (faults: p0 only {faults['p0']:.4g}, a key tile skipped "
+            f"{faults['tile']:.4g}); kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library (SDPA{', no soft cap' if kw['softcap'] else ''}; "
+            f"max abs err {lib_err:.3e}) {l_ms:.4f} ms; bound {bound:.4f} "
+            f"ms ({bound / k_ms:.1%} of it; "
+            f"{4 * half / k_ms / 1e9:.2f} TFLOP/s of tensor-core work)")
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
+def run_engine(model, params, prompts, budgets, slots: int, cache_len: int):
+    """The requests through a ``ServeEngine`` of ``slots`` slots, all
+    submitted at once.  Returns each request's tokens and the logits each
+    came from (its prefill's, then its decode steps'), the time to each
+    first token and each decode step's time (host clock around
+    synchronised work; wrappers around the engine's prefill and step)."""
+    engine = ServeEngine(model, params, max_slots=slots, cache_len=cache_len)
+    logits, first_ms, step_ms = {}, {}, []
+    prefill, step = engine._prefill, engine._step
+
+    def timed_prefill(batch):
+        out = prefill(batch)
+        torch.cuda.synchronize()
+        rid = len(first_ms)              # requests are admitted in order
+        first_ms[rid] = (time.perf_counter() - t0) * 1e3
+        logits[rid] = [out[0][0]]
+        return out
+
+    def timed_step(tok, pos):
+        active = {slot: req.rid for slot, req in engine.active.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(tok, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for slot, rid in active.items():
+            logits[rid].append(out[0][slot])
+        return out
+
+    engine._prefill, engine._step = timed_prefill, timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, n) for p, n in zip(prompts, budgets)]
+    results = engine.run_to_completion()
+    # the wrappers close over the engine: drop them, so that the engine,
+    # its cache pool and its reference to the parameters are freed with it
+    del engine._prefill, engine._step
+    if sorted(results) != rids or any(len(results[r]) != n for r, n in
+                                      zip(rids, budgets)):
+        raise SystemExit(f"the engine did not serve every request its "
+                         f"budget: {[len(results.get(r, [])) for r in rids]}")
+    return results, logits, first_ms, step_ms
+
+
+def hold_to_isolated(name: str, model, params, prompts, budgets,
+                     cache_len: int, results, logits, tol: float,
+                     card_cpu: float = 0.0, rows: int = 1) -> None:
+    """Each request's engine tokens against its isolated greedy decode on
+    the card (``testing.isolated_greedy``: decoded at batch ``rows``).  At
+    every step the engine's logits must be within ``tol`` of the largest
+    isolated logit (the same inputs, maybe another batch size); where
+    the isolated top-2 margin is no more than twice their difference (or
+    ``card_cpu`` of the largest logit, the arch's card/CPU difference), the
+    choice could go either way: it is logged and that request is compared
+    no further.  Elsewhere (bit-identical logits included, whose ties
+    ``argmax`` breaks alike) the tokens must be equal."""
+    compared, stopped, worst, same = 0, [], 0.0, 0
+    for rid, (p, n) in enumerate(zip(prompts, budgets)):
+        iso_tok, iso_lg = isolated_greedy(model, params, p, n, cache_len,
+                                          rows)
+        for j in range(n):
+            a, b = logits[rid][j].float(), iso_lg[j].float()
+            scale = float(b.abs().max())
+            d = float((a - b).abs().max())
+            if not (math.isfinite(d) and bool(torch.isfinite(a).all())):
+                raise SystemExit(f"{name}: non-finite logits, request {rid} "
+                                 f"step {j}")
+            worst = max(worst, d / scale)
+            same += same_bits(logits[rid][j], iso_lg[j])
+            if not d <= tol * scale:
+                raise SystemExit(f"{name}: request {rid} step {j}: the "
+                                 f"engine's logits are {d / scale:.3e} of "
+                                 f"the largest from the isolated decode's "
+                                 f"(limit {tol})")
+            margin = top2_margin(b)
+            near = max(2 * d, card_cpu * scale)
+            # bit-identical logits pick the same token even at a tie
+            if near > 0 and margin <= near:
+                log(f"{name}: request {rid} step {j}: top-2 margin "
+                    f"{margin:.4g} <= max(2 x difference {d:.4g}, card/CPU "
+                    f"{card_cpu * scale:.4g}): compared no further")
+                stopped.append((rid, j))
+                break
+            if results[rid][j] != iso_tok[j]:
+                raise SystemExit(f"{name}: request {rid} step {j}: engine "
+                                 f"token {results[rid][j]} != isolated "
+                                 f"{iso_tok[j]} (margin {margin:.4g}, "
+                                 f"difference {d:.4g})")
+            compared += 1
+    total = sum(budgets)
+    log(f"{name}: {compared} of {total} tokens equal to the isolated greedy "
+        f"decode at batch {rows} (the rest after a near tie: {stopped}); "
+        f"engine vs isolated logits at most {worst:.3e} of the largest "
+        f"(limit {tol}), bit for bit at {same} of the steps compared")
+
+
+def reduced_engine_check(dev, arch: str, card_cpu: float) -> None:
+    """A reduced arch (f32, params as ``serve_cross_check``'s) through a
+    2-slot engine on the card: 5 requests of 8, 11, ..., 20 tokens,
+    budgets 6, 4, 8, 5, 7 (slot reuse), held to the isolated decode."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, dtype=torch.float32)
+    params = tree_map(lambda t: t.to(dev),
+                      model.init(torch.Generator().manual_seed(0)))
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (8 + 3 * i,),
+                             generator=gen).to(dev) for i in range(5)]
+    budgets = [6, 4, 8, 5, 7]
+    reset_counts()
+    results, logits, _, _ = run_engine(model, params, prompts, budgets, 2, 64)
+    launches = launch_counts()
+    want = {**dict.fromkeys(launches, 0),
+            **{k: 5 * v for k, v in _kernel_layers(cfg).items()}}
+    if launches != want:
+        raise SystemExit(f"reduced engine ({arch}) launched {launches}, "
+                         f"expected {want}")
+    hold_to_isolated(f"reduced engine {arch} (f32, 5 requests, 2 slots)",
+                     model, params, prompts, budgets, 64, results, logits,
+                     ENGINE_TOL[torch.float32], card_cpu)
+
+
+def engine_path(dev, arch: str) -> dict:
+    """Full width, bf16, seeded on the card: ``ENGINE_PROMPTS`` with
+    ``ENGINE_BUDGETS`` through ``ENGINE_SLOTS`` slots; launches over the
+    engine's run alone (the attention once per attention layer of each
+    prefill), finite logits, each request held to its isolated decode;
+    logs the time to each first token, the decode steps and peak memory."""
+    cfg = get_config(arch)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=gen).to(dev)
+               for S in ENGINE_PROMPTS]
+    cache_len = max(ENGINE_PROMPTS) + max(ENGINE_BUDGETS)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    results, logits, first_ms, step_ms = run_engine(
+        model, params, prompts, ENGINE_BUDGETS, ENGINE_SLOTS, cache_len)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: len(prompts) * v for k, v in _kernel_layers(cfg).items()}}
+    tokens = sum(ENGINE_BUDGETS)
+    log(f"engine path: full-width {arch} ({n_params} parameters, bf16), "
+        f"{len(prompts)} requests (prompts {list(ENGINE_PROMPTS)}, budgets "
+        f"{list(ENGINE_BUDGETS)}) through {ENGINE_SLOTS} slots, cache "
+        f"{cache_len}: {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s); time to first token "
+        f"{[round(first_ms[r], 3) for r in sorted(first_ms)]} ms; "
+        f"{len(step_ms)} decode steps, median "
+        f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}); peak memory {peak} B (the init's "
+        f"{init_peak} B: the layers stacked); launches {launches}")
+    if launches != want:
+        raise SystemExit(f"engine path ({arch}) launched {launches}, "
+                         f"expected {want}")
+    # alone at batch 1, and alone at the pool's batch (every operator at
+    # the engine step's shapes: another batch size may take other matmul
+    # kernels, whose bf16 results differ in the last bits)
+    for rows in (1, ENGINE_SLOTS):
+        hold_to_isolated(f"engine path {arch} (bf16)", model, params,
+                         prompts, ENGINE_BUDGETS, cache_len, results, logits,
+                         ENGINE_TOL[torch.bfloat16], rows=rows)
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def batched_path(dev, arch: str) -> dict:
+    """Full width through ``launch/serve.py`` (bf16, ``BATCHED``'s batch,
+    prompt and tokens): launches over that run alone (the attention once
+    per attention layer), finite logits, prefill and decode times and
+    peak memory."""
+    B, S, G = BATCHED[arch]
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    out = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len",
+                      str(S), "--gen", str(G), "--seed", "0"])
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    moe = ""
+    if cfg.num_experts:
+        T = B * S
+        path = ("capacity dispatch, C = "
+                f"{int(T * cfg.experts_per_token // cfg.num_experts * 1.25)}"
+                if T > MOE_DENSE_TOKEN_LIMIT else "dense combine")
+        moe = f"; the prefill's MoE layers: T = {T}, {path}; decode: T = {B}"
+    log(f"batched path: full-width {arch}, bf16, batch {B}, prompt {S}, "
+        f"{G} tokens: prefill {out['prefill_ms']:.3f} ms, decode "
+        f"{out['decode_ms_per_step']:.3f} ms per step ({B} tokens), peak "
+        f"memory {peak} B, launches {launches}{moe}")
+    want = {**dict.fromkeys(launches, 0), **_kernel_layers(cfg)}
+    if launches != want:
+        raise SystemExit(f"batched path ({arch}) launched {launches}, "
+                         f"expected {want}")
+    if tuple(out["tokens"].shape) != (B, G) or \
+            not bool(torch.isfinite(out["logits"]).all()):
+        raise SystemExit(f"batched path ({arch}): wrong token shape or "
+                         f"non-finite logits")
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def families_phase(dev, rg_card_cpu: float) -> dict:
+    """Phase 8b; returns the launches of its full-width paths."""
+    t0 = time.perf_counter()
+    flash_families_phase(dev)
+    t1 = time.perf_counter()
+    card_cpu = {arch: serve_cross_check(dev, arch) for arch in FAMILY_ARCHS}
+    card_cpu[SERVE_ARCH] = rg_card_cpu
+    for arch in ENGINE_ARCHS:
+        reduced_engine_check(dev, arch, card_cpu[arch])
+    t2 = time.perf_counter()
+    total = {}
+    for arch, path in FULL_WIDTH_SERVING:
+        t = time.perf_counter()
+        launches = path(dev, arch)
+        log(f"{path.__name__} {arch} took {time.perf_counter() - t:.1f} s")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    log(f"phase 8b (the families and continuous batching) took "
+        f"{time.perf_counter() - t0:.1f} s: flash shapes {t1 - t0:.1f} s, "
+        f"reduced checks {t2 - t1:.1f} s, full width "
+        f"{time.perf_counter() - t2:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2537,6 +2940,13 @@ def paper_phase(dev) -> dict:
             for k in set(launches) | set(real)}
 
 
+# phase 8b's full-width runs, in order, each model freed before the next
+FULL_WIDTH_SERVING = (("granite-8b", engine_path),
+                      ("gemma2-2b", batched_path),
+                      ("olmoe-1b-7b", batched_path),
+                      ("mamba2-130m", engine_path))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2611,10 +3021,15 @@ def main() -> None:
     kernels["lru_scan"] = lru_phase(dev)
     kernels["flash_attention"] = flash_phase(dev)
     torch.cuda.empty_cache()
-    serve_cross_check(dev)
+    rg_card_cpu = serve_cross_check(dev, SERVE_ARCH)
     launches = serving_path(dev)
     for kname, k in kernels.items():
         k["launches"] += launches[kname]
+
+    torch.cuda.empty_cache()
+    launches = families_phase(dev, rg_card_cpu)
+    for kname, k in kernels.items():
+        k["launches"] += launches.get(kname, 0)
 
     torch.cuda.empty_cache()
     launches = paper_phase(dev)

@@ -1,11 +1,13 @@
-"""Where full-width RecurrentGemma-9B serving spends its time in the
-PyTorch port.
+"""Where full-width serving spends its time in the PyTorch port.
 
     python3 scripts/profile_torch_serve.py    # on a card
+    python3 scripts/profile_torch_serve.py --arch granite-8b --batch 4 \
+        --prompt-len 2047
 
-Builds the model at full width (bf16, params drawn on the card from seed 0)
-with the configuration ``chip_smoke.py`` serves (batch 2, prompt 4096, 16
-generated tokens, ``use_flash`` and ``use_lru_kernel`` on), then:
+Builds the model at full width (bf16, params drawn on the card from seed 0;
+by default RecurrentGemma-9B with the configuration ``chip_smoke.py``
+serves it: batch 2, prompt 4096, 16 generated tokens, ``use_flash`` and
+``use_lru_kernel`` on), then:
 
 1. times three prefills on the host clock (each ending in a synchronize):
    the first is cold (first use of each operator and matmul shape);
@@ -20,6 +22,7 @@ Prints the profiler tables and a summary line per phase.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -34,7 +37,6 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
-B, S, GEN = 2, 4096, 16
 # the model kernels' entry points: the attention (flash_fwd, flash_fwd_tc)
 # and the scan (tma_ring_scan; rg_lru_scan where C % 4 != 0)
 KERNELS = {"flash-attention": ("flash_fwd",),
@@ -69,7 +71,14 @@ def _summary(prof, wall_ms: float, what: str) -> None:
               for k, ms in mine.items()), flush=True)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=4096)
+    ap.add_argument("--gen", type=int, default=16)
+    ns = ap.parse_args(argv)
+    B, S, GEN = ns.batch, ns.prompt_len, ns.gen
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -78,7 +87,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    cfg = get_config("recurrentgemma-9b")
+    cfg = get_config(ns.arch)
     model = build_model(cfg, dtype=torch.bfloat16)
     flags = dict(use_flash=True, use_lru_kernel=True)
     with torch.no_grad():
@@ -94,7 +103,7 @@ def main() -> None:
         for _ in range(3):
             (last, caches), ms = _timed(prefill)
             prefill_ms.append(round(ms, 3))
-        print(f"prefill {B}x{S}: {prefill_ms} ms (the first cold)",
+        print(f"{ns.arch} prefill {B}x{S}: {prefill_ms} ms (the first cold)",
               flush=True)
 
         tok = torch.argmax(last, dim=-1)[:, None]

@@ -22,7 +22,7 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # "ssm" and "hybrid" are ported so far
+    family: str                      # dense, moe, ssm, hybrid (audio, vlm: not ported)
     num_layers: int
     d_model: int
     num_heads: int

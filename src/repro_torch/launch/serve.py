@@ -2,14 +2,17 @@
 ``repro/launch/serve.py``): prefill a batch of prompts, then greedy-decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch recurrentgemma-9b --reduced --device cpu \\
+        --arch gemma2-2b --reduced --device cpu \\
         [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
 
+``--arch`` takes the reference's ten names; the eight ported ones serve,
+the audio encoder stops as the reference's script stops it (no decode
+step) and the VLM stops naming the ROADMAP item its front end waits for.
 The device defaults to ``cuda``; without a card the run stops unless
 ``--device cpu`` is given.  Parameters are drawn from a ``torch.Generator``
 seeded with ``--seed`` on the device, the prompts from one on the CPU.
 The prefill always sets the reference ``prefill``'s ``use_flash`` and
-``use_lru_kernel`` switches: the local-attention layers' prefill runs the
+``use_lru_kernel`` switches: the attention layers' prefill runs the
 flash-attention kernel and the recurrent layers' scan the RG-LRU kernel (on
 the CPU, their plain versions).  Prints the prefill time and the decode
 time per step (host clock around work that ends in a device synchronise),
@@ -23,13 +26,14 @@ import time
 import torch
 
 from repro_torch.api.build import resolve_device
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.api.spec import ARCH_NAMES
+from repro_torch.configs import UNPORTED, get_config
 from repro_torch.models.registry import build_model
 
 
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
+    ap.add_argument("--arch", choices=sorted(ARCH_NAMES), required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -48,8 +52,13 @@ def main(argv=None) -> dict:
     """Returns ``{"tokens": [B, gen] generated ids, "logits": the last
     decode step's [B, V] logits, "prefill_ms", "decode_ms_per_step"}``."""
     ns = _parser().parse_args(argv)
+    if UNPORTED.get(ns.arch) == "audio":
+        raise SystemExit("encoder-only architecture has no decode step")
+    try:
+        cfg = get_config(ns.arch)
+    except NotImplementedError as err:
+        raise SystemExit(str(err)) from err
     dev = resolve_device(ns.device)
-    cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, dtype=torch.float32 if ns.reduced

@@ -1,5 +1,5 @@
-"""Shared building blocks (counterpart of ``repro/models/layers.py``; the
-subset the Mamba-2 and RecurrentGemma paths need: no MoE).
+"""Shared building blocks (counterpart of ``repro/models/layers.py``: all
+of it but the audio family's ungated MLP).
 
 Params are nested dicts of tensors with the reference's keys.  Initialisers
 draw from an explicit ``torch.Generator``; with ``gen=None`` they return
@@ -209,6 +209,90 @@ def mlp(params, x, activation: str = "silu"):
     g = x @ params["wg"]
     h = (gelu(g) if activation == "gelu" else silu(g)) * (x @ params["wi"])
     return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, dtype):
+    d, dff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    return {
+        "router": dense_init(gen, (d, E), dtype, scale=0.02),
+        "wi": dense_init(gen, (E, d, dff), dtype),
+        "wg": dense_init(gen, (E, d, dff), dtype),
+        "wo": dense_init(gen, (E, dff, d), dtype, scale=1.0 / math.sqrt(dff)),
+    }
+
+
+MOE_DENSE_TOKEN_LIMIT = 8192   # below this token count use the exact dense path
+
+
+def moe_mlp(params, x, cfg: ModelConfig, capacity_factor: float = 1.25):
+    """Top-k routed expert MLP; returns ``(out, aux)``, ``aux`` the Switch
+    load-balancing loss.  The router's softmax, top-k and normalisation run
+    in f32.  Two paths, chosen by the token count T as the reference
+    chooses:
+
+    * **dense combine** (T <= ``MOE_DENSE_TOKEN_LIMIT``): every expert on
+      every token, weighted by the normalised top-k probabilities; exact;
+    * **capacity dispatch**: each (token, slot) takes its place in its
+      expert's buffer ``[E, C, d]``, ``C = int(T·k // E · 1.25) or 1``, by
+      its running count in token order (found by a stable sort; a cumsum
+      down the ``[T·k, E]`` one-hot, as the reference takes it, runs
+      serially down each of its E columns on a GPU); entries past ``C``
+      are dropped.
+      An (expert, place) pair holds at most one kept row, so the buffer is
+      an indexed write of the kept rows (the reference adds every entry,
+      the dropped ones weighted 0, into place 0 of expert 0: the same
+      buffer)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    logits = (x @ params["router"]).to(torch.float32)             # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_idx = torch.topk(probs, k, dim=-1)                 # [B,S,k]
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+
+    # Switch-style load-balance aux loss
+    me = torch.mean(probs, dim=(0, 1))                            # [E]
+    onehot = torch.nn.functional.one_hot(top_idx, E).to(torch.float32)
+    ce = torch.mean(torch.sum(onehot, dim=-2), dim=(0, 1)) / k
+    aux = E * torch.sum(me * ce)
+
+    if T <= MOE_DENSE_TOKEN_LIMIT:
+        combine = torch.sum(onehot.to(x.dtype) * top_w[..., None].to(x.dtype),
+                            dim=-2)                               # [B,S,E]
+        h = torch.einsum("bsd,edf->bsef", x, params["wi"])
+        g = torch.einsum("bsd,edf->bsef", x, params["wg"])
+        y = torch.einsum("bsef,efd->bsed", silu(g) * h, params["wo"])
+        return torch.einsum("bsed,bse->bsd", y, combine), aux
+
+    # ---- capacity dispatch ----
+    C = int(T * k // E * capacity_factor) or 1
+    xf = x.reshape(T, d)
+    e_idx = top_idx.reshape(T * k)                                # expert per slot
+    w = top_w.reshape(T, k).to(x.dtype)
+    # place of each (token, slot) within its expert: its running count in
+    # token order (the reference's cumsum over the [T*k, E] one-hot), from
+    # a stable sort that groups the entries by expert in that order
+    order = torch.sort(e_idx, stable=True).indices
+    counts = torch.bincount(e_idx, minlength=E)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos = torch.empty_like(e_idx)
+    pos[order] = torch.arange(T * k, device=x.device) - starts[e_idx[order]]
+    keep = pos < C
+    buf = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
+    kept = torch.nonzero(keep)[:, 0]
+    buf[e_idx[kept], pos[kept]] = xf[kept // k]
+    h = torch.einsum("ecd,edf->ecf", buf, params["wi"])
+    g = torch.einsum("ecd,edf->ecf", buf, params["wg"])
+    y = torch.einsum("ecf,efd->ecd", silu(g) * h, params["wo"])
+    e_c, pos_c = torch.where(keep, e_idx, 0), torch.where(keep, pos, 0)
+    gathered = y[e_c, pos_c].reshape(T, k, d)
+    out = torch.sum(gathered * (w * keep.reshape(T, k).to(x.dtype))[..., None],
+                    dim=1)
+    return out.reshape(B, S, d), aux
 
 
 def embedding_init(gen, cfg: ModelConfig, dtype):

@@ -5,8 +5,10 @@ nested-dict params ``{"body": ..., "head": ...}``:
 
 * ``init(gen)``              -> params drawn from a ``torch.Generator``, on
   its device; ``init(None)`` -> the same tree as empty ``meta`` tensors;
-* ``forward(params, batch)`` -> logits ``[B, S, V]`` in f32;
-* ``loss(params, batch)``    -> (masked CE, aux dict);
+* ``forward(params, batch)`` -> (logits ``[B, S, V]`` in f32, the MoE
+  auxiliary loss);
+* ``loss(params, batch)``    -> (masked CE + ``aux_weight`` · aux,
+  ``{"ce", "moe_aux"}``);
 * ``prefill(params, batch, cache_len)`` -> (last logits ``[B, V]``, caches);
 * ``decode_step(params, caches, tokens, pos)`` -> (logits ``[B, V]``,
   caches);
@@ -15,8 +17,8 @@ nested-dict params ``{"body": ..., "head": ...}``:
 ``forward``, ``loss`` and ``prefill`` take the reference's ``use_flash`` and
 ``use_lru_kernel`` switches: the attention layers' prefill then runs the
 flash-attention kernel and the recurrent layers' scan the RG-LRU kernel.
-The ``ssm`` and ``hybrid`` families are ported; the Mamba-2 decode cache is
-not, so ``prefill``/``decode_step`` of an ``ssm`` model raise.
+The ``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported; the
+``audio`` and ``vlm`` front ends are not, and ``build_model`` refuses them.
 
 The body/head split is the bilevel split: the upper variable x is the body,
 the lower variable y is the output head.
@@ -30,11 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.configs import FAMILIES_ITEM
 from repro_torch.core.tree_util import tree_map
 from repro_torch.models import stack as stk
 from repro_torch.models.layers import (_softcap, device_of, embed,
                                        embedding_init, head_init, rmsnorm,
                                        rmsnorm_init)
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 @dataclass(frozen=True)
 class Model:
@@ -48,11 +54,7 @@ class Model:
 
 
 def _embed_inputs(body, batch: Dict[str, Any], cfg: ModelConfig):
-    """Returns ``(x [B, S, d], positions [B, S])`` (the token path: the
-    audio and VLM front ends are not ported)."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"the {cfg.family} front end is not ported "
-                                  f"yet ({stk.FAMILIES_ITEM})")
+    """Returns ``(x [B, S, d], positions [B, S])`` (the token path)."""
     x = embed(body["embed"], batch["tokens"])
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
@@ -62,9 +64,10 @@ def _embed_inputs(body, batch: Dict[str, Any], cfg: ModelConfig):
 
 
 def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet ({stk.FAMILIES_ITEM})")
+            f"model family {cfg.family!r} is not ported yet (its front end; "
+            f"{FAMILIES_ITEM})")
 
     def init(gen):
         body: Dict[str, Any] = {
@@ -88,20 +91,23 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
 
     def forward(params, batch, *, use_flash=False, use_lru_kernel=False):
         x, positions = _embed_inputs(params["body"], batch, cfg)
-        return _run(params, x, positions, use_flash=use_flash,
-                    use_lru_kernel=use_lru_kernel)[0]
+        logits, _, aux = _run(params, x, positions, use_flash=use_flash,
+                              use_lru_kernel=use_lru_kernel)
+        return logits, aux
 
-    def loss(params, batch, *, use_flash=False, use_lru_kernel=False):
-        """Masked CE: positions with ``labels < 0`` are ignored."""
-        logits = forward(params, batch, use_flash=use_flash,
-                         use_lru_kernel=use_lru_kernel)
+    def loss(params, batch, *, use_flash=False, use_lru_kernel=False,
+             aux_weight: float = 0.01):
+        """Masked CE plus ``aux_weight`` times the MoE auxiliary loss:
+        positions with ``labels < 0`` are ignored."""
+        logits, aux = forward(params, batch, use_flash=use_flash,
+                              use_lru_kernel=use_lru_kernel)
         labels = batch["labels"]
         mask = (labels >= 0).to(torch.float32)
         safe = torch.clamp(labels, min=0).long()
         logp = torch.log_softmax(logits, dim=-1)
         ll = torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
         ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-        return ce, {"ce": ce}
+        return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
     def init_cache(batch_size: int, cache_len: int, device=None):
         return stk.init_cache(cfg, batch_size, cache_len, dtype, device)
@@ -122,7 +128,7 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
             stage_out = {}
             for i, kind in enumerate(unit):
                 name = f"{i}_{kind}"
-                if kind == "rec":
+                if kind in ("rec", "ssm"):
                     stage_out[name] = seq_stage[name]
                     continue
                 zk, _ = zero_stage[name]

@@ -1,10 +1,14 @@
 """Mamba-2 (SSD) mixer block, chunked formulation (counterpart of
-``repro/models/ssm.py``, training/prefill path).
+``repro/models/ssm.py``).
 
 Within a chunk of length Q the output is a masked quadratic form; across
 chunks a linear recurrence carries the per-chunk states.  The reference's
 cross-chunk ``lax.scan`` is a Python loop over chunks here; the einsums are
-the reference's.  The decode cache is not ported yet.
+the reference's.
+
+Decode keeps the O(1) recurrent state ``h: [B, H, P, N]`` and the last
+``conv_width - 1`` conv inputs ``conv: [B, W-1, C]``; a prefill returns
+both, a decode step (S = 1) advances them.
 """
 from __future__ import annotations
 
@@ -123,8 +127,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     return y, h
 
 
-def apply_ssm(params, x, cfg: ModelConfig):
-    """Mamba-2 block over a whole sequence (training / prefill)."""
+def apply_ssm(params, x, cfg: ModelConfig, cache=None):
+    """Mamba-2 block.  Without ``cache`` over a whole sequence (training /
+    prefill); with one, a single decode step (S == 1).  Returns
+    ``(out, new_cache)``."""
     B, S, _ = x.shape
     d_inner, N, _ = _dims(cfg)
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
@@ -135,13 +141,44 @@ def apply_ssm(params, x, cfg: ModelConfig):
     xBC = torch.cat([xs, Bm, Cm], dim=-1)
 
     A = -torch.exp(params["A_log"])                           # [H], negative
-    conv_out = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-    xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    dtv = softplus(dt.to(torch.float32) + params["dt_bias"])
-    xh = xs.reshape(B, S, H, P)
-    y, _ = ssd_chunked(xh, dtv.to(x.dtype), A.to(x.dtype), Bm, Cm,
-                       min(cfg.ssm_chunk, S))
+    Wc = params["conv_w"].shape[0]
+
+    if cache is None:
+        conv_out = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+        xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+        dtv = softplus(dt.to(torch.float32) + params["dt_bias"])
+        xh = xs.reshape(B, S, H, P)
+        y, h = ssd_chunked(xh, dtv.to(x.dtype), A.to(x.dtype), Bm, Cm,
+                           min(cfg.ssm_chunk, S))
+        # the last W-1 conv inputs, left-padded with zeros when S < W-1
+        tail = xBC[:, S - (Wc - 1):, :] if S >= Wc - 1 else \
+            torch.nn.functional.pad(xBC, (0, 0, Wc - 1 - S, 0))
+        new_cache = {"h": h, "conv": tail}
+    else:
+        conv_buf = torch.cat([cache["conv"], xBC], dim=1)    # [B, Wc, C]
+        conv_out = torch.einsum("bwc,wc->bc", conv_buf, params["conv_w"])
+        conv_out = silu(conv_out + params["conv_b"])[:, None, :]
+        xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+        dtv = softplus(dt.to(torch.float32) + params["dt_bias"])[:, 0]  # [B,H]
+        xh = xs.reshape(B, S, H, P)
+        dec = torch.exp(dtv * A).to(x.dtype)                  # [B,H]
+        h = cache["h"] * dec[..., None, None]
+        h = h + torch.einsum("bh,bn,bhp->bhpn", dtv.to(x.dtype), Bm[:, 0],
+                             xh[:, 0])
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], h).reshape(B, 1, H, P)
+        new_cache = {"h": h, "conv": conv_buf[:, 1:, :]}
+
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, d_inner)
     y = rmsnorm(params["out_ln"], y * silu(z), cfg.norm_eps)
-    return y @ params["out_proj"]
+    return y @ params["out_proj"], new_cache
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    _, N, conv_dim = _dims(cfg)
+    return {
+        "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim, N),
+                         dtype=dtype, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }

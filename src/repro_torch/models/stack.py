@@ -6,10 +6,10 @@ exactly as the reference lays them out.  The reference's ``lax.scan`` over
 the stack is a Python loop over layers here.
 
 Layer kinds:
-    local  sliding-window GQA attention + FFN
+    local  sliding-window GQA attention + FFN (dense MLP or MoE)
     attn   full-context GQA attention + FFN
     rec    Griffin RG-LRU recurrent block + FFN
-    ssm    Mamba-2 SSD block (self-contained, no FFN; no decode cache yet)
+    ssm    Mamba-2 SSD block (self-contained, no FFN)
 
 ``stages_for`` keeps the reference's units, ``("rec", "rec", "attn")`` for
 the hybrid family among them, although ``ModelConfig.layer_kinds`` names the
@@ -28,11 +28,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.tree_util import tree_map, tree_stack
 from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import (attention, attn_init, device_of, mlp,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+                                       mlp_init, moe_init, moe_mlp, rmsnorm,
+                                       rmsnorm_init)
 
 Stage = Tuple[Tuple[str, ...], int]
-
-FAMILIES_ITEM = "ROADMAP queue 1, item 'Other model families and serving'"
 
 
 def stages_for(cfg: ModelConfig) -> List[Stage]:
@@ -68,9 +67,6 @@ def stages_for(cfg: ModelConfig) -> List[Stage]:
 def _init_layer(gen, kind: str, cfg: ModelConfig, dtype):
     if kind == "ssm":
         return {"ssm": ssm.init_ssm(gen, cfg, dtype)}
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers are not ported yet "
-                                  f"({FAMILIES_ITEM})")
     dev = device_of(gen)
     p: Dict[str, Any] = {}
     if kind == "rec":
@@ -79,7 +75,8 @@ def _init_layer(gen, kind: str, cfg: ModelConfig, dtype):
         p["ln1"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["mix"] = attn_init(gen, cfg, dtype)
     p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
-    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    p["ffn"] = (moe_init(gen, cfg, dtype) if cfg.num_experts else
+                mlp_init(gen, cfg.d_model, cfg.d_ff, dtype))
     return p
 
 
@@ -100,8 +97,7 @@ def init_stack(gen, cfg: ModelConfig, dtype):
 def _layer_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                  dtype, device):
     if kind == "ssm":
-        raise NotImplementedError(f"the Mamba-2 decode cache is not ported "
-                                  f"yet ({FAMILIES_ITEM})")
+        return ssm.init_ssm_cache(cfg, batch, dtype, device)
     if kind == "rec":
         return griffin.init_rec_cache(cfg, batch, dtype, device)
     length = cache_len
@@ -131,12 +127,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
 
 def _apply_layer(kind, p, x, cfg, positions, cache, cache_index, use_flash,
                  use_lru_kernel):
-    """Returns ``(x, new_cache)``."""
+    """Returns ``(x, new_cache, aux)``, ``aux`` the MoE layer's auxiliary
+    loss (``None`` for a layer without experts)."""
+    aux = None
     if kind == "ssm":
-        if cache is not None:
-            raise NotImplementedError(f"the Mamba-2 decode cache is not "
-                                      f"ported yet ({FAMILIES_ITEM})")
-        return x + ssm.apply_ssm(p["ssm"], x, cfg), None
+        out, nc = ssm.apply_ssm(p["ssm"], x, cfg, cache)
+        return x + out, nc, aux
     if kind == "rec":
         out, nc = griffin.apply_rec(p["mix"], x, cfg, cache,
                                     use_kernel=use_lru_kernel)
@@ -148,34 +144,41 @@ def _apply_layer(kind, p, x, cfg, positions, cache, cache_index, use_flash,
                             cache_index=cache_index, use_flash=use_flash)
     x = x + out
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    act = "gelu" if cfg.logit_softcap else "silu"
-    return x + mlp(p["ffn"], h, activation=act), nc
+    if cfg.num_experts:
+        out, aux = moe_mlp(p["ffn"], h, cfg)
+    else:
+        act = "gelu" if cfg.logit_softcap else "silu"
+        out = mlp(p["ffn"], h, activation=act)
+    return x + out, nc, aux
 
 
 def apply_stack(params, x, cfg: ModelConfig, *, positions=None, caches=None,
                 cache_index=None, use_flash: bool = False,
                 use_lru_kernel: bool = False):
     """Run all stages.  Returns ``(x, new_caches, aux)``: per stage a dict of
-    each unit layer's new cache stacked over ``reps`` (``None`` for the
-    ``ssm`` kind, which keeps no state yet), and the auxiliary loss (0: no
-    MoE layer is ported)."""
+    each unit layer's new cache stacked over ``reps``, and the MoE layers'
+    auxiliary losses summed (0 without MoE layers), in the reference's
+    order: per stage, over its reps, each rep's unit summed first."""
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, ((unit, reps), stage) in enumerate(zip(stages_for(cfg), params)):
-        per_rep = []
+        per_rep, auxs = [], []
         for r in range(reps):
             layer = tree_map(lambda v: v[r], stage)
-            ncs = {}
+            ncs, unit_aux = {}, 0.0
             for i, kind in enumerate(unit):
                 name = f"{i}_{kind}"
                 lcache = None if caches is None else \
                     tree_map(lambda v: v[r], caches[si][name])
-                x, ncs[name] = _apply_layer(
+                x, ncs[name], layer_aux = _apply_layer(
                     kind, layer[name], x, cfg, positions, lcache, cache_index,
                     use_flash, use_lru_kernel)
+                if layer_aux is not None:
+                    unit_aux = unit_aux + layer_aux
             per_rep.append(ncs)
-        new_caches.append(
-            {name: (None if per_rep[0][name] is None
-                    else tree_stack([c[name] for c in per_rep]))
-             for name in per_rep[0]})
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            auxs.append(unit_aux)
+        new_caches.append({name: tree_stack([c[name] for c in per_rep])
+                           for name in per_rep[0]})
+        if cfg.num_experts:
+            aux = aux + torch.sum(torch.stack(auxs))
     return x, new_caches, aux

@@ -6,13 +6,16 @@ entries that the two runs decided differently (so does CommFedBiO's
 whole-leaf top-k).  For the bf16 attention,
 a limit in bf16 ulps that the exact kernel meets and a kernel that rounds
 p to bf16 or skips a key tile does not, and plain versions of those two
-faults to show it.  Imports neither JAX nor the JAX package, so the card's
-machine can run it."""
+faults to show it.  For serving, a request's isolated greedy decoding and
+the top-2 margin of a greedy choice, against which a continuous-batching
+engine's tokens are held.  Imports neither JAX nor the JAX package, so the
+card's machine can run it."""
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.core.tree_util import tree_map
 from repro_torch.kernels.flash.ref import NEG_INF, band_mask
 from repro_torch.kernels.storm.ref import quantpack_ref
 
@@ -154,3 +157,37 @@ def halfway_tiles(rng, tiles: int, block: int) -> np.ndarray:
         t[0] = amax
         out.append(t)
     return np.concatenate(out)
+
+
+def isolated_greedy(model, params, prompt, max_new: int, cache_len: int,
+                    rows: int = 1):
+    """A request decoded alone, greedy, as ``ServeEngine`` decodes it in a
+    slot (a prefill at batch 1 with the kernels' switches set, then a
+    decode step a token): returns its ``max_new`` tokens and the ``[V]``
+    logits each was chosen from.  With ``rows`` > 1 the prefill's caches
+    are copied into that many rows and each step decodes them all, reading
+    row 0: every operator then runs at the batch size of an engine with
+    ``rows`` slots."""
+    with torch.no_grad():
+        prompt = prompt.to(torch.int64)
+        last, caches = model.prefill(params, {"tokens": prompt[None, :]},
+                                     cache_len=cache_len, use_flash=True,
+                                     use_lru_kernel=True)
+        if rows > 1:
+            caches = tree_map(lambda c: torch.cat([c] * rows, dim=1), caches)
+        logits = [last[0]]
+        tok = torch.argmax(last[0])
+        chosen = [tok]
+        for pos in range(prompt.shape[0], prompt.shape[0] + max_new - 1):
+            lg, caches = model.decode_step(
+                params, caches, tok.reshape(1, 1).expand(rows, 1), pos)
+            logits.append(lg[0])
+            tok = torch.argmax(lg[0])
+            chosen.append(tok)
+    return torch.stack(chosen).tolist(), logits
+
+
+def top2_margin(logits) -> float:
+    """The largest logit less the second largest."""
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])

@@ -601,3 +601,72 @@ def test_cuda_rollback_restores_in_place(card):
     assert all(b.device.type == "cuda" for b in got)
     for b, w in zip(got, want):
         np.testing.assert_array_equal(bits(b), bits(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [517, 1031])
+def test_cuda_flash_attention_ragged_gqa_4_to_1(S, card):
+    """granite-8b's prefill shape at ragged prompt lengths (not multiples
+    of the kernels' query or key tiles): GQA 32:8, D 128, causal, batch 1,
+    in bf16 (the tensor-core kernel: 2e-2 and ``BF16_ULPS``, which the p0
+    fault breaks) and f32 (2e-5)."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import flash_attention_ref
+    g = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn(1, S, 32, 128, generator=g, device=card)
+    k, v = (torch.randn(1, S, 8, 128, generator=g, device=card)
+            for _ in range(2))
+    flash_ops.reset_counts()
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        args = tuple(t.to(dtype) for t in (q, k, v))
+        got = flash_ops.flash_attention(*args, causal=True)
+        want = flash_attention_ref(*args, causal=True)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        if dtype == torch.bfloat16:
+            assert bf16_ulps(got, want) <= BF16_ULPS
+            assert bf16_ulps(flash_attention_fault(*args, "p0", causal=True),
+                             want) > BF16_ULPS
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-9b"])
+def test_cuda_serve_engine_launches_and_tokens(arch, card):
+    """A reduced ``ServeEngine`` on the card (f32, 5 requests through 2
+    slots): each prefill launches the attention kernel once per attention
+    layer (the scan once per recurrent one) and nothing else, and every
+    request gets its isolated greedy decode's tokens, each choice's top-2
+    margin asserted first."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.lru import ops as lru_ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.testing import isolated_greedy, top2_margin
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, dtype=torch.float32)
+    params = tree_map(lambda t: t.to(card),
+                      model.init(torch.Generator().manual_seed(0)))
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (8 + 3 * i,), generator=g)
+               for i in range(5)]
+    budgets = [6, 4, 8, 5, 7]
+    want = []
+    for p, n in zip(prompts, budgets):
+        tokens, logits = isolated_greedy(model, params, p.to(card), n, 64)
+        for lg in logits:
+            assert top2_margin(lg) > 1e-4 * float(lg.abs().max())
+        want.append(tokens)
+    flash_ops.reset_counts()
+    lru_ops.reset_counts()
+    engine = ServeEngine(model, params, max_slots=2, cache_len=64)
+    rids = [engine.submit(p, n) for p, n in zip(prompts, budgets)]
+    results = engine.run_to_completion()
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    assert flash_ops.LAUNCHES["flash_attention"] == \
+        5 * sum(k in ("local", "attn") for k in kinds)
+    assert lru_ops.LAUNCHES["lru_scan"] == 5 * kinds.count("rec")
+    assert [results[r] for r in rids] == want
