@@ -92,8 +92,8 @@ Phases, each of which stops the script with a non-zero exit on failure:
    Mamba-2-130M width (bf16, 2 clients, or a sampled, faulty or telemetry
    path's own: 4 of which 2 take part a round, the straggler path's 8 of
    which 6 are sampled and those that beat the round's deadline arrive,
-   the faulty path's 8, the telemetry path's 4; the straggler path at 12
-   of the 24 layers, the others at all; 1
+   the faulty path's 8, the telemetry path's 4; ``MAIN_LAYERS`` of the
+   24 layers; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -195,7 +195,32 @@ Phases, each of which stops the script with a non-zero exit on failure:
    26 launches) and olmoe-1b-7b (batch 4, prompt 4096, 16 tokens, 16
    launches; its prefill's 16,384 tokens take the capacity dispatch)
    through ``launch/serve.py``; mamba2-130m through ``ServeEngine`` as
-   granite-8b, no kernel;
+   granite-8b, no kernel (the flash cases also take hubert-xlarge's
+   encoder, q [4, 1500, 16, 80], not causal, in bf16 and f32, and
+   internvl2-76b's prefill, [2, 1280, 64, 128], kv 8, causal);
+8c. the audio and VLM front ends and every family's training: a reduced
+   internvl2-76b prefill (8 patches + 100 tokens) and 8 decode steps, and
+   a reduced hubert-xlarge forward over 100 frames, card (kernels) against
+   CPU (plain versions) within 1e-4 of the largest logit; two reduced
+   FedBiOAcc steps of ``experiments/fedbioacc.json`` with the arch edited
+   to each of granite-moe-1b-a400m, hubert-xlarge, gemma2-2b,
+   recurrentgemma-9b and internvl2-76b, card against CPU as phase 4 (1e-4
+   of each buffer's norm); then those five at full width (bf16, 2
+   clients, 1 sequence of 512 each, ``FAMILY_STEPS`` steps) at the first
+   depth of ``TRAIN_DEPTHS`` whose flat buffers, reckoned from the layout
+   (``_flat_bytes``), fit the card and whose steps do not run out of
+   memory, each depth skipped logged with the bytes that stopped it: the
+   step times (CUDA events), the peak memory, the validation loss before
+   and after (finite), ``storm3_step`` once per buffer a step and no other
+   kernel; ``storm3_step`` bit for bit against its plain version at the
+   largest buffers a family trained on (a phase-3 entry, timed beside its
+   bound); internvl2-76b served through ``launch/serve.py`` at full width
+   with ``VLM_LAYERS`` of its 80 layers (batch 2, 256 patches + 1,024
+   prompt tokens, 16 new tokens; the attention once a layer); and
+   hubert-xlarge's encoder at full width, all 48 layers, ``Model.forward``
+   with ``use_flash`` over 4 clips of 1,500 frames (the attention once a
+   layer at head dim 80), finite logits of the expected shape, timed, its
+   logits beside the same forward with the plain attention;
 9. the paper's problems (``repro_torch.core``): the Threefry generator on
    the card against the CPU (keys, bits, integers, uniforms, permutations
    bit for bit, normals within 4 ulps); (a) two rounds of each of the
@@ -227,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -243,6 +269,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the full-width training runs of phase 8c fill the card: let the caching
+# allocator grow its segments rather than leave freed blocks stranded
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 
@@ -325,11 +354,12 @@ FAULT_DROPOUT = 0.25
 FAULT_LOG_EVERY = 2
 ILL_CONDITIONED = 1e-3
 # the straggler path is checkpointed after this many of its steps and
-# resumed from there; its full-width run keeps the published widths and 8
-# clients and cuts the depth to this many of Mamba-2-130M's 24 layers, so
-# that the faulty path's phases fit in the script's time
+# resumed from there
 RESUME_AT = 2
-STRAGGLER_LAYERS = 12
+# the phase-5 paths keep Mamba-2-130M's published widths and cut its depth
+# to this many of its 24 layers, so that phases 8b and 8c fit in the
+# script's time
+MAIN_LAYERS = 6
 # the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
 # CPU in-band metrics agree within this (relative)
 TEL_LOG_EVERY = 2
@@ -355,7 +385,13 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # cap 50; olmoe-1b-7b's 16:16 heads, D 128)
 FLASH_CASES = (("granite-8b", 1, 517, "attn"), ("granite-8b", 1, 2047, "attn"),
                ("gemma2-2b", 2, 4096, "local"), ("gemma2-2b", 2, 4096, "attn"),
-               ("olmoe-1b-7b", 4, 4096, "attn"))
+               ("olmoe-1b-7b", 4, 4096, "attn"),
+               # phase 8c: hubert-xlarge's encoder (16:16 heads, D 80, not
+               # causal, 1,500 frames: ragged against the 64-key tiles) and
+               # internvl2-76b's prefill (256 patches + 1,024 tokens, 64:8,
+               # D 128)
+               ("hubert-xlarge", 4, 1500, "attn"),
+               ("internvl2-76b", 2, 1280, "attn"))
 # the reduced card/CPU cross-checks besides RecurrentGemma's, and the
 # reduced engines
 FAMILY_ARCHS = ("gemma2-2b", "granite-8b", "granite-3-8b", "llama3-405b",
@@ -372,7 +408,31 @@ ENGINE_SLOTS = 4
 ENGINE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # batched serving through launch/serve.py: (batch, prompt, tokens); the
 # olmoe prefill's 16,384 tokens take the capacity dispatch
-BATCHED = {"gemma2-2b": (2, 4096, 16), "olmoe-1b-7b": (4, 4096, 16)}
+BATCHED = {"gemma2-2b": (2, 4096, 16), "olmoe-1b-7b": (4, 4096, 16),
+           "internvl2-76b": (2, 1024, 16)}
+# phase 8c, the front ends and every family's training: FedBiOAcc
+# (experiments/fedbioacc.json, the arch edited) at full width, 2 clients, 1
+# sequence of 512 each, bf16, FAMILY_STEPS steps; per arch the depths to
+# try in order (None: all layers), the first whose flat buffers fit the
+# card and whose step does not run out of memory taken: gemma2-2b halved
+# from its 26 layers, recurrentgemma-9b in whole (rec, rec, local) units,
+# internvl2-76b at one layer
+FAMILY_STEPS = 2
+TRAIN_DEPTHS = (("granite-moe-1b-a400m", (None,)),
+                ("hubert-xlarge", (None,)),
+                ("gemma2-2b", (None, 13, 6, 3, 1)),
+                ("recurrentgemma-9b", (6, 3)),
+                ("internvl2-76b", (1,)))
+# internvl2-76b served at full width through launch/serve.py with this
+# many of its 80 layers (~31.6 GB of bf16 weights); hubert-xlarge encodes
+# ENCODE_BATCH clips of ENCODE_FRAMES frames (30 s at 50 Hz) at all 48
+VLM_LAYERS = 16
+ENCODE_BATCH, ENCODE_FRAMES = 4, 1500
+# the storm3_step check at a family's buffers compares the plain version a
+# slice of this many tiles at a time (it is elementwise over tiles)
+CHECK_TILES = 4096
+# the families whose training must fit at one of its depths
+REQUIRED_TRAIN = ("granite-moe-1b-a400m", "hubert-xlarge", "gemma2-2b")
 
 
 def log(msg: str) -> None:
@@ -437,16 +497,25 @@ def raw_ms(fn_name: str, lib, *args) -> float:
 
 @contextlib.contextmanager
 def _depth(layers: int):
-    """Builds inside take the published widths of their arch with only its
-    first ``layers`` layers."""
+    """Builds inside (``build``, ``launch/serve.py`` and this script's own
+    lookups) take the published widths of their arch with only its first
+    ``layers`` layers."""
     from repro_torch import configs
     orig = configs.get_config
-    configs.get_config = lambda name: dataclasses.replace(
-        orig(name), num_layers=layers)
+    homes = (configs, serve)
+
+    def cut(name):
+        return dataclasses.replace(orig(name), num_layers=layers)
+
+    for home in homes:
+        home.get_config = cut
+    globals()["get_config"] = cut
     try:
         yield
     finally:
-        configs.get_config = orig
+        for home in homes:
+            home.get_config = orig
+        globals()["get_config"] = orig
 
 
 def full_width_experiment(exp: Experiment) -> Experiment:
@@ -2159,29 +2228,44 @@ def _kernel_layers(cfg) -> dict:
 
 def serve_cross_check(dev, arch: str) -> float:
     """A reduced arch (f32; RecurrentGemma's 3 layers, the others' 2): prompt
-    100 (ragged tiles; the reduced window of 64 bites) and 8 teacher-forced
-    decode steps, on the card through the kernels and on the CPU through
-    their plain versions, from the same params; returns the worst logit
-    difference, relative to the largest logit."""
+    100 (ragged tiles; the reduced window of 64 bites; a VLM's 8 patches
+    before it) and 8 teacher-forced decode steps, on the card through the
+    kernels and on the CPU through their plain versions, from the same
+    params; the audio encoder (no decode step): the forward's logits over
+    100 frames.  Returns the worst logit difference, relative to the
+    largest logit."""
     cfg = get_config(arch).reduced()
     model = build_model(cfg, dtype=torch.float32)
     B, S, gen = 2, 100, 8
-    tok = torch.randint(0, cfg.vocab_size, (B, S + gen),
-                        generator=torch.Generator().manual_seed(1))
+    host = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (B, S + gen), generator=host)
+    extra, offset = {}, 0
+    if cfg.family == "vlm":
+        extra["patches"] = 0.1 * torch.randn(
+            (B, cfg.num_patches, cfg.frontend_dim), generator=host)
+        offset = cfg.num_patches
+    frames = torch.randn((B, S, cfg.frontend_dim), generator=host) \
+        if cfg.family == "audio" else None
     cpu_params = model.init(torch.Generator().manual_seed(0))
     steps = {}
     reset_counts()
     with torch.no_grad():
         for side, d in (("cpu", torch.device("cpu")), ("card", dev)):
             params = tree_map(lambda t: t.to(d), cpu_params)
+            if frames is not None:
+                steps[side] = [model.forward(params, {"frames": frames.to(d)},
+                                             use_flash=True)[0].cpu()]
+                continue
             t = tok.to(d)
-            last, caches = model.prefill(params, {"tokens": t[:, :S]},
-                                         cache_len=S + gen, use_flash=True,
-                                         use_lru_kernel=True)
+            batch = {"tokens": t[:, :S],
+                     **{k: v.to(d) for k, v in extra.items()}}
+            last, caches = model.prefill(params, batch,
+                                         cache_len=offset + S + gen,
+                                         use_flash=True, use_lru_kernel=True)
             steps[side] = [last.cpu()]
             for i in range(gen):
-                last, caches = model.decode_step(params, caches,
-                                                 t[:, S + i:S + i + 1], S + i)
+                last, caches = model.decode_step(
+                    params, caches, t[:, S + i:S + i + 1], offset + S + i)
                 steps[side].append(last.cpu())
     launches = launch_counts()
     want = {**dict.fromkeys(launches, 0), **_kernel_layers(cfg)}
@@ -2190,11 +2274,13 @@ def serve_cross_check(dev, arch: str) -> float:
                          f"{launches}, expected {want}")
     worst = max(float((g - c).abs().max() / c.abs().max())
                 for g, c in zip(steps["card"], steps["cpu"]))
+    what = (f"forward over {S} frames" if frames is not None else
+            f"prefill {offset} patches + {S} + {gen} decode steps")
     log(f"reduced serving cross-check {arch} ({cfg.family}, "
         f"{cfg.num_layers} layers, f32): card (kernels: "
         f"{ {k: v for k, v in launches.items() if v} }) vs CPU (plain "
-        f"versions), prefill {S} + {gen} decode steps, worst logit "
-        f"difference {worst:.3e} of the largest (limit 1e-4)")
+        f"versions), {what}, worst logit difference {worst:.3e} of the "
+        f"largest (limit 1e-4)")
     if not worst <= 1e-4:
         raise SystemExit(f"reduced serving cross-check failed ({arch})")
     return worst
@@ -2255,7 +2341,7 @@ def flash_families_phase(dev) -> None:
     for i, case in enumerate(FLASH_CASES):
         gen = torch.Generator(device=dev).manual_seed(40 + i)
         ins, kw = _flash_case_inputs(case, gen, dev)
-        if case == FLASH_CASES[0]:
+        if case == FLASH_CASES[0] or ins[0].shape[-1] == 80:
             got = flash_ops.flash_attention(*ins, **kw)
             want = flash_attention_ref(*ins, **kw)
             f32_err = float((got - want).abs().max())
@@ -2522,7 +2608,8 @@ def batched_path(dev, arch: str) -> dict:
                 f"{int(T * cfg.experts_per_token // cfg.num_experts * 1.25)}"
                 if T > MOE_DENSE_TOKEN_LIMIT else "dense combine")
         moe = f"; the prefill's MoE layers: T = {T}, {path}; decode: T = {B}"
-    log(f"batched path: full-width {arch}, bf16, batch {B}, prompt {S}, "
+    log(f"batched path: full-width {arch} ({cfg.num_layers} layers), bf16, "
+        f"batch {B}, prompt {S}, "
         f"{G} tokens: prefill {out['prefill_ms']:.3f} ms, decode "
         f"{out['decode_ms_per_step']:.3f} ms per step ({B} tokens), peak "
         f"memory {peak} B, launches {launches}{moe}")
@@ -2560,6 +2647,232 @@ def families_phase(dev, rg_card_cpu: float) -> dict:
         f"{time.perf_counter() - t0:.1f} s: flash shapes {t1 - t0:.1f} s, "
         f"reduced checks {t2 - t1:.1f} s, full width "
         f"{time.perf_counter() - t2:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the audio and VLM front ends and every family's training
+# ---------------------------------------------------------------------------
+
+def _flat_bytes(groups, m: int) -> tuple:
+    """(the flat state's bytes, the least a FedBiOAcc step holds at once)
+    over ``m`` clients: per element the variable in its buffer's dtype and
+    the f32 momentum; while ``storm3_step`` runs also their successors and
+    the f32 old-iterate direction."""
+    state = m * sum(g.padded * (g.dtype.itemsize + 4) for g in groups)
+    least = m * sum(g.padded * (2 * g.dtype.itemsize + 12) for g in groups)
+    return state, least
+
+
+def _family_steps(run, exp: Experiment, dev) -> tuple:
+    """The run's steps from a seeded state on the card: each step's time
+    between two CUDA events, the peak memory over the steps, the launches
+    over them alone, and client 0's validation loss before and after."""
+    state = run.init(torch.Generator(device=dev).manual_seed(
+        exp.schedule.seed))
+    data = torch.Generator().manual_seed(exp.schedule.seed)
+    batches = [run.batch_fn(data) for _ in range(exp.schedule.steps)]
+    val0 = run.eval_fn(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    step_ms = []
+    for batch in batches:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, _ = run.step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    val1 = run.eval_fn(state)
+    return step_ms, peak, launches, val0, val1
+
+
+def family_train_path(arch: str, depths: tuple, base: Experiment,
+                      dev) -> tuple:
+    """FedBiOAcc on ``arch`` at full width (``full_width_experiment``,
+    ``FAMILY_STEPS`` steps) at the first of ``depths`` whose flat buffers
+    fit the card (reckoned from the layout first, ``_flat_bytes``) and
+    whose steps do not run out of memory; logs each depth skipped with the
+    bytes that stopped it.  Returns the launches of the run and its
+    buffers (``{}`` and None when no depth fits)."""
+    exp = full_width_experiment(base.edit(**{"problem.arch": arch})).edit(
+        **{"schedule.steps": FAMILY_STEPS})
+    m = exp.problem.num_clients
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    full = get_config(arch).num_layers
+    for layers in depths:
+        with _depth(layers or full):
+            run = build(exp, device=dev)
+        groups = run.init.spec.groups
+        state_b, least_b = _flat_bytes(groups, m)
+        sizes = [f"{str(g.dtype).replace('torch.', '')}[{m}, {g.padded}]"
+                 for g in groups]
+        what = (f"{arch} ({run.model_cfg.family}) at {layers or full} of "
+                f"{full} layers, buffers {sizes}")
+        if least_b > cap:
+            log(f"train {what}: flat state {state_b} B, at least {least_b} "
+                f"B held during a step, more than the card's {cap} B: not "
+                f"run")
+            continue
+        oom = None
+        try:
+            step_ms, peak, launches, val0, val1 = _family_steps(run, exp,
+                                                                dev)
+        except torch.cuda.OutOfMemoryError as err:
+            oom = str(err).split("\n")[0]
+        del run
+        # the failed run's frames hold its state in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+        if oom is not None:
+            log(f"train {what}: flat state {state_b} B (at least {least_b} "
+                f"B during a step): out of memory in the run ({oom})")
+            continue
+        want = {**dict.fromkeys(launches, 0),
+                "storm3_step": FAMILY_STEPS * len(groups)}
+        log(f"train {what}: FedBiOAcc, {m} clients, 1 x 512 tokens each, "
+            f"flat state {state_b} B (at least {least_b} B during a step), "
+            f"step ms {[round(t, 3) for t in step_ms]}, peak memory {peak} "
+            f"B, launches {launches} (storm3_step once per buffer a step), "
+            f"val_loss {val0} before, {val1} after")
+        if launches != want:
+            raise SystemExit(f"train {arch} launched {launches}, expected "
+                             f"{want}")
+        if not (math.isfinite(val0) and math.isfinite(val1)):
+            raise SystemExit(f"train {arch}: non-finite validation loss")
+        return launches, groups
+    if arch in REQUIRED_TRAIN:
+        raise SystemExit(f"train {arch}: no depth of {depths} fits the card")
+    log(f"train {arch}: no depth of {depths} fits the card at full width "
+        f"with {m} clients (the bytes above)")
+    return {}, None
+
+
+def storm_family_check(arch: str, groups, m: int, dev) -> None:
+    """A phase-3 entry at the largest buffers a family trained on:
+    ``storm3_step`` (as ``KERNELS`` feeds it: the variable in the buffer's
+    dtype, f32 momentum and direction, per-tile tables) bit for bit against
+    its plain version, taken ``CHECK_TILES`` tiles at a time (it is
+    elementwise over tiles, so a slice has the whole call's bits), timed
+    beside its bound."""
+    k = KERNELS["storm3_step"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for grp in groups:
+        n = m * grp.padded
+        tiles = n // grp.block
+        args = k.inputs(n, tiles, grp, gen, dev)
+        out = k.wrapper(*args, block=grp.block)
+        ok = True
+        for t0 in range(0, tiles, CHECK_TILES):
+            t1 = min(tiles, t0 + CHECK_TILES)
+            a, b = t0 * grp.block, t1 * grp.block
+            want = k.plain(*(x[a:b] for x in args[:3]),
+                           *(x[t0:t1] for x in args[3:]), grp.block)
+            ok = ok and all(same_bits(o[a:b], w) for o, w in zip(out, want))
+        torch.cuda.synchronize()
+        moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+        del out
+        if not ok:
+            raise SystemExit(f"storm3_step differs from the plain version at "
+                             f"{arch}'s {grp.dtype} buffer")
+        torch.cuda.empty_cache()
+        k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block), 10)
+        bound = max(moved / HBM_BYTES_PER_S, k.ops * n / F32_FLOPS_PER_S) \
+            * 1e3
+        log(f"storm3_step {str(grp.dtype).replace('torch.', '')} group "
+            f"[{m}, {grp.padded}] ({arch}'s training buffer): bitwise equal "
+            f"to the plain version, kernel {k_ms:.4f} ms, {moved} B, bound "
+            f"{bound:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s, "
+            f"{bound / k_ms:.1%} of the bound)")
+        del args
+        torch.cuda.empty_cache()
+
+
+def encode_path(dev) -> dict:
+    """hubert-xlarge's encoder at full width, all 48 layers, bf16 seeded on
+    the card: ``Model.forward`` with ``use_flash`` over ``ENCODE_BATCH``
+    clips of ``ENCODE_FRAMES`` frames, twice (the launches and peak of the
+    second alone); finite logits of the expected shape, the attention once
+    a layer (D 80, not causal), and the logits beside the same forward with
+    the plain attention."""
+    arch = "hubert-xlarge"
+    cfg = get_config(arch)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    frames = torch.randn((ENCODE_BATCH, ENCODE_FRAMES, cfg.frontend_dim),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"frames": frames.to(torch.bfloat16).to(dev)}
+    with torch.no_grad():
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(params, batch, use_flash=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        plain, _ = model.forward(params, batch)
+    diff = float((logits - plain).abs().max() / plain.abs().max())
+    want = {**dict.fromkeys(launches, 0), **_kernel_layers(cfg)}
+    log(f"encode path: full-width {arch} ({cfg.num_layers} layers, bf16), "
+        f"{ENCODE_BATCH} x {ENCODE_FRAMES} frames: forward {ms[0]:.3f} ms "
+        f"cold, {ms[1]:.3f} ms warm (host clock to a synchronise), peak "
+        f"memory {peak} B, launches {launches}; logits "
+        f"{list(logits.shape)}, against the plain attention's "
+        f"{diff:.3e} of the largest (bf16 through {cfg.num_layers} layers)")
+    if launches != want:
+        raise SystemExit(f"encode path launched {launches}, expected {want}")
+    if tuple(logits.shape) != (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit("encode path: wrong logit shape or non-finite "
+                         "logits")
+    del params, logits, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def frontends_phase(dev) -> dict:
+    """Phase 8c; returns the launches of its full-width paths."""
+    t0 = time.perf_counter()
+    for arch in ("internvl2-76b", "hubert-xlarge"):
+        serve_cross_check(dev, arch)
+    base = Experiment.load(os.path.join(ROOT, "experiments",
+                                        "fedbioacc.json"))
+    for arch, _ in TRAIN_DEPTHS:
+        cross_check(f"fedbioacc ({arch})",
+                    base.edit(**{"problem.arch": arch}), dev)
+    t1 = time.perf_counter()
+    total, largest = {}, None
+    for arch, depths in TRAIN_DEPTHS:
+        t = time.perf_counter()
+        launches, groups = family_train_path(arch, depths, base, dev)
+        log(f"train {arch} took {time.perf_counter() - t:.1f} s")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if groups is not None and (largest is None or sum(
+                g.padded for g in groups) > sum(g.padded
+                                                for g in largest[1])):
+            largest = (arch, groups)
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    storm_family_check(*largest, CLIENTS, dev)
+    t3 = time.perf_counter()
+    with _depth(VLM_LAYERS):
+        served = batched_path(dev, "internvl2-76b")
+    for launches in (served, encode_path(dev)):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    log(f"phase 8c (the front ends and every family's training) took "
+        f"{time.perf_counter() - t0:.1f} s: reduced checks {t1 - t0:.1f} s, "
+        f"full-width training {t2 - t1:.1f} s, storm3_step at "
+        f"{largest[0]}'s buffers {t3 - t2:.1f} s, VLM serving and the "
+        f"encoder {time.perf_counter() - t3:.1f} s")
     return total
 
 
@@ -3005,15 +3318,13 @@ def main() -> None:
     cli_fault_phase()
     telemetry_cross_check(dev)
     for name, full in fulls.items():
-        if name == FAULTY:
-            launches = faulty_path(name, full, dev)
-        elif name == TELEMETRY:
-            launches = telemetry_path(name, full, dev)
-        elif name == STRAGGLED:
-            with _depth(STRAGGLER_LAYERS):
+        with _depth(MAIN_LAYERS):
+            if name == FAULTY:
+                launches = faulty_path(name, full, dev)
+            elif name == TELEMETRY:
+                launches = telemetry_path(name, full, dev)
+            else:
                 launches = main_path(name, full, dev)
-        else:
-            launches = main_path(name, full, dev)
         torch.cuda.empty_cache()
         for kname, k in kernels.items():
             k["launches"] += launches[kname]
@@ -3028,6 +3339,11 @@ def main() -> None:
 
     torch.cuda.empty_cache()
     launches = families_phase(dev, rg_card_cpu)
+    for kname, k in kernels.items():
+        k["launches"] += launches.get(kname, 0)
+
+    torch.cuda.empty_cache()
+    launches = frontends_phase(dev)
     for kname, k in kernels.items():
         k["launches"] += launches.get(kname, 0)
 

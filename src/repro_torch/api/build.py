@@ -72,10 +72,8 @@ def unported_features(exp: Experiment) -> list:
     """What ``exp`` asks for that the port does not run yet, each with the
     ROADMAP item that ports it."""
     from repro_torch.api import registry
-    from repro_torch.configs import ARCHS
 
     ex, sch = exp.execution, exp.schedule
-    arch = ARCHS.get(exp.problem.arch)
     algos, part = "queue 1, 'Remaining algorithms'", \
         "queue 1, 'Participation, staleness and cadence'"
     compress_rest = "queue 1, 'Compression, the rest'"
@@ -100,12 +98,6 @@ def unported_features(exp: Experiment) -> list:
         (ex.scatter_comm, "execution.scatter_comm", shard),
         (sch.hierarchy_period > 0, "schedule.hierarchy_period > 0", part),
         (bool(sch.comm_every), "schedule.comm_every", part),
-        (arch is None, f"arch {exp.problem.arch!r}",
-         "queue 1, 'Other model families and serving'"),
-        (arch is not None and arch.family != "ssm",
-         f"training arch {exp.problem.arch!r} (family "
-         f"{getattr(arch, 'family', None)!r}: no slice holds its training "
-         f"to the reference yet)", kernel_training),
         (ex.use_flash, "execution.use_flash (" + no_grad.format("flash") +
          ")", kernel_training),
         (ex.use_lru_kernel, "execution.use_lru_kernel (" +

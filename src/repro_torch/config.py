@@ -22,7 +22,7 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense, moe, ssm, hybrid (audio, vlm: not ported)
+    family: str                      # dense, moe, ssm, hybrid, audio, vlm
     num_layers: int
     d_model: int
     num_heads: int

@@ -11,6 +11,13 @@ the SSD einsums) has forward-mode support in PyTorch.
 The unfused functions (``grad_y``, ``nu_direction``, ``u_residual``,
 ``u_step``, ``neumann_hypergrad``) take one batch per derivative, as the
 paper's independent minibatches; the fused ones share one batch.
+
+Forward-mode AD gives a dual tensor's tangent the primal's storage layout:
+a primal that is a slice of a larger storage (a leaf of the flat buffers'
+pytree view) gets a tangent storage as large as that whole storage, one
+per leaf.  The primals and tangents that enter ``jvp`` are therefore given
+storages of their own first (:func:`_own_storage`), a copy of the leaf and
+no more.
 """
 from __future__ import annotations
 
@@ -31,9 +38,25 @@ def grad_y(f: Callable, x, y, batch):
     return grad(f, argnums=1)(x, y, batch)
 
 
+def _own_storage(tree):
+    """``tree`` with every leaf that is a slice of a larger storage copied
+    into a storage of its own (the others as they are; a leaf batched by
+    ``vmap``, as the problem-level rounds batch their clients, exposes no
+    storage and is left as it is)."""
+    def own(t):
+        try:
+            nbytes = t.untyped_storage().nbytes()
+        except NotImplementedError:
+            return t
+        whole = nbytes == t.numel() * t.element_size() and t.is_contiguous()
+        return t if whole else t.clone()
+    return tree_map(own, tree)
+
+
 def hvp_yy(g: Callable, x, y, batch, u):
     """∇²_yy g(x, y; batch) · u, forward over reverse."""
-    return jvp(lambda yy: grad(g, argnums=1)(x, yy, batch), (y,), (u,))[1]
+    return jvp(lambda yy: grad(g, argnums=1)(x, yy, batch),
+               (_own_storage(y),), (_own_storage(u),))[1]
 
 
 def jvp_xy(g: Callable, x, y, batch, u):
@@ -87,7 +110,9 @@ def fused_g_oracles(g: Callable, x, y, batch, u):
     def grads(xx, yy):
         return grad(g, argnums=(0, 1))(xx, yy, batch)
 
-    (_, gy), (txy, tyy) = jvp(grads, (x, y), (tree_zeros_like(x), u))
+    x = _own_storage(x)
+    (_, gy), (txy, tyy) = jvp(grads, (x, _own_storage(y)),
+                              (tree_zeros_like(x), _own_storage(u)))
     return gy, txy, tyy
 
 
@@ -113,6 +138,7 @@ def fused_local_oracles(g: Callable, f: Callable, x, y, batch,
     One ∇_{(x,y)} f gives ∇_x f and the series seed ∇_y f; one
     forward-over-reverse linearization of ∇_{(x,y)} g with tangent
     (0, ihvp) gives ω and the ∇²_xy g contraction."""
+    x, y = _own_storage(x), _own_storage(y)
     fx, fy = grad(f, argnums=(0, 1))(x, y, batch)
     ihvp = _neumann_ihvp(g, x, y, batch, fy, q_terms, tau)
 

@@ -34,6 +34,33 @@ def check_model_options(n_micro: int = 1, remat: bool = False,
             "the model kernels'")
 
 
+class _SumSquares(torch.autograd.Function):
+    """``sum(v.float() ** 2)`` with the derivatives autograd would give it,
+    op for op (``(g · (2 · v.float())).to(v.dtype)`` back, ``sum(2 ·
+    v.float() · t.float())`` forward), saving only ``v``: autograd would
+    keep ``v.float()`` and, under the oracles' forward-over-reverse, its
+    tangent, two f32 copies of the head for the whole linearization."""
+
+    @staticmethod
+    def forward(v):
+        return torch.sum(v.to(torch.float32) ** 2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        return (g * (2 * v.to(torch.float32))).to(v.dtype)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (v,) = ctx.saved_tensors
+        return torch.sum((2 * v.to(torch.float32)) * t.to(torch.float32))
+
+
 def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,
                        n_micro: int = 1, remat: bool = False,
                        use_flash: bool = False, use_lru_kernel: bool = False):
@@ -45,7 +72,7 @@ def make_model_bilevel(model: Model, *, lower_l2: float = 1e-2,
         return model.loss({"body": x, "head": y}, mb)[0].to(torch.float32)
 
     def g(x, y, batch):
-        reg = 0.5 * lower_l2 * sum(torch.sum(v.to(torch.float32) ** 2)
+        reg = 0.5 * lower_l2 * sum(_SumSquares.apply(v)
                                    for v in tree_leaves(y))
         return _loss(x, y, batch["train"]) + reg
 

@@ -1,12 +1,19 @@
-"""Synthetic federated token streams (counterpart of
-``repro/data/synthetic.py``, token streams only).
+"""Synthetic federated streams (counterpart of ``repro/data/synthetic.py``'s
+``make_fed_batch_fn``).
 
-Each client samples tokens from its own unigram distribution over vocabulary
-buckets, drawn from a Dirichlet(``hetero_alpha``) prior (lower concentration
-→ more heterogeneous clients); labels are the tokens rolled by one.  The
-structure is the reference's; the draws come from ``torch.Generator``s and so
-differ from ``jax.random``'s — parity tests hand the reference's batches to
-the port.
+* tokens: each client samples from its own unigram distribution over
+  vocabulary buckets, drawn from a Dirichlet(``hetero_alpha``) prior (lower
+  concentration → more heterogeneous clients); labels are the tokens rolled
+  by one;
+* audio frames: ``0.5·N(0, 1)`` plus a fixed per-client shift
+  ``0.3·N(0, 1)`` over ``frontend_dim``, in bf16, with labels drawn
+  uniformly from ``[0, vocab)``;
+* VLM patches: ``0.5·N(0, 1)`` ``[per_client, num_patches, frontend_dim]``
+  in bf16, beside the token stream.
+
+The structure is the reference's; the draws come from ``torch.Generator``s
+and so differ from ``jax.random``'s — parity tests hand the reference's
+batches to the port.
 """
 from __future__ import annotations
 
@@ -21,10 +28,6 @@ def make_fed_batch_fn(cfg: ModelConfig, *, num_clients: int, per_client: int,
     """Returns ``batch_fn(gen) -> {"train": batch, "val": batch}`` with a
     leading client axis M on every leaf, drawn from the CPU generator
     ``gen`` and placed on ``device``."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} streams are not ported yet (ROADMAP queue 1, item "
-            f"'Other model families and serving')")
     base = torch.Generator().manual_seed(seed)
     buckets = min(cfg.vocab_size, 1024)
     g = torch._standard_gamma(torch.full((num_clients, buckets), hetero_alpha),
@@ -32,6 +35,9 @@ def make_fed_batch_fn(cfg: ModelConfig, *, num_clients: int, per_client: int,
     probs = g / torch.sum(g, dim=1, keepdim=True)
     bucket_size = max(cfg.vocab_size // buckets, 1)
     n = per_client * seq_len
+    if cfg.family == "audio":
+        shift = 0.3 * torch.randn((num_clients, 1, 1, cfg.frontend_dim),
+                                  generator=base)
 
     def _tokens(gen):
         b = torch.multinomial(probs + 1e-9, n, replacement=True, generator=gen)
@@ -39,10 +45,26 @@ def make_fed_batch_fn(cfg: ModelConfig, *, num_clients: int, per_client: int,
         toks = torch.clamp(b * bucket_size + off, max=cfg.vocab_size - 1)
         return toks.reshape(num_clients, per_client, seq_len)
 
+    def _normal(gen, *shape):
+        return 0.5 * torch.randn((num_clients, per_client) + shape,
+                                 generator=gen)
+
     def one_stream(gen):
+        if cfg.family == "audio":
+            frames = _normal(gen, seq_len, cfg.frontend_dim) + shift
+            labels = torch.randint(0, cfg.vocab_size,
+                                   (num_clients, per_client, seq_len),
+                                   generator=gen)
+            return {"frames": frames.to(torch.bfloat16).to(device),
+                    "labels": labels.to(device)}
         toks = _tokens(gen)
         labels = torch.cat([toks[..., 1:], toks[..., :1]], dim=-1)
-        return {"tokens": toks.to(device), "labels": labels.to(device)}
+        batch = {"tokens": toks.to(device), "labels": labels.to(device)}
+        if cfg.family == "vlm":
+            batch["patches"] = _normal(
+                gen, cfg.num_patches, cfg.frontend_dim).to(
+                    torch.bfloat16).to(device)
+        return batch
 
     def batch_fn(gen: torch.Generator):
         return {"train": one_stream(gen), "val": one_stream(gen)}

@@ -79,7 +79,19 @@
 // explicitly, with named barriers, measured slower).  At D = 256 a
 // consumer thread holds the 128-float output accumulator, 32 scores and
 // 48 fragment registers, within its 240; shared memory is 193 KB.
-// D is a template parameter (16, 32, 64, 128 or 256) in both kernels.
+// D is a template parameter (16, 32, 64, 80, 128 or 256) in both kernels.
+//
+// D = 80 (HuBERT X-Large's 1280 / 16) is not a power of two.  flash_fwd
+// gives each of its 16 column lanes five single columns.  flash_fwd_tc pads
+// the row to 128 columns in shared memory: the tensor maps' boxes run past
+// D and TMA fills columns 80-127 with zeros, so the tile is D = 128's; q k^T
+// takes only the five k steps of the true 80 columns, and p v runs at
+// N = 128 with the 80 true columns stored.  The padded p v does 1.6 times
+// the function's work in the three split products, so the kernel can reach
+// at most 320 / (80 + 3 * 128) = 69 % of the operations bound.  (Cutting
+// the row into a 128-byte chunk and a 32-byte chunk, each with its own
+// swizzle and tensor map, would run p v at N = 80 exactly, at the cost of a
+// second layout in every descriptor.)
 //
 // C interface for ctypes: returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a head dim the kernels are not built for.
@@ -144,7 +156,9 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           float scale) {
   constexpr int DP = D + 4;              // padded f32 row of Q, K, V
   constexpr int PP = kBQ + 4;            // padded row of P^T
-  constexpr int VEC = D >= 64 ? 4 : D / 16;
+  // 16-byte groups where the 16 lanes' columns tile D in them, else 8 or
+  // 4 bytes: D = 80 takes VEC 1, five columns a thread
+  constexpr int VEC = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   constexpr int CHUNKS = D / (16 * VEC); // column groups per thread
   constexpr int NC = D / 16;             // columns per thread
 
@@ -316,14 +330,18 @@ constexpr int kConsumers = 128 * kGroups;
 // producer's 24 and the consumers' 240 fill those 64,512 exactly
 constexpr int kThreads = kConsumers + 128;
 
-// Shared-memory geometry of a [64 rows][D] bf16 tile as TMA writes it: D
-// is cut into chunks of kRow bytes a row (128, or the whole row when it is
-// shorter), each chunk a [64][kRow] block swizzled at kRow bytes, the
-// layout wgmma's descriptors name (mode 1: 128 B, 2: 64 B, 3: 32 B).
+// Shared-memory geometry of a [64 rows][D] bf16 tile as TMA writes it: the
+// row is padded to kPad columns (D = 80 to 128; a power of two stays as it
+// is), cut into chunks of kRow bytes a row (128, or the whole row when it
+// is shorter), each chunk a [64][kRow] block swizzled at kRow bytes, the
+// layout wgmma's descriptors name (mode 1: 128 B, 2: 64 B, 3: 32 B).  The
+// tensor map's box runs past D into the padding, which TMA fills with
+// zeros.
 template <int D>
 struct Tile {
-  static constexpr int kRow = 2 * D < 128 ? 2 * D : 128;
-  static constexpr int kChunks = 2 * D / kRow;
+  static constexpr int kPad = D == 80 ? 128 : D;
+  static constexpr int kRow = 2 * kPad < 128 ? 2 * kPad : 128;
+  static constexpr int kChunks = 2 * kPad / kRow;
   static constexpr int kChunkBytes = 64 * kRow;
   static constexpr int kBytes = kChunks * kChunkBytes;
   static constexpr uint32_t kMode = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
@@ -642,9 +660,10 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                                  T::kMode);
     const uint64_t k_desc = desc(Ks, 16, 8 * T::kRow, T::kMode);
     const uint64_t v_desc = desc(Vs, T::kChunkBytes, 8 * T::kRow, T::kMode);
-    float o[D / 2];
+    // the accumulator spans the padded row; columns D.. stay zero
+    float o[T::kPad / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < T::kPad / 2; ++i) o[i] = 0.f;
     float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
     mbar_wait(&q_full, 0);
 
@@ -661,7 +680,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                dv = v_desc + ((st * T::kBytes) >> 4);
       asm volatile("" : "+l"(dq), "+l"(dk), "+l"(dv));
 
-      // s = q k^T over D in steps of 16 (32 bytes of a swizzled row)
+      // s = q k^T over D in steps of 16 (32 bytes of a swizzled row); the
+      // padding is zero in q and k and is left out
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -708,7 +728,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       }
       if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < T::kPad / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
 
       // p = p0 + p1 + p2 exactly, each a bf16 A fragment: for keys
@@ -726,7 +746,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 
       // o += p v: V [key][d] is the B operand MN-major (transposed); keys
       // 16j.. start 16j rows in, 8-row groups 8 kRow bytes apart, d chunks
-      // kChunkBytes apart
+      // kChunkBytes apart; N is the padded row (v's padding is zero)
       hold(o);
       hold(pa);
       wgmma_fence();
@@ -734,7 +754,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int part = 0; part < 3; ++part)
-          wgmma_pv<D>(o, &pa[(part * 4 + j) * 4],
+          wgmma_pv<T::kPad>(o, &pa[(part * 4 + j) * 4],
                       dv + ((j * 16 * T::kRow) >> 4));
       wgmma_commit();
       wgmma_wait();
@@ -750,7 +770,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
       __nv_bfloat16* orow =
           out + ((static_cast<int64_t>(b) * S + qr[r]) * H + h) * D + col;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < D / 8; ++i)      // the true columns only
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
             __floats2bfloat162_rn(o[4 * i + 2 * r] / denom,
                                   o[4 * i + 2 * r + 1] / denom);
@@ -759,7 +779,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
 }
 
 // x [B, S, heads, D] bf16 as a 4-d tensor map whose box is one chunk of 64
-// rows of one head; rows at or past S read as zeros.
+// rows of one head; rows at or past S, and columns at or past D (the
+// padding of Tile<80>), read as zeros.
 template <int D>
 bool tensor_map(CUtensorMap* map, const void* x, int64_t B, int64_t S,
                 int64_t heads) {
@@ -816,6 +837,7 @@ int with_head_dim(int64_t D, F fn) {
     case 16: return fn(std::integral_constant<int, 16>());
     case 32: return fn(std::integral_constant<int, 32>());
     case 64: return fn(std::integral_constant<int, 64>());
+    case 80: return fn(std::integral_constant<int, 80>());
     case 128: return fn(std::integral_constant<int, 128>());
     case 256: return fn(std::integral_constant<int, 256>());
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -28,7 +28,7 @@ from repro_torch.kernels.flash.ref import flash_attention_ref
 
 LAUNCHES = {"flash_attention": 0}      # both kernels count here
 CALLS = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the kernels' instantiations
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,

@@ -5,12 +5,15 @@
         --arch gemma2-2b --reduced --device cpu \\
         [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0]
 
-``--arch`` takes the reference's ten names; the eight ported ones serve,
-the audio encoder stops as the reference's script stops it (no decode
-step) and the VLM stops naming the ROADMAP item its front end waits for.
+``--arch`` takes the reference's ten names; the audio encoder stops as the
+reference's script stops it (no decode step).  A VLM's prompts take
+``num_patches`` patch embeddings (``0.1·N(0, 1)`` in f32, as the
+reference's script draws them) before their tokens: the caches hold them
+too and decoding continues at ``num_patches + prompt_len``.
 The device defaults to ``cuda``; without a card the run stops unless
 ``--device cpu`` is given.  Parameters are drawn from a ``torch.Generator``
-seeded with ``--seed`` on the device, the prompts from one on the CPU.
+seeded with ``--seed`` on the device, the prompts (and patches) from one on
+the CPU.
 The prefill always sets the reference ``prefill``'s ``use_flash`` and
 ``use_lru_kernel`` switches: the attention layers' prefill runs the
 flash-attention kernel and the recurrent layers' scan the RG-LRU kernel (on
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.api.build import resolve_device
 from repro_torch.api.spec import ARCH_NAMES
-from repro_torch.configs import UNPORTED, get_config
+from repro_torch.configs import get_config
 from repro_torch.models.registry import build_model
 
 
@@ -52,24 +55,27 @@ def main(argv=None) -> dict:
     """Returns ``{"tokens": [B, gen] generated ids, "logits": the last
     decode step's [B, V] logits, "prefill_ms", "decode_ms_per_step"}``."""
     ns = _parser().parse_args(argv)
-    if UNPORTED.get(ns.arch) == "audio":
-        raise SystemExit("encoder-only architecture has no decode step")
-    try:
-        cfg = get_config(ns.arch)
-    except NotImplementedError as err:
-        raise SystemExit(str(err)) from err
-    dev = resolve_device(ns.device)
+    cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "audio":
+        raise SystemExit("encoder-only architecture has no decode step")
+    dev = resolve_device(ns.device)
     model = build_model(cfg, dtype=torch.float32 if ns.reduced
                         else torch.bfloat16)
     with torch.no_grad():
         params = model.init(torch.Generator(device=dev).manual_seed(ns.seed))
         B, S = ns.batch, ns.prompt_len
-        prompts = torch.randint(0, cfg.vocab_size, (B, S),
-                                generator=torch.Generator().manual_seed(ns.seed))
+        host = torch.Generator().manual_seed(ns.seed)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=host)
         batch = {"tokens": prompts.to(dev)}
-        cache_len = S + ns.gen
+        offset = 0
+        if cfg.family == "vlm":
+            batch["patches"] = (0.1 * torch.randn(
+                (B, cfg.num_patches, cfg.frontend_dim),
+                generator=host)).to(dev)
+            offset = cfg.num_patches
+        cache_len = offset + S + ns.gen
 
         _sync(dev)
         t0 = time.perf_counter()
@@ -85,7 +91,8 @@ def main(argv=None) -> dict:
         logits = last
         t0 = time.perf_counter()
         for i in range(ns.gen - 1):
-            logits, caches = model.decode_step(params, caches, tok, S + i)
+            logits, caches = model.decode_step(params, caches, tok,
+                                               offset + S + i)
             tok = torch.argmax(logits, dim=-1)[:, None]
             out.append(tok)
         _sync(dev)

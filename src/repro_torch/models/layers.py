@@ -1,5 +1,4 @@
-"""Shared building blocks (counterpart of ``repro/models/layers.py``: all
-of it but the audio family's ungated MLP).
+"""Shared building blocks (counterpart of ``repro/models/layers.py``).
 
 Params are nested dicts of tensors with the reference's keys.  Initialisers
 draw from an explicit ``torch.Generator``; with ``gen=None`` they return
@@ -193,21 +192,24 @@ def attention(params, x, cfg: ModelConfig, *, window: int, positions,
 # gated MLP
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, d_model, d_ff, dtype):
-    return {
-        "wi": dense_init(gen, (d_model, d_ff), dtype),
-        "wg": dense_init(gen, (d_model, d_ff), dtype),
-        "wo": dense_init(gen, (d_ff, d_model), dtype,
-                         scale=1.0 / math.sqrt(d_ff)),
-    }
+def mlp_init(gen, d_model, d_ff, dtype, gated: bool = True):
+    p = {"wi": dense_init(gen, (d_model, d_ff), dtype)}
+    if gated:
+        p["wg"] = dense_init(gen, (d_model, d_ff), dtype)
+    p["wo"] = dense_init(gen, (d_ff, d_model), dtype,
+                         scale=1.0 / math.sqrt(d_ff))
+    return p
 
 
 def mlp(params, x, activation: str = "silu"):
-    """Gated MLP: ``wo(act(x wg) · x wi)`` with ``act`` silu or tanh-gelu
-    (the reference's ungated form serves only the audio family, not
-    ported)."""
-    g = x @ params["wg"]
-    h = (gelu(g) if activation == "gelu" else silu(g)) * (x @ params["wi"])
+    """Gated MLP ``wo(act(x wg) · x wi)`` with ``act`` silu or tanh-gelu;
+    without ``wg`` (the audio encoder's) ``wo(gelu(x wi))``."""
+    h = x @ params["wi"]
+    if "wg" in params:
+        g = x @ params["wg"]
+        h = (gelu(g) if activation == "gelu" else silu(g)) * h
+    else:
+        h = gelu(h)
     return h @ params["wo"]
 
 

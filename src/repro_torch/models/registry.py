@@ -17,8 +17,12 @@ nested-dict params ``{"body": ..., "head": ...}``:
 ``forward``, ``loss`` and ``prefill`` take the reference's ``use_flash`` and
 ``use_lru_kernel`` switches: the attention layers' prefill then runs the
 flash-attention kernel and the recurrent layers' scan the RG-LRU kernel.
-The ``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported; the
-``audio`` and ``vlm`` front ends are not, and ``build_model`` refuses them.
+All six families of the reference are ported.  The two front ends are the
+reference's stubs: the ``audio`` encoder projects precomputed frames
+(``batch["frames"] [B, S, frontend_dim]``, no token embedding, no decode
+step); the ``vlm`` projects precomputed patches (``batch["patches"]
+[B, P, frontend_dim]``) and places them before the tokens, and ``forward``
+drops the patch positions from its logits (the label offset P).
 
 The body/head split is the bilevel split: the upper variable x is the body,
 the lower variable y is the output head.
@@ -32,14 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.configs import FAMILIES_ITEM
 from repro_torch.core.tree_util import tree_map
 from repro_torch.models import stack as stk
-from repro_torch.models.layers import (_softcap, device_of, embed,
-                                       embedding_init, head_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (_softcap, dense_init, device_of,
+                                       embed, embedding_init, head_init,
+                                       rmsnorm, rmsnorm_init)
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 @dataclass(frozen=True)
@@ -53,28 +56,52 @@ class Model:
     init_cache: Callable
 
 
+def _project(x, w):
+    """``x @ w`` in the promoted dtype (jnp's matmul promotes a bf16 and an
+    f32 operand to f32; torch's refuses the pair)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def _embed_inputs(body, batch: Dict[str, Any], cfg: ModelConfig):
-    """Returns ``(x [B, S, d], positions [B, S])`` (the token path)."""
-    x = embed(body["embed"], batch["tokens"])
+    """Returns ``(x [B, S_total, d], positions [B, S_total],
+    label_offset)``."""
+    if cfg.family == "audio":
+        x = _project(batch["frames"], body["frontend_proj"])
+        offset = 0
+    elif cfg.family == "vlm":
+        tok = embed(body["embed"], batch["tokens"])
+        patches = _project(batch["patches"], body["patch_proj"])
+        x = torch.cat([patches.to(tok.dtype), tok], dim=1)
+        offset = patches.shape[1]
+    else:
+        x = embed(body["embed"], batch["tokens"])
+        offset = 0
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    return x, positions
+    return x, positions, offset
 
 
 def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (its front end; "
-            f"{FAMILIES_ITEM})")
+        raise ValueError(f"unknown model family {cfg.family!r}; the "
+                         f"families are {FAMILIES}")
 
     def init(gen):
         body: Dict[str, Any] = {
             "stages": stk.init_stack(gen, cfg, dtype),
             "final_ln": rmsnorm_init(cfg.d_model, dtype, device_of(gen)),
-            "embed": embedding_init(gen, cfg, dtype),
         }
+        if cfg.family == "audio":
+            body["frontend_proj"] = dense_init(
+                gen, (cfg.frontend_dim, cfg.d_model), dtype)
+        else:
+            body["embed"] = embedding_init(gen, cfg, dtype)
+            if cfg.family == "vlm":
+                body["patch_proj"] = dense_init(
+                    gen, (cfg.frontend_dim, cfg.d_model), dtype)
         return {"body": body, "head": head_init(gen, cfg, dtype)}
 
     def _run(params, x, positions, *, caches=None, cache_index=None,
@@ -90,10 +117,10 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
         return logits, new_caches, aux
 
     def forward(params, batch, *, use_flash=False, use_lru_kernel=False):
-        x, positions = _embed_inputs(params["body"], batch, cfg)
+        x, positions, offset = _embed_inputs(params["body"], batch, cfg)
         logits, _, aux = _run(params, x, positions, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
-        return logits, aux
+        return logits[:, offset:, :], aux
 
     def loss(params, batch, *, use_flash=False, use_lru_kernel=False,
              aux_weight: float = 0.01):
@@ -116,8 +143,10 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
                 use_lru_kernel=False):
         """Run the prompt; return its last logits and the decode caches:
         each attention layer's full-sequence k/v become ring buffers of
-        ``min(window, cache_len)`` slots (the reference's pad and roll)."""
-        x, positions = _embed_inputs(params["body"], batch, cfg)
+        ``min(window, cache_len)`` slots (the reference's pad and roll).
+        A VLM's prompt holds its patches first: ``cache_len`` counts them
+        and decoding continues at ``num_patches + S``."""
+        x, positions, _ = _embed_inputs(params["body"], batch, cfg)
         B, S = positions.shape
         logits, seq_caches, _ = _run(params, x, positions, use_flash=use_flash,
                                      use_lru_kernel=use_lru_kernel)
@@ -152,6 +181,8 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
         """tokens: [B, 1]; pos: a scalar or a [B] vector of 0-based next
         positions (continuous batching).  Runs neither kernel: the
         recurrence takes one step and attention reads the ring buffers."""
+        if cfg.family == "audio":
+            raise ValueError("encoder-only model has no decode step")
         x = embed(params["body"]["embed"], tokens)
         if cfg.scale_embed:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)

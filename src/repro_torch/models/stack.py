@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.tree_util import tree_map, tree_stack
+from repro_torch.core.tree_util import tree_flatten, tree_map, tree_stack
 from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import (attention, attn_init, device_of, mlp,
                                        mlp_init, moe_init, moe_mlp, rmsnorm,
@@ -76,7 +76,8 @@ def _init_layer(gen, kind: str, cfg: ModelConfig, dtype):
         p["mix"] = attn_init(gen, cfg, dtype)
     p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
     p["ffn"] = (moe_init(gen, cfg, dtype) if cfg.num_experts else
-                mlp_init(gen, cfg.d_model, cfg.d_ff, dtype))
+                mlp_init(gen, cfg.d_model, cfg.d_ff, dtype,
+                         gated=cfg.family != "audio"))
     return p
 
 
@@ -147,9 +148,21 @@ def _apply_layer(kind, p, x, cfg, positions, cache, cache_index, use_flash,
     if cfg.num_experts:
         out, aux = moe_mlp(p["ffn"], h, cfg)
     else:
-        act = "gelu" if cfg.logit_softcap else "silu"
+        gelu = cfg.family == "audio" or cfg.logit_softcap
+        act = "gelu" if gelu else "silu"
         out = mlp(p["ffn"], h, activation=act)
     return x + out, nc, aux
+
+
+def _unstack(stage, reps: int) -> list:
+    """A stage's ``[reps, ...]`` parameters as ``reps`` per-layer trees, by
+    one ``unbind`` a leaf: its gradient is one stack of the layers'
+    gradients, where indexing each layer out (``v[r]``) would make each
+    layer's gradient a zero-filled copy of the whole stage (memory that
+    grows with the square of the depth under the oracles' derivatives)."""
+    leaves, treedef = tree_flatten(stage)
+    parts = [leaf.unbind(0) for leaf in leaves]
+    return [treedef.unflatten([p[r] for p in parts]) for r in range(reps)]
 
 
 def apply_stack(params, x, cfg: ModelConfig, *, positions=None, caches=None,
@@ -163,8 +176,7 @@ def apply_stack(params, x, cfg: ModelConfig, *, positions=None, caches=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, ((unit, reps), stage) in enumerate(zip(stages_for(cfg), params)):
         per_rep, auxs = [], []
-        for r in range(reps):
-            layer = tree_map(lambda v: v[r], stage)
+        for r, layer in enumerate(_unstack(stage, reps)):
             ncs, unit_aux = {}, 0.0
             for i, kind in enumerate(unit):
                 name = f"{i}_{kind}"

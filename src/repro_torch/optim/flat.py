@@ -134,19 +134,18 @@ def flatten_tree(spec: FlatSpec, tree, *, batch_dims: int = 0, dtype=None):
         out_dt = dtype if dtype is not None else grp.dtype
         first = leaves[grp.leaves[0].index]
         batch_shape = tuple(first.shape[:batch_dims])
-        dev = first.device
-        parts, cursor = [], 0
+        # each leaf is copied (and converted) straight into its slice, so
+        # the buffer is the only copy made
+        buf = torch.empty(batch_shape + (grp.padded,), dtype=out_dt,
+                          device=first.device)
+        cursor = 0
         for lf in grp.leaves:
-            if lf.offset > cursor:
-                parts.append(torch.zeros(batch_shape + (lf.offset - cursor,),
-                                         dtype=out_dt, device=dev))
-            parts.append(leaves[lf.index].to(out_dt).reshape(batch_shape + (-1,)))
+            buf[..., cursor:lf.offset].zero_()
+            buf[..., lf.offset:lf.offset + lf.size].copy_(
+                leaves[lf.index].reshape(batch_shape + (-1,)))
             cursor = lf.offset + lf.size
-        if cursor < grp.padded:
-            parts.append(torch.zeros(batch_shape + (grp.padded - cursor,),
-                                     dtype=out_dt, device=dev))
-        bufs.append(parts[0].contiguous() if len(parts) == 1
-                    else torch.cat(parts, dim=-1))
+        buf[..., cursor:].zero_()
+        bufs.append(buf)
     return tuple(bufs)
 
 
@@ -301,8 +300,10 @@ def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs, *, mask=None):
 
 
 def buffers_add(a, b):
-    """Elementwise a + b over buffer tuples (the STORM correction add)."""
-    return tuple(x + y for x, y in zip(a, b))
+    """Elementwise a + b over buffer tuples (the STORM correction add), in
+    place into ``a``, which must be buffers of the step's own (a kernel's
+    fresh outputs): the sum then takes no third buffer."""
+    return tuple(x.add_(y) for x, y in zip(a, b))
 
 
 # ---------------------------------------------------------------------------

@@ -285,7 +285,9 @@ def test_cuda_flash_attention_vs_plain(dtype, tol, card):
              (1, 130, 2, 16, 1, True, 32, 0.0),
              (1, 200, 4, 32, 2, False, 0, 30.0),
              (2, 257, 8, 128, 2, True, 0, 50.0),
-             (1, 77, 2, 256, 2, False, 20, 0.0)]
+             (1, 77, 2, 256, 2, False, 20, 0.0),
+             (2, 100, 4, 80, 2, True, 0, 0.0),
+             (1, 1000, 4, 80, 4, False, 0, 0.0)]
     flash_ops.reset_counts()
     for B, S, H, D, hkv, causal, window, cap in cases:
         q = torch.randn(B, S, H, D, generator=g, device=card).to(getattr(torch, dtype))
@@ -307,7 +309,7 @@ def test_cuda_flash_attention_vs_plain(dtype, tol, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("S", [100, 1000])
 def test_cuda_flash_attention_bf16_tensor_cores_vs_plain(D, S, card):
     """The bf16 tensor-core kernel against the dense plain version within
@@ -670,3 +672,36 @@ def test_cuda_serve_engine_launches_and_tokens(arch, card):
         5 * sum(k in ("local", "attn") for k in kinds)
     assert lru_ops.LAUNCHES["lru_scan"] == 5 * kinds.count("rec")
     assert [results[r] for r in rids] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m",
+                                  "recurrentgemma-9b", "hubert-xlarge",
+                                  "internvl2-76b"])
+def test_cuda_family_train_step_matches_cpu(arch, card):
+    """One reduced FedBiOAcc step (``experiments/fedbioacc.json``, the arch
+    edited) on the card against the same step on the CPU, from one initial
+    state on one batch: every buffer within 1e-4 of its norm (the two
+    devices reduce in other orders), ``storm3_step`` once per buffer."""
+    from pathlib import Path
+
+    from repro_torch.api import Experiment, build
+    root = Path(__file__).resolve().parents[1]
+    exp = Experiment.load(str(root / "experiments" / "fedbioacc.json")).edit(
+        **{"problem.arch": arch, "schedule.steps": 1})
+    cpu_run, card_run = build(exp, device="cpu"), build(exp, device=card)
+    state = cpu_run.init(torch.Generator().manual_seed(0))
+    card_state = state._replace(vars=tuple(b.to(card) for b in state.vars),
+                                mom=tuple(b.to(card) for b in state.mom))
+    batch = cpu_run.batch_fn(torch.Generator().manual_seed(1))
+    state, _ = cpu_run.step(state, batch)
+    tk.reset_counts()
+    card_state, _ = card_run.step(card_state, {
+        k: {kk: v.to(card) for kk, v in b.items()} for k, b in batch.items()})
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["storm3_step"] == len(card_run.init.spec.groups)
+    for got, want in zip(card_state.vars + card_state.mom,
+                         state.vars + state.mom):
+        want = want.float()
+        assert float((got.cpu().float() - want).norm()) <= \
+            1e-4 * float(want.norm())

@@ -16,8 +16,11 @@ sizes, the reference's own initial parameters carried across by
   modules, with tokens dropped;
 * the Mamba-2 block's decode cache from prompts shorter than the conv
   window;
-* what stays refused: the audio and VLM front ends, and training any
-  family but ``ssm``.
+* the two front ends build (their parity is ``test_torch_frontends.py``'s;
+  the audio encoder's decode step stays refused, by the reference's
+  words), and the dense and MoE families train through ``build`` and the
+  train CLI's ``--arch`` (their parity with the reference's steps is
+  ``test_torch_train_dense_moe.py``'s).
 
 Tolerances: rtol 1e-5 with atol 1e-5 of the largest reference value
 (matmul and reduction orders differ between XLA and PyTorch), as in
@@ -29,6 +32,7 @@ that the two routers' probabilities differ by less than a quarter of it,
 and that both packages chose the same experts in the same order), and only
 then compares outputs."""
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,16 +48,19 @@ from repro.models import stack as jstack  # noqa: E402
 from repro.models.registry import build_model as jbuild  # noqa: E402
 from repro_torch.api import Experiment, build  # noqa: E402
 from repro_torch.config import ModelConfig  # noqa: E402
-from repro_torch.configs import ARCHS, UNPORTED, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core.tree_util import tree_leaves  # noqa: E402
+from repro_torch.data.synthetic import make_fed_batch_fn  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import layers, ssm, stack  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
-from torch_parity import f32, to_torch  # noqa: E402
+from torch_parity import f32, route_probs, routes_gap, to_torch  # noqa: E402
 
 torch.set_num_threads(1)
 
-ITEM = "ROADMAP queue 1, item 'Other model families and serving'"
+ROOT = Path(__file__).resolve().parents[1]
+
+FRONT_ENDS = {"hubert-xlarge": "audio", "internvl2-76b": "vlm"}
 DECODERS = ["gemma2-2b", "granite-3-8b", "granite-8b",
             "granite-moe-1b-a400m", "llama3-405b", "mamba2-130m",
             "olmoe-1b-7b", "recurrentgemma-9b"]
@@ -82,8 +89,7 @@ def _trees_close(got, want):
 def _routes_clear(probs, k):
     """Every token's top k + 1 router probabilities (the reference's) apart
     by more than ``ROUTE_GAP``: no two orderings of ties can differ."""
-    top = -np.sort(-np.asarray(probs, np.float64), axis=-1)[..., :k + 1]
-    assert np.min(top[..., :-1] - top[..., 1:]) > ROUTE_GAP
+    assert routes_gap(probs, k) > ROUTE_GAP
 
 
 # ---------------------------------------------------------------------------
@@ -99,10 +105,12 @@ def test_config_matches_reference_field_for_field(arch):
 
 
 def test_ported_archs_are_the_references_decoders():
-    assert sorted(ARCHS) == DECODERS
-    assert set(ARCHS) | set(UNPORTED) == set(JARCHS)
-    assert {a: JARCHS[a].family for a in UNPORTED} == UNPORTED
-    assert {c.family for c in ARCHS.values()} == {"dense", "moe", "ssm",
+    """The catalog is the reference's ten: these eight decoders and the
+    two front ends."""
+    assert sorted(a for a in ARCHS if a not in FRONT_ENDS) == DECODERS
+    assert set(ARCHS) == set(JARCHS)
+    assert {a: JARCHS[a].family for a in FRONT_ENDS} == FRONT_ENDS
+    assert {ARCHS[a].family for a in DECODERS} == {"dense", "moe", "ssm",
                                                    "hybrid"}
 
 
@@ -164,20 +172,7 @@ def _route_probs(tp, tm, tok):
     """Each MoE layer's router probabilities in the port's forward of
     ``tok`` (the reference's agree with them to f32 rounding: its scanned
     stack keeps its own out of reach)."""
-    probs = []
-    orig = stack.moe_mlp
-
-    def spy(params, x, cfg, **kw):
-        probs.append(torch.softmax((x @ params["router"]).float(), dim=-1))
-        return orig(params, x, cfg, **kw)
-
-    stack.moe_mlp = spy
-    try:
-        with torch.no_grad():
-            tm.forward(tp, {"tokens": torch.from_numpy(tok)})
-    finally:
-        stack.moe_mlp = orig
-    return probs
+    return route_probs(tm, tp, {"tokens": torch.from_numpy(tok)})
 
 
 @pytest.mark.parametrize("arch", DECODERS)
@@ -400,34 +395,51 @@ def test_ssm_model_serves_a_two_token_prompt():
 
 
 # ---------------------------------------------------------------------------
-# what stays refused
+# the front ends and the families' training, which were refused until this
+# slice (the names are kept)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+@pytest.mark.parametrize("arch", sorted(FRONT_ENDS))
 def test_audio_and_vlm_are_refused_by_name(arch):
-    with pytest.raises(NotImplementedError, match=ITEM) as err:
-        get_config(arch)
-    assert f"the {UNPORTED[arch]} front end" in str(err.value)
+    """The audio and VLM front ends, refused until they were ported, now
+    build: ``get_config`` gives the reference's config, a reduced model
+    runs its forward.  What stays refused is by name: the audio encoder's
+    decode step, in the reference's words."""
+    cfg = get_config(arch)
+    assert cfg.family == FRONT_ENDS[arch] == JARCHS[arch].family
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
-    cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(
-        JARCHS[arch]).items() if k in fields})
-    with pytest.raises(NotImplementedError, match=ITEM):
-        build_model(cfg.reduced())
+    assert dataclasses.asdict(cfg) == {k: v for k, v in dataclasses.asdict(
+        JARCHS[arch]).items() if k in fields}
+    model = build_model(cfg.reduced(), dtype=torch.float32)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = make_fed_batch_fn(cfg.reduced(), num_clients=1, per_client=2,
+                              seq_len=9)(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, _ = model.forward(params, {k: v[0] for k, v in
+                                           batch["train"].items()})
+    assert tuple(logits.shape) == (2, 9, cfg.reduced().vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    if cfg.family == "audio":
+        with pytest.raises(ValueError,
+                           match="encoder-only model has no decode step"):
+            model.decode_step(params, None, torch.zeros(2, 1, dtype=torch.long),
+                              0)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "olmoe-1b-7b", "granite-8b"])
 def test_training_other_families_is_refused(arch):
-    """The dense and MoE families serve; training them is refused at
-    ``build`` naming its ROADMAP item, through the API and through the
-    train CLI's ``--arch`` override."""
-    exp = Experiment().edit(**{"problem.arch": arch})
-    with pytest.raises(NotImplementedError) as err:
-        build(exp, device="cpu")
-    assert f"training arch {arch!r} (family " \
-        f"{ARCHS[arch].family!r}" in str(err.value)
-    assert "ROADMAP queue 1, 'Training through the model kernels'" in \
-        str(err.value)
-    with pytest.raises(SystemExit,
+    """The dense and MoE families, whose training was refused until it was
+    held to the reference, now train: ``build`` takes them (their model
+    kernels stay refused for training) and the train CLI's ``--arch``
+    override runs a reduced step to a finite validation loss."""
+    spec = str(ROOT / "experiments" / "fedbioacc.json")
+    exp = Experiment.load(spec).edit(**{"problem.arch": arch})
+    run = build(exp, device="cpu")
+    assert run.model_cfg.family == ARCHS[arch].family
+    with pytest.raises(NotImplementedError,
                        match="Training through the model kernels"):
-        train.main(["--arch", arch, "--reduced", "--steps", "1",
-                    "--device", "cpu"])
+        build(exp.edit(**{"execution.use_flash": True}), device="cpu")
+    history = train.main(["--experiment", spec, "--arch", arch, "--steps",
+                          "1", "--device", "cpu"])
+    assert [h["step"] for h in history] == [1]
+    assert np.isfinite(history[0]["val_loss"])

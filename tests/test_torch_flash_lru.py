@@ -90,6 +90,10 @@ def _flash_inputs(B, S, H, D, hkv, dtype, seed):
     (2, 96, 4, 32, True, 40, 0.0, 2),
     (1, 70, 8, 16, True, 0, 30.0, 1),
     (1, 64, 4, 64, False, 0, 0.0, 2),
+    # head dim 80 (hubert-xlarge), not causal; S a multiple of the
+    # reference's tile, whose padded path masks at the padded length (the
+    # ragged S is held to the dense oracle in test_torch_flash_tc.py)
+    (1, 256, 4, 80, False, 0, 0.0, 4),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_reference_kernel(case, dtype):

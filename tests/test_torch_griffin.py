@@ -17,6 +17,8 @@ Tolerances: the scan atol 2e-6, rtol 2e-5 (the reference's kernel test);
 layers and logits rtol 1e-5 with atol 1e-5 of the largest reference value
 (matmul and reduction orders differ between XLA and PyTorch; the same
 bound as the Mamba-2 parity test)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -245,15 +247,20 @@ def test_serve_cli_runs_on_cpu(capsys):
 
 def test_ssm_decode_cache_is_refused_by_name():
     """The Mamba-2 decode cache is ported (its layout the reference's);
-    what is still refused by name are the two front ends no family of the
-    port serves."""
+    the two front ends, refused by name until they were ported, resolve,
+    and what is still refused by name is the audio encoder's decode step
+    (the reference's words)."""
     m = build_model(get_config("mamba2-130m").reduced(), dtype=torch.float32)
     jm = jbuild(jget_config("mamba2-130m").reduced(), dtype=jnp.float32)
     assert [tuple(t.shape) for t in tree_leaves(m.init_cache(1, 8))] == \
         [tuple(a.shape) for a in jax.tree.leaves(jm.init_cache(1, 8))]
     for arch in ("hubert-xlarge", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+    audio = build_model(get_config("hubert-xlarge").reduced())
+    with pytest.raises(ValueError, match="encoder-only model has no decode "
+                                         "step"):
+        audio.decode_step(None, None, torch.zeros(1, 1, dtype=torch.long), 0)
 
 
 def test_full_depth_tree_carries_across():

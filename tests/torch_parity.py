@@ -48,3 +48,114 @@ def assert_contraction_close(out, fused, product, carried=0.0):
     tol = contraction_tol(out, product) + carried
     diff = np.abs(f32(out) - f32(fused))
     assert np.all(diff <= tol), float(np.max(diff - tol))
+
+
+def model_batch(cfg, B: int, S: int, seed: int, *, labels: bool = True):
+    """One model batch for any family, drawn by numpy from ``seed``, as
+    (the reference's arrays, the port's tensors): tokens (int32) or, for
+    the audio encoder, frames ``[B, S, frontend_dim]``; a VLM also takes
+    ``num_patches`` patches; frames and patches in bf16, as the streams
+    hand them over.  Labels (the first 5 ignored, -1) unless ``labels`` is
+    False."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)
+    if cfg.family == "vlm":
+        batch["patches"] = 0.5 * rng.standard_normal(
+            (B, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+    if labels:
+        lab = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        lab[:, :5] = -1
+        batch["labels"] = lab
+    jb = {k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32
+                         else jnp.int32) for k, v in batch.items()}
+    return jb, to_torch(jb)
+
+
+def route_probs(model, params, batch):
+    """Each MoE layer's router probabilities in the port's forward of
+    ``batch`` (no gradient), as f32 numpy arrays."""
+    from repro_torch.models import stack
+    probs = []
+    orig = stack.moe_mlp
+
+    def spy(p, x, cfg, **kw):
+        probs.append(f32(torch.softmax((x @ p["router"]).float(), dim=-1)))
+        return orig(p, x, cfg, **kw)
+
+    stack.moe_mlp = spy
+    try:
+        with torch.no_grad():
+            model.forward(params, batch)
+    finally:
+        stack.moe_mlp = orig
+    return probs
+
+
+def routes_gap(probs, k) -> float:
+    """The smallest gap between consecutive probabilities among any
+    token's top k + 1: above the two packages' difference, no two
+    orderings of ties can differ."""
+    top = -np.sort(-np.asarray(probs, np.float64), axis=-1)[..., :k + 1]
+    return float(np.min(top[..., :-1] - top[..., 1:]))
+
+
+def paired_steps(spec_path, edits: dict, steps: int, on_state=None):
+    """The JAX package's run of the spec at ``spec_path`` edited by
+    ``edits`` and the port's, ``steps`` steps each from the reference's
+    initial ``FlatState`` on the reference's batches (the port cannot draw
+    the reference's Threefry heads or streams).  ``on_state(run, state,
+    batch)`` sees the port's state before each step and after the last
+    (with the last step's batch).  Returns ``(jrun, run, jstate, state,
+    storm3_step calls of the port's steps)``."""
+    import jax
+    from repro.api import Experiment as JExperiment
+    from repro.api import build as jbuild
+    from repro_torch.api import Experiment, build
+    from repro_torch.kernels.storm import kernel as tk
+    from repro_torch.optim import sequences as seqs
+
+    jrun = jbuild(JExperiment.load(str(spec_path)).edit(**edits))
+    run = build(Experiment.load(str(spec_path)).edit(**edits), device="cpu")
+    key = jax.random.PRNGKey(jrun.spec.schedule.seed)
+    jstate = jrun.init(key)
+    extra = {}
+    if run.init.participation is not None:
+        extra["stale"] = torch.zeros(run.fed.num_clients, dtype=torch.int32)
+    state = seqs.FlatState(tuple(to_torch(list(jstate.vars))),
+                           tuple(to_torch(list(jstate.mom))), 0, **extra)
+    jstep = jax.jit(jrun.step)
+    calls = 0
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        batch = jrun.batch_fn(sub)
+        tb = to_torch(batch)
+        if on_state is not None:
+            on_state(run, state, tb)
+        jstate, _ = jstep(jstate, batch)
+        tk.reset_counts()
+        state, _ = run.step(state, tb)
+        calls += tk.CALLS["storm3_step"]
+    if on_state is not None:
+        on_state(run, state, tb)
+    return jrun, run, jstate, state, calls
+
+
+def section_errors(spec, got, want) -> dict:
+    """Per section of the flat layout: ``|got - want| / |want|`` over the
+    columns the section holds in every dtype buffer."""
+    num, den = {}, {}
+    for grp, g, w in zip(spec.groups, got, want):
+        g, w = f32(g).astype(np.float64), np.asarray(w, np.float64)
+        for s, a, b in grp.extents:
+            name = spec.sections[s]
+            num[name] = num.get(name, 0.0) + float(
+                np.sum((g[:, a:b] - w[:, a:b]) ** 2))
+            den[name] = den.get(name, 0.0) + float(np.sum(w[:, a:b] ** 2))
+    return {s: (num[s] / den[s]) ** 0.5 for s in num}
