@@ -33,7 +33,15 @@ Phases, each of which stops the script with a non-zero exit on failure:
    against their plain versions (run a client row at a time), the
    left-out rows equal to their input bits, with inf/NaN in a left-out
    client's gradient (a late one on the straggler path) zeroed by
-   ``flat.mask_buffers``;
+   ``flat.mask_buffers``; then the two reductions of the communication
+   schedule at their paths' full-depth bf16 buffers, one run spanning the
+   buffer (``reductions_phase``): the arrival-weighted int8 + top-k 10 %
+   mean with error feedback (``fedbioacc_straggler_int8_topk``, 8
+   clients, block 256, round 0's arrivals) and the grouped int8 mean
+   (``fedbioacc_hierarchical``, 4 clients in 2 pods, round 0's
+   participants), each bit for bit (rows and error feedback) against the
+   same reduction on the CPU over the first ``HOST_COLUMNS`` columns of
+   the same rows, with its median time, launches and transient memory;
 3b. the pytree ``storm_update`` (``repro_torch.kernels.storm``) over the
    full-width Mamba-2-130M parameter tree (seeded on the card, bf16 and f32
    leaves) with f32 momentum and gradient trees, then with bf16 momentum,
@@ -84,7 +92,18 @@ Phases, each of which stops the script with a non-zero exit on failure:
    and on the CPU from the CPU's initial state: both streams pass
    ``repro_torch.telemetry.validate``, their ``(event, step, round)``
    sequences and ``comm`` events are equal, every in-band and evaluation
-   metric within ``METRIC_TOL`` (relative);
+   metric within ``METRIC_TOL`` (relative).  The two paths of the
+   communication schedule (phase 5's last two), reduced, over two rounds
+   (``round_cross_check``): each round starts the card from the CPU's
+   state, and after it every entry that top-k or int8 rounding decided
+   otherwise must lie within its bound (each compressed run mapped back to
+   its buffer's columns), the buffers within 1e-4 of each one's norm off
+   the flips' columns and the error feedback off the flipped entries, the
+   round's mask, arrivals and staleness counters equal on both.  Then the
+   train CLI with ``--hierarchy-period 2 --comm-every u=2`` (the reduced
+   ``fedbioacc.json``, 4 clients): stopped after step 1, inside pod-local
+   round 1, and resumed, bit for bit the uninterrupted run; its ``comm``
+   events ``round_bytes``' (``cli_schedule_phase``);
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
    ``fedbioacc_local.json``, ``fedbioacc_straggler.json``,
@@ -93,7 +112,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    path's own: 4 of which 2 take part a round, the straggler path's 8 of
    which 6 are sampled and those that beat the round's deadline arrive,
    the faulty path's 8, the telemetry path's 4; ``MAIN_LAYERS`` of the
-   24 layers; 1
+   24 layers, the schedule's two paths ``PATH_LAYERS``; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -143,7 +162,23 @@ Phases, each of which stops the script with a non-zero exit on failure:
    pass between CUDA events: its stream must validate with both comm
    events reconciled, its in-band values be finite, its launches as
    ``PATHS`` says; its step times, the passes' share of each step, the
-   peak memory and the ``launch.metrics`` summary are logged;
+   peak memory and the ``launch.metrics`` summary are logged; then the
+   two paths of the communication schedule, edits of committed specs
+   (``HIER_EDITS``; the straggler spec with the compressed spec's
+   compression), their bytes reckoned from the layout first
+   (``_schedule_bytes``): ``fedbioacc_hierarchical`` (4 clients, 3
+   sampled a round, 2 pods, u at a cadence of 2, int8) must leave after
+   pod-local round 1 each pod's participants' x, y, ν and ω rows
+   bit-identical and the pods' not, no two participants' u and q rows
+   equal, and after global round 2 every participant's rows equal;
+   ``fedbioacc_straggler_int8_topk`` (8 clients, 6 sampled, ``drop``)
+   the arrivals' rows equal after each round and the late clients'
+   variable, momentum and error-feedback rows at their entering bits;
+   both leave non-participants' rows at their entering bits every step;
+   each masked reduction is timed between CUDA events (its share of the
+   step logged) and each round's elements reduced must be what
+   ``round_bytes`` of the run's comm plan (the train CLI's ``comm``
+   event) says, round 1 of the hierarchical path without u;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -313,6 +348,7 @@ from repro_torch.optim import sequences as seqs  # noqa: E402
 from repro_torch.optim.sequences import FlatState  # noqa: E402
 from repro_torch.serving import ServeEngine  # noqa: E402
 from repro_torch.telemetry import read_events, validate_events  # noqa: E402
+from repro_torch.telemetry.comm import comm_plan, round_bytes  # noqa: E402
 from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
                                  bf16_ulps, flash_attention_fault,
                                  int8_flips, isolated_greedy, leaf_topk_flips,
@@ -334,12 +370,37 @@ PATHS = {"fedbioacc": {"storm3_step": 8, "storm_update": 0},
          "fedbioacc_local": {"storm3_step": 8, "storm_update": 0},
          "fedbioacc_straggler": {"storm3_step": 8, "storm_update": 0},
          "fedbioacc_faulty": {"storm3_step": 8, "storm_update": 0},
-         "fedbioacc_telemetry": {"storm3_step": 8, "storm_update": 0}}
+         "fedbioacc_telemetry": {"storm3_step": 8, "storm_update": 0},
+         # pod-local round 1 packs x and y of both buffers (u waits for its
+         # cadence), global round 2 x and y, then u of the bf16 buffer (the
+         # f32 buffer holds no u), each for the variables and the momenta
+         "fedbioacc_hierarchical": {"storm3_step": 8, "quantpack": 10,
+                                    "quantunpack": 10, "storm_update": 0},
+         "fedbioacc_straggler_int8_topk": {"storm3_step": 8, "quantpack": 8,
+                                           "quantunpack": 8,
+                                           "storm_update": 0}}
 COMPRESSED = "fedbioacc_int8_topk"
 SAMPLED = "fedbioacc_local"
 STRAGGLED = "fedbioacc_straggler"
 FAULTY = "fedbioacc_faulty"
 TELEMETRY = "fedbioacc_telemetry"
+# the two paths of the communication schedule, edits of committed specs
+# (no file of their own): fedbioacc.json at 4 clients, 3 sampled a round,
+# in 2 pods that average alone at round 1 and with each other at round 2,
+# u at a cadence of 2, int8 sends; and the straggler spec with the
+# compressed spec's compression (int8, top-k 10 %, error feedback), the
+# arrival-weighted compressed mean
+HIERARCHICAL = "fedbioacc_hierarchical"
+STRAGGLED_INT8 = "fedbioacc_straggler_int8_topk"
+HIER_EDITS = {"problem.num_clients": 4, "schedule.steps": 4,
+              "schedule.hierarchy_period": 2, "schedule.hierarchy_groups": 2,
+              "schedule.comm_every": {"u": 2}, "compression.quant": "int8",
+              "participation.sampler": "uniform",
+              "participation.clients_per_round": 3}
+# phase 3 holds the reductions of those paths bit for bit to the CPU's
+# over this many leading columns of their buffers (a whole number of
+# tiles: top-k, quantization and the means are column- or tile-local)
+HOST_COLUMNS = 1 << 22
 # clients at full width; a path that samples its clients, injects faults
 # or reports telemetry keeps the spec's own count, so that the sampler
 # leaves clients out, the screen has its participants and the drift its
@@ -358,8 +419,11 @@ ILL_CONDITIONED = 1e-3
 RESUME_AT = 2
 # the phase-5 paths keep Mamba-2-130M's published widths and cut its depth
 # to this many of its 24 layers, so that phases 8b and 8c fit in the
-# script's time
-MAIN_LAYERS = 6
+# script's time (6 until the communication schedule's two paths came,
+# which keep 6)
+MAIN_LAYERS = 3
+PATH_LAYERS = {"fedbioacc_hierarchical": 6,
+               "fedbioacc_straggler_int8_topk": 6}
 # the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
 # CPU in-band metrics agree within this (relative)
 TEL_LOG_EVERY = 2
@@ -739,14 +803,76 @@ def compression_phase(groups, dev) -> None:
     topk_ms = timed_ms(lambda: flat._topk_tiles(seg, grp.block, 0.1), 3)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
+    # in place: each timed call reduces the previous call's output
     mean_ms = timed_ms(
-        lambda: flat._compressed_mean(seg, eseg, cfg, grp.block), 3)
+        lambda: flat._compressed_mean_into(seg, eseg, None, cfg, grp.block),
+        3)
     extra = torch.cuda.max_memory_allocated(dev) - base
     log(f"compressed reduction, f32 send [{CLIENTS}, {grp.padded}] with "
         f"error feedback, int8 + top-k 10 %: top-k {topk_ms:.4f} ms, whole "
         f"reduction {mean_ms:.4f} ms, its transient memory {extra} B")
     del seg, eseg
     torch.cuda.empty_cache()
+
+
+def reductions_phase(groups_of: dict, weights: dict, dev) -> None:
+    """The two reductions of the communication schedule at their paths'
+    full-depth, full-width bf16 buffers, one run spanning the buffer: the
+    arrival-weighted int8 + top-k mean with error feedback (round 0's
+    arrivals of ``STRAGGLED_INT8``, 8 clients) and the grouped int8 mean
+    (``HIERARCHICAL``'s round-1 participants, 4 clients in 2 pods).  The
+    card's first call is held bit for bit (buffer rows and error feedback)
+    to the same reduction on the CPU over the first ``HOST_COLUMNS``
+    columns of the same input rows; then the median time over CUDA events
+    of the in-place reduction, its launches and its transient memory."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = ((STRAGGLED_INT8, "arrival-weighted int8 + top-k 10 % with "
+              "error feedback", flat.CompressCfg(quant="int8",
+                                                 topk_frac=0.1)),
+             (HIERARCHICAL, "grouped int8, 2 pods, weighted by the round's "
+              "participants", flat.CompressCfg(quant="int8")))
+    for path, what, cfg in cases:
+        grp, w = groups_of[path][0], weights[path]
+        m, block = len(w), groups_of[path][0].block
+        seg = torch.randn(m, grp.padded, generator=gen,
+                          device=dev).to(grp.dtype)
+        eseg = (0.01 * torch.randn(m, grp.padded, generator=gen, device=dev)
+                if cfg.has_ef else None)
+
+        def reduce(s, e, wt):
+            if cfg.topk_frac > 0:
+                flat._compressed_mean_into(s, e, wt, cfg, block)
+            else:
+                flat._compressed_mean_grouped_into(s, wt, cfg, block, 2)
+
+        cols = min(grp.padded, HOST_COLUMNS)
+        host = (seg[:, :cols].cpu(),
+                None if eseg is None else eseg[:, :cols].cpu())
+        reset_counts()
+        reduce(seg, eseg, w)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        variants = {k: v for k, v in variant_counts().items() if v}
+        reduce(*host, w.cpu())
+        ok = same_bits(seg[:, :cols].cpu(), host[0]) and (
+            eseg is None or same_bits(eseg[:, :cols].cpu(), host[1]))
+        del host
+        if not ok:
+            raise SystemExit(f"reduction {what} ({path} path): the card "
+                             f"differs from the CPU")
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = timed_ms(lambda: reduce(seg, eseg, w), 5)
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        log(f"reduction {what} ({path} path): {str(grp.dtype)[6:]} "
+            f"[{m}, {grp.padded}] block {block}, weights {w.tolist()}: "
+            f"card equal to the CPU bit for bit over columns [0, {cols}) "
+            f"(rows{' and error feedback' if eseg is not None else ''}); "
+            f"median {ms:.4f} ms over 5 calls (CUDA events, in place), "
+            f"launches {launches} by kernel {variants}, transient memory "
+            f"{extra} B, on {card_line()}")
+        del seg, eseg
+        torch.cuda.empty_cache()
 
 
 # the gated launches: (kernel, the path whose buffers it is held at)
@@ -1079,34 +1205,221 @@ def cross_check(name: str, exp: Experiment, dev, steps: int = 2) -> None:
         raise SystemExit(f"reduced cross-check of {name} failed")
 
 
+@contextlib.contextmanager
+def _recorded_sends(calls: list):
+    """While open, every compressed run of ``flat`` appends ``(storage,
+    start column, acc, quantizer input)`` to ``calls``: the data pointer
+    of the run's buffer, where the run starts in it, the f32 (row + EF)
+    and what the quantizer took (the top-k's output, or ``acc``), as host
+    arrays."""
+    sent, mean, grouped = (flat._compress_sent, flat._compressed_mean_into,
+                           flat._compressed_mean_grouped_into)
+    where = []
+
+    def rec_sent(acc, ccfg, block):
+        kept = (flat._topk_tiles(acc, block, ccfg.topk_frac)
+                if ccfg.topk_frac > 0 else acc)
+        # copies: on the CPU ``acc`` may be the run itself, which the
+        # mean then overwrites
+        calls.append((*where[-1], acc.cpu().numpy().copy(),
+                      kept.cpu().numpy().copy()))
+        return sent(acc, ccfg, block)
+
+    def at(fn):
+        def run(seg, *args):
+            where.append((seg.untyped_storage().data_ptr(),
+                          seg.storage_offset()))
+            return fn(seg, *args)
+        return run
+
+    flat._compress_sent = rec_sent
+    flat._compressed_mean_into = at(mean)
+    flat._compressed_mean_grouped_into = at(grouped)
+    try:
+        yield
+    finally:
+        flat._compress_sent, flat._compressed_mean_into = sent, mean
+        flat._compressed_mean_grouped_into = grouped
+
+
+def _buffer_names(state: FlatState) -> dict:
+    """Storage pointer → ("vars" | "mom", dtype group) of a state's
+    buffers (the reductions write into the buffers the step returns)."""
+    return {b.untyped_storage().data_ptr(): (side, g)
+            for side, bufs in (("vars", state.vars), ("mom", state.mom))
+            for g, b in enumerate(bufs)}
+
+
+def round_cross_check(name: str, exp: Experiment, dev) -> None:
+    """Two rounds of a compressed path with participation or stragglers,
+    reduced, card against CPU, round by round: each round starts both
+    devices from the CPU's state, runs its local steps on the same batches
+    and compares.  Every entry that top-k or int8 rounding decided
+    otherwise on the two devices must lie within its bound of the
+    threshold or half-way point (``topk_flips``, ``int8_flips``, each
+    compressed run mapped back to its buffer columns); the variables and
+    momenta within 1e-4 of each buffer's norm off the columns those flips
+    reach, the error feedback off the flipped entries; each round's
+    participation mask, arrivals and staleness counters equal on both."""
+    exp = exp.edit(**{"schedule.steps": 2 * exp.schedule.local_steps})
+    cpu_run = build(exp, device="cpu")
+    gpu_run = build(exp, device=dev)
+    cp, local = exp.compression, exp.schedule.local_steps
+    cpu_state = cpu_run.init(torch.Generator().manual_seed(0))
+    data = torch.Generator().manual_seed(1)
+    worst, flipped, rounds = 0.0, [], []
+    for r in range(2):
+        gpu_state = _to(cpu_state, dev)
+        calls = {"cpu": [], "gpu": []}
+        names = {"cpu": {}, "gpu": {}}
+        decided = {"cpu": [], "gpu": []}
+        for _ in range(local):
+            batch = cpu_run.batch_fn(data)
+            with _recorded_sends(calls["cpu"]):
+                cpu_state, met = cpu_run.step(cpu_state, batch)
+            names["cpu"].update(_buffer_names(cpu_state))
+            decided["cpu"].append(met.get("decision"))
+            with _recorded_sends(calls["gpu"]):
+                gpu_state, met = gpu_run.step(
+                    gpu_state, {k: {kk: v.to(dev) for kk, v in b.items()}
+                                for k, b in batch.items()})
+            names["gpu"].update(_buffer_names(gpu_state))
+            decided["gpu"].append(met.get("decision"))
+        if len(calls["cpu"]) != len(calls["gpu"]) or not calls["cpu"]:
+            raise SystemExit(f"cross-check of {name}: round {r + 1} ran "
+                             f"{len(calls['cpu'])} compressed runs on the "
+                             f"CPU and {len(calls['gpu'])} on the card")
+        block = cpu_run.init.spec.groups[0].block
+        masks = {}
+        for (cs, c0, c_acc, c_in), (gs, g0, g_acc, g_in) in zip(
+                calls["cpu"], calls["gpu"]):
+            where = names["cpu"][cs]
+            if (where, c0) != (names["gpu"][gs], g0):
+                raise SystemExit(f"cross-check of {name}: the devices ran "
+                                 f"their compressed runs in another order")
+            flips = np.zeros(c_acc.shape, bool)
+            if cp.topk_frac > 0:
+                flips |= topk_flips(c_acc, c_in, g_acc, g_in, block,
+                                    cp.topk_frac)
+            if cp.quant == "int8":
+                flips |= int8_flips(c_in, g_in, block)
+            buf = getattr(cpu_state, where[0])[where[1]]
+            mask = masks.setdefault(where, np.zeros(tuple(buf.shape), bool))
+            mask[:, c0:c0 + flips.shape[1]] |= flips
+        flipped.append(int(sum(m.sum() for m in masks.values())))
+        pairs = []
+        for side in ("vars", "mom"):
+            for g, (gb, cb) in enumerate(zip(getattr(gpu_state, side),
+                                             getattr(cpu_state, side))):
+                mask = masks.get((side, g))
+                cols = (None if mask is None else
+                        np.broadcast_to(mask.any(axis=0), mask.shape))
+                pairs.append((gb, cb, cols))
+                if cpu_state.ef:
+                    k = 0 if side == "vars" else 1
+                    pairs.append((gpu_state.ef[k][g], cpu_state.ef[k][g],
+                                  mask))
+        for g, c, mask in pairs:
+            if mask is None:
+                rel = float((g.cpu().float() - c.float()).norm()
+                            / c.float().norm())
+            else:
+                rel = _rel_outside(g, c, mask)
+            worst = max(worst, rel)
+        part = cpu_run.init.participation
+        same = (torch.equal(cpu_state.stale, gpu_state.stale)
+                and part.mask_fn(r).tolist()
+                == gpu_run.init.participation.mask_fn(r).tolist())
+        if cpu_run.step.stragglers is not None:
+            same = same and ([_decision({"decision": d})
+                              for d in decided["cpu"]]
+                             == [_decision({"decision": d})
+                                 for d in decided["gpu"]])
+        if not same:
+            raise SystemExit(f"cross-check of {name}: round {r + 1}'s mask, "
+                             f"arrivals or staleness counters differ between "
+                             f"devices")
+        rounds.append((part.mask_fn(r).tolist(),
+                       decided["cpu"][-1]["arrivals"].tolist()
+                       if decided["cpu"][-1] else None,
+                       cpu_state.stale.tolist()))
+    log(f"reduced cross-check, {name}: card vs CPU, 2 rounds of {local} "
+        f"steps each from the CPU's state, worst relative buffer difference "
+        f"{worst:.3e} (limit 1e-4) off the {flipped} entries (per round) "
+        f"that top-k or int8 rounding decided otherwise, each within its "
+        f"bound, error feedback included; per round (mask, arrivals, "
+        f"staleness counters) {rounds} equal on both")
+    if not worst <= 1e-4:
+        raise SystemExit(f"reduced cross-check of {name} failed")
+
+
 def _rows_equal(buf: torch.Tensor, rows: list) -> bool:
     return all(same_bits(buf[rows[0]], buf[r]) for r in rows[1:])
+
+
+def _state_rows(state: FlatState) -> tuple:
+    """The [M, N] buffers whose non-participant rows a step must leave at
+    their entering bits: variables, momenta and error feedback."""
+    return state.vars + state.mom + sum(state.ef, ())
 
 
 def _participation_checks(name: str, run, state: FlatState, kept, out: list,
                           ins: list, round_end: bool) -> None:
     """After a step of a sampled path: the rows ``out`` that the launch
-    mask left out at their entering bits (``kept``: per buffer, client →
-    its row on the host); after a round, the rows ``ins`` that entered the
-    mean bit-identical in each communicated section and not in each
-    private one."""
-    for b, rows in zip(state.vars + state.mom, kept):
+    mask left out at their entering bits (``kept``: per buffer of
+    ``_state_rows``, client → its row on the host); after a round, the
+    rows ``ins`` that entered the mean, section by section as the schedule
+    has it: bit-identical where the round reduced the section in full;
+    within each pod and not across pods at a pod-local round of a
+    HIERARCHICAL section; not where the section is private or its cadence
+    skipped the round."""
+    for b, rows in zip(_state_rows(state), kept):
         if not all(same_bits(b[i].cpu(), rows[i]) for i in out):
             raise SystemExit(f"path {name}: a non-participant's row moved")
     if not round_end:
         return
-    spec = run.init.spec
-    aspec = seqs.SPECS[run.spec.algorithm.name]
-    private = {q.section for q in aspec.sequences if q.comm == seqs.PRIVATE}
-    for bufs in (state.vars, state.mom):
-        for grp, buf in zip(spec.groups, bufs):
-            for s, a, b in grp.extents:
-                equal = _rows_equal(buf[:, a:b], ins)
-                if equal == (spec.sections[s] in private):
-                    raise SystemExit(
-                        f"path {name}: participants' section "
-                        f"{spec.sections[s]} is {'' if equal else 'not '}"
-                        f"bit-identical after the round")
+    spec, fed = run.init.spec, run.fed
+    r = state.step // fed.local_steps
+    local = fed.hierarchy_period > 0 and r % fed.hierarchy_period
+    size = state.vars[0].shape[0] // fed.hierarchy_groups
+    pods = [[i for i in ins if i // size == g]
+            for g in range(fed.hierarchy_groups)]
+    heads = [p[0] for p in pods if p]
+    for side, bufs in (("variables", state.vars), ("momenta", state.mom)):
+        for s, sec in enumerate(spec.sections):
+            # the section's columns in every dtype buffer: int8 sends can
+            # make a small buffer's rows equal everywhere (its tile's scale
+            # swamps the clients' differences), so "differ" is asked of the
+            # section as a whole
+            segs = [buf[:, a:b] for grp, buf in zip(spec.groups, bufs)
+                    for t, a, b in grp.extents if t == s]
+
+            def equal(rows):
+                return all(_rows_equal(seg, rows) for seg in segs)
+
+            def distinct(rows):
+                return all(not equal([i, j]) for i, j in
+                           itertools.combinations(rows, 2))
+
+            q = run.step.aspec.sequences[s]
+            if q.comm == seqs.PRIVATE or r % q.comm_every:
+                want = "no two participants' rows equal"
+                ok = distinct(ins)
+            elif local and q.comm == seqs.HIERARCHICAL:
+                want = (f"each pod's participants' rows equal and the "
+                        f"pods' ({heads}) not")
+                ok = all(equal(p) for p in pods if p) and distinct(heads)
+            else:
+                want = "every participant's rows equal"
+                ok = equal(ins)
+            if not ok:
+                same = [[same_bits(g[ins[0]], g[i]) for i in ins]
+                        for g in segs]
+                raise SystemExit(
+                    f"path {name}: after round {r} the {side}' section "
+                    f"{sec}: expected {want}; participants {ins}, pods "
+                    f"{pods}, rows equal to the first participant's, by "
+                    f"buffer {same}")
 
 
 def _timed_oracles(over_clients, events: list):
@@ -1736,6 +2049,60 @@ def faulty_path(name: str, exp: Experiment, dev) -> dict:
 # phases 4 and 5: telemetry, the event stream through the train CLI
 # ---------------------------------------------------------------------------
 
+def cli_schedule_phase() -> None:
+    """The train CLI on the card with the schedule's flags: the reduced
+    ``fedbioacc.json`` with ``--clients 4 --hierarchy-period 2
+    --comm-every u=2``, 4 steps.  A run hard-exits after step 1, inside
+    pod-local round 1 (``--crash-at-step 1``, a subprocess, exit 17);
+    ``--resume`` (in process) must end as the uninterrupted run (in
+    process, with a sink) does, bit for bit: every logged line and every
+    array of the final checkpoint; the uninterrupted run's ``comm`` events
+    must be ``round_bytes``' for rounds 1 and 2, round 1 without u."""
+    spec = os.path.join(ROOT, "experiments", "fedbioacc.json")
+    flags = ["--experiment", spec, "--clients", "4", "--steps", "4",
+             "--hierarchy-period", "2", "--comm-every", "u=2",
+             "--device", "cuda", "--log-every", "1", "--ckpt-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_schedule_") as d:
+        crashed, whole = os.path.join(d, "crashed"), os.path.join(d, "whole")
+        sink = os.path.join(d, "events.jsonl")
+        _cli(flags + ["--ckpt-dir", crashed, "--crash-at-step", "1"], 17)
+        strip = lambda hs: [{k: v for k, v in h.items()  # noqa: E731
+                             if k != "wall_s"} for h in hs]
+        resumed = strip(train_cli.main(
+            ["--resume", crashed, "--ckpt-dir", crashed, "--device", "cuda",
+             "--log-every", "1", "--ckpt-every", "1"]))
+        full = strip(train_cli.main(flags + ["--ckpt-dir", whole,
+                                             "--telemetry-sink", sink]))
+        mine, want = _final_arrays(crashed), _final_arrays(whole)
+        same = (resumed == full[1:] and len(mine) == len(want)
+                and checkpoint_metadata(crashed) == checkpoint_metadata(whole)
+                and all(a.dtype == b.dtype and np.array_equal(
+                    np.atleast_1d(a).view(np.uint8),
+                    np.atleast_1d(b).view(np.uint8))
+                    for a, b in zip(mine, want)))
+        exp = train_cli.apply_overrides(Experiment.load(spec), {
+            "clients": 4, "steps": 4, "hierarchy_period": 2,
+            "comm_every": "u=2"})
+        run = build(exp, device="cpu")
+        plan = comm_plan(run.step.spec, run.step.aspec, None)
+        comm = [e for e in read_events(sink) if e["event"] == "comm"]
+        e = {sec: el for sec, el, _, _ in plan.sections}
+        events_ok = (
+            [c["round"] for c in comm] == [1, 2]
+            and all({k: c[k] for k in rb} == rb for c, rb in
+                    zip(comm, (round_bytes(plan, 1), round_bytes(plan, 2))))
+            and comm[0]["elems"] == e["x"] + e["y"])
+    log(f"train CLI, fedbioacc.json --clients 4 --hierarchy-period 2 "
+        f"--comm-every u=2 on the card: crashed after step 1 (exit 17), "
+        f"resumed: steps {[h['step'] for h in resumed]} and the final "
+        f"checkpoint's {len(want)} arrays "
+        f"{'bit for bit' if same else 'NOT'} the uninterrupted run's; comm "
+        f"events (round, elems) {[(c['round'], c['elems']) for c in comm]}"
+        f"{'' if events_ok else ' NOT'} as round_bytes, round 1 without u")
+    if not (same and events_ok):
+        raise SystemExit("train CLI with the schedule's flags failed")
+
+
 def _cli_in_process(args: list, hook) -> list:
     """``repro_torch.launch.train.main(args)`` in this process, each run it
     builds passed through ``hook(run) -> run``."""
@@ -1908,6 +2275,76 @@ def telemetry_path(name: str, exp: Experiment, dev) -> dict:
     return launches
 
 
+def _schedule_bytes(groups, m: int, cp) -> tuple:
+    """(the flat state's bytes, what a communication step holds while it
+    reduces its largest run) over ``m`` clients of a compressed path:
+    per element the variable in its buffer's dtype, the f32 momentum and,
+    with error feedback, two f32 EF buffers; during the reduction also the
+    step's new variables and momenta and, over the run, the f32 row + EF,
+    the f32 send and its int8 pack (with top-k also the f32 magnitudes and
+    the kept selection; with EF the EF copy the reduction writes)."""
+    ef = cp.topk_frac > 0 and cp.error_feedback
+    state = m * sum(g.padded * (g.dtype.itemsize + 4 + 8 * ef)
+                    for g in groups)
+    new = m * sum(g.padded * (g.dtype.itemsize + 4) for g in groups)
+    temp = 9 + 9 * (cp.topk_frac > 0) + 4 * ef
+    return state, state + new + m * max(g.padded for g in groups) * temp
+
+
+def _timed_reductions(fn, spec, calls: list):
+    """``flat.client_mean_masked`` that also appends ``(start event, end
+    event, elements reduced)`` to ``calls``: two CUDA events on the current
+    stream, with no synchronization, and the elements of the runs its
+    modes communicate."""
+    def timed(fspec, bufs, modes, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        elems = sum(b - a for grp in spec.groups for sec, a, b in grp.extents
+                    if modes[sec] != "none")
+        start.record()
+        out = fn(fspec, bufs, modes, **kw)
+        end.record()
+        calls.append((start, end, elems))
+        return out
+    return timed
+
+
+def _schedule_report(name: str, run, exp: Experiment, calls: list,
+                     step_ms: list) -> None:
+    """Log the reductions' time and share of each step of a path of the
+    communication schedule, and check each round's elements reduced
+    against ``round_bytes`` of the run's comm plan (the ``comm`` event the
+    train CLI writes for the round): ``reductions × elems`` (variables and
+    momenta), u left out of a round its cadence skips."""
+    plan = comm_plan(run.step.spec, run.step.aspec, exp.compression)
+    local = exp.schedule.local_steps
+    per_step = [[c for c in calls if c[3] == t] for t in range(len(step_ms))]
+    ms = [sum(s.elapsed_time(e) for s, e, _, _ in st) for st in per_step]
+    events = []
+    for t, st in enumerate(per_step):
+        if (t + 1) % local:
+            if st:
+                raise SystemExit(f"path {name}: step {t + 1} reduced")
+            continue
+        rb = round_bytes(plan, (t + 1) // local)
+        moved = sum(el for _, _, el, _ in st)
+        if rb is None or moved != rb["reductions"] * rb["elems"]:
+            raise SystemExit(f"path {name}: step {t + 1} reduced {moved} "
+                             f"elements; its comm event says {rb}")
+        events.append(rb)
+    if name == HIERARCHICAL:
+        e = {sec: el for sec, el, _, _ in plan.sections}
+        if events[0]["elems"] != e["x"] + e["y"] or \
+                events[1]["elems"] != e["x"] + e["y"] + e["u"]:
+            raise SystemExit(f"path {name}: round 1 should reduce x and y, "
+                             f"round 2 x, y and u: {events}")
+    log(f"path {name}: reductions per step {[round(v, 3) for v in ms]} ms "
+        f"(CUDA events around each masked reduction), share of the step "
+        f"{[round(v / w, 4) for v, w in zip(ms, step_ms)]}; comm events "
+        f"(round, elems, bytes_wire) "
+        f"{[(e['round'], e['elems'], e['bytes_wire']) for e in events]} "
+        f"equal to the elements the reductions moved, on {card_line()}")
+
+
 def main_path(name: str, exp: Experiment, dev) -> dict:
     oracle_events = []
     over_clients = trainer._over_clients
@@ -1917,6 +2354,25 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
         run = build(exp, device=dev)
     finally:
         trainer._over_clients = over_clients
+    scheduled = name in (HIERARCHICAL, STRAGGLED_INT8)
+    reductions, masked = [], flat.client_mean_masked
+    if scheduled:
+        state_b, least_b = _schedule_bytes(run.init.spec.groups,
+                                           exp.problem.num_clients,
+                                           exp.compression)
+        log(f"path {name}: reckoned before the run from the layout: flat "
+            f"state {state_b} B, {least_b} B held while a step reduces its "
+            f"largest run (the oracles' own bytes not counted)")
+        flat.client_mean_masked = _timed_reductions(masked, run.init.spec,
+                                                    reductions)
+    try:
+        return _main_path(name, exp, run, oracle_events, reductions, dev)
+    finally:
+        flat.client_mean_masked = masked
+
+
+def _main_path(name: str, exp: Experiment, run, oracle_events: list,
+               reductions: list, dev) -> dict:
     state = run.init(torch.Generator(device=dev).manual_seed(exp.schedule.seed))
     data = torch.Generator().manual_seed(exp.schedule.seed)
     batches = [run.batch_fn(data) for _ in range(exp.schedule.steps)]
@@ -1940,19 +2396,21 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
             keep = (range(clients) if strag is not None
                     else [i for i in range(clients) if mask[i] == 0])
             # on the host, so that the peak below is the step's own
-            kept = [{i: b[i].cpu() for i in keep}
-                    for b in state.vars + state.mom]
+            kept = [{i: b[i].cpu() for i in keep} for b in _state_rows(state)]
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         before, n_oracle = qp.LAUNCHES["quantpack"], len(oracle_events)
+        n_red = len(reductions)
         state, metrics = run.step(state, batch)
         torch.cuda.synchronize()
+        reductions[n_red:] = [(*c, t) for c in reductions[n_red:]]
         step_ms.append((time.perf_counter() - t0) * 1e3)
         packs.append(qp.LAUNCHES["quantpack"] - before)
         launch = entered = mask if gated else None
         if strag is not None:
             dec = metrics["decision"]
-            _inband_is_decision(name, t, metrics, dec)
+            if "stragglers" in run.step.telemetry_groups:
+                _inband_is_decision(name, t, metrics, dec)
             entered = dec["arrivals"]
             if strag.spec.late_policy != "carry":
                 launch = entered
@@ -2002,14 +2460,26 @@ def main_path(name: str, exp: Experiment, dev) -> dict:
         log(f"path {name}: {clients} clients, sampled by round {masks}, "
             f"staleness counters {state.stale.tolist()}; every step left "
             f"the rows its launch mask ({strag.spec.late_policy}) left out "
-            f"at their entering bits, every round the arrivals' rows "
-            f"bit-identical")
+            f"at their entering bits"
+            f"{' (error feedback too)' if state.ef else ''}, every round "
+            f"the arrivals' rows bit-identical")
+    elif name == HIERARCHICAL:
+        log(f"path {name}: {clients} clients in "
+            f"{run.fed.hierarchy_groups} pods, masks by round {masks}, "
+            f"staleness counters {state.stale.tolist()}; every step left "
+            f"the non-participants' rows (variables and momenta) at their "
+            f"entering bits; after pod-local round 1 each pod's "
+            f"participants' x, y, nu and omega rows bit-identical and the "
+            f"pods' not, the u and q rows of no two participants equal; "
+            f"after global round 2 every participant's rows bit-identical")
     elif part is not None:
         log(f"path {name}: {clients} clients, masks by round {masks}, "
             f"staleness counters {state.stale.tolist()}; every step left "
             f"the non-participants' rows at their entering bits, every "
             f"round the participants' x and nu rows bit-identical and "
             f"their y and omega rows not")
+    if reductions:
+        _schedule_report(name, run, exp, reductions, step_ms)
     if launches["quantpack"]:
         log(f"path {name}: quantpack launches per step {packs} "
             f"({exp.schedule.local_steps} local steps a communication "
@@ -3265,6 +3735,7 @@ def main() -> None:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         raise SystemExit(1)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(card_line())
@@ -3279,7 +3750,10 @@ def main() -> None:
 
     bases = {name: Experiment.load(os.path.join(ROOT, "experiments",
                                                 f"{name}.json"))
-             for name in PATHS}
+             for name in PATHS if name not in (HIERARCHICAL, STRAGGLED_INT8)}
+    bases[HIERARCHICAL] = bases["fedbioacc"].edit(**HIER_EDITS)
+    bases[STRAGGLED_INT8] = dataclasses.replace(
+        bases[STRAGGLED], compression=bases[COMPRESSED].compression)
     fulls = {name: full_width_experiment(b) for name, b in bases.items()}
     # the straggler path also computes every telemetry group it applies
     # to (health and stragglers at its 8 clients)
@@ -3288,15 +3762,25 @@ def main() -> None:
     groups_of = {name: r.init.spec.groups for name, r in runs.items()}
     gates = {path: gate_mask(runs[path], fulls[path].problem.num_clients)
              for _, path in GATED}
+    # the weights of the schedule's reductions: round 0's arrivals, and the
+    # participants of the round the hierarchical path reduces pod-locally
+    weights = {STRAGGLED_INT8: gate_mask(runs[STRAGGLED_INT8], 8)[0],
+               HIERARCHICAL: runs[HIERARCHICAL].init.participation.mask_fn(0)}
     del runs
     kernels = kernel_phase(groups_of, dev)
     non_finite_phase(dev)
     compression_phase(groups_of[COMPRESSED], dev)
     torch.cuda.empty_cache()
+    reductions_phase(groups_of, weights, dev)
+    t3 = time.perf_counter()
+    log(f"phases 1-3 took {t3 - t_start:.1f} s")
     gated_phase(groups_of, gates, dev)
     kernels["storm_update"] = storm_update_phase(dev)
 
     for name, base in bases.items():
+        if name in (HIERARCHICAL, STRAGGLED_INT8):
+            round_cross_check(name, base, dev)
+            continue
         if name != STRAGGLED:
             cross_check(name, base, dev)
             continue
@@ -3317,8 +3801,11 @@ def main() -> None:
         fault_cross_check(f"{FAULTY} ({what})", exp, dev)
     cli_fault_phase()
     telemetry_cross_check(dev)
+    cli_schedule_phase()
+    t4 = time.perf_counter()
+    log(f"phases 3b-4 took {t4 - t3:.1f} s")
     for name, full in fulls.items():
-        with _depth(MAIN_LAYERS):
+        with _depth(PATH_LAYERS.get(name, MAIN_LAYERS)):
             if name == FAULTY:
                 launches = faulty_path(name, full, dev)
             elif name == TELEMETRY:
@@ -3328,6 +3815,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         for kname, k in kernels.items():
             k["launches"] += launches[kname]
+    log(f"phase 5 took {time.perf_counter() - t4:.1f} s")
 
     kernels["lru_scan"] = lru_phase(dev)
     kernels["flash_attention"] = flash_phase(dev)
@@ -3352,6 +3840,8 @@ def main() -> None:
     for kname, k in kernels.items():
         k["launches"] += launches[kname]
 
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all, on "
+        f"{card_line()}")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

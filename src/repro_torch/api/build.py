@@ -73,10 +73,8 @@ def unported_features(exp: Experiment) -> list:
     ROADMAP item that ports it."""
     from repro_torch.api import registry
 
-    ex, sch = exp.execution, exp.schedule
-    algos, part = "queue 1, 'Remaining algorithms'", \
-        "queue 1, 'Participation, staleness and cadence'"
-    compress_rest = "queue 1, 'Compression, the rest'"
+    ex = exp.execution
+    algos = "queue 1, 'Remaining algorithms'"
     shard = "queue 1, 'Sharded substrate'"
     model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
     kernel_training = "queue 1, 'Training through the model kernels'"
@@ -86,18 +84,9 @@ def unported_features(exp: Experiment) -> list:
     checks = [
         (exp.algorithm.name not in registry.names(),
          f"algorithm {exp.algorithm.name!r}", algos),
-        (exp.participation.sampler != "full" and exp.compression is not None,
-         f"participation sampling (sampler={exp.participation.sampler!r}) "
-         f"with compression: the participation-weighted compressed mean",
-         compress_rest),
-        (exp.stragglers is not None and exp.compression is not None,
-         "stragglers with compression: the participation-weighted "
-         "compressed mean", compress_rest),
         (ex.mesh is not None, "execution.mesh", shard),
         (ex.overlap, "execution.overlap", shard),
         (ex.scatter_comm, "execution.scatter_comm", shard),
-        (sch.hierarchy_period > 0, "schedule.hierarchy_period > 0", part),
-        (bool(sch.comm_every), "schedule.comm_every", part),
         (ex.use_flash, "execution.use_flash (" + no_grad.format("flash") +
          ")", kernel_training),
         (ex.use_lru_kernel, "execution.use_lru_kernel (" +
@@ -165,7 +154,8 @@ def build(experiment: Experiment, *, device=None) -> Run:
         storm_block=ex.storm_block, compression=exp.compression,
         participation=participation, stragglers=exp.stragglers,
         faults=exp.faults, robustness=exp.robustness,
-        telemetry=exp.telemetry, **factory_kw)
+        telemetry=exp.telemetry,
+        comm_every=exp.schedule.comm_every_dict or None, **factory_kw)
 
     batch_fn = make_fed_batch_fn(model_cfg, num_clients=prob.num_clients,
                                  per_client=prob.per_client,

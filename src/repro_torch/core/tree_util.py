@@ -196,6 +196,38 @@ def client_mean(tree):
     return tree_map(one, tree)
 
 
+def _over_rows(fn, x):
+    """``fn`` of the [M, L] rows of leaf ``x`` [M, ...], shaped back."""
+    return fn(x.reshape(x.shape[0], -1)).reshape(x.shape)
+
+
+def client_mean_grouped(tree, num_groups: int):
+    """Average within ``num_groups`` contiguous client groups (the pods of
+    the hierarchical multi-pod schedule) and broadcast back in each."""
+    from repro_torch.optim.flat import _bcast_mean_grouped
+    return tree_map(lambda x: _over_rows(
+        lambda r: _bcast_mean_grouped(r, num_groups), x), tree)
+
+
+def client_mean_weighted(tree, w):
+    """Participation-weighted client mean: over the participants only (w =
+    0: a non-participant), whose rows it replaces; a non-participant's
+    rows pass through bit for bit.  The flat substrate's arithmetic
+    (``optim.flat._bcast_mean`` and its ``_weight_col``) leaf by leaf."""
+    from repro_torch.optim.flat import _bcast_mean
+    return tree_map(lambda x: _over_rows(lambda r: _bcast_mean(r, w), x),
+                    tree)
+
+
+def client_mean_grouped_weighted(tree, num_groups: int, w):
+    """Participation-weighted pod-local mean (:func:`client_mean_grouped`
+    over each group's participants); a group without participants keeps
+    its rows."""
+    from repro_torch.optim.flat import _bcast_mean_grouped
+    return tree_map(lambda x: _over_rows(
+        lambda r: _bcast_mean_grouped(r, num_groups, w), x), tree)
+
+
 def tree_stack(trees):
     """List of same-structure trees → one tree with a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

@@ -295,6 +295,13 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
     return init, train_step
 
 
+def _aspec(name: str, comm_every: dict | None):
+    """The algorithm's sequence spec with per-section communication
+    cadences applied (the factories' ``comm_every={section: k}`` knob)."""
+    aspec = seqs.SPECS[name]
+    return seqs.with_comm_every(aspec, comm_every) if comm_every else aspec
+
+
 @register("fedbioacc", seqs.SPECS["fedbioacc"],
           hparams={"c_nu": 1.0, "c_omega": 1.0, "c_u": 1.0,
                    "alpha_delta": 1.0, "alpha_u0": 8.0},
@@ -308,7 +315,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               storm_block: int | None = None,
                               compression=None, participation=None,
                               stragglers=None, faults=None, robustness=None,
-                              telemetry=None):
+                              telemetry=None,
+                              comm_every: dict | None = None):
     """FedBiOAcc (Alg. 2) train step on the flat substrate; returns
     ``(init(gen) -> FlatState, train_step(state, batch) -> (state,
     metrics))``.  ``train_step.views(state)`` gives the pytree state."""
@@ -325,9 +333,10 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
         return FedBiOAccTrainState(vt["x"], vt["y"], vt["u"], mt["omega"],
                                    mt["nu"], mt["q"], step)
 
-    return _make_flat_pair(cfg, seqs.SPECS["fedbioacc"], templates, voracle,
-                           init_trees, storm_block, to_state, compression,
-                           participation, stragglers, fault, robust, tel)
+    return _make_flat_pair(cfg, _aspec("fedbioacc", comm_every), templates,
+                           voracle, init_trees, storm_block, to_state,
+                           compression, participation, stragglers, fault,
+                           robust, tel)
 
 
 @register("fedbio", seqs.SPECS["fedbio"])
@@ -340,7 +349,8 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            storm_block: int | None = None,
                            compression=None, participation=None,
                            stragglers=None, faults=None, robustness=None,
-                           telemetry=None):
+                           telemetry=None,
+                           comm_every: dict | None = None):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem, one fused ``sgd3_step`` launch per dtype buffer."""
     fault, robust = _fault_setup(cfg, faults, robustness, fuse_storm)
@@ -355,9 +365,10 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
     def to_state(vt, mt, step):
         return FedBiOTrainState(vt["x"], vt["y"], vt["u"], step)
 
-    return _make_flat_pair(cfg, seqs.SPECS["fedbio"], templates, voracle,
-                           init_trees, storm_block, to_state, compression,
-                           participation, stragglers, fault, robust, tel)
+    return _make_flat_pair(cfg, _aspec("fedbio", comm_every), templates,
+                           voracle, init_trees, storm_block, to_state,
+                           compression, participation, stragglers, fault,
+                           robust, tel)
 
 
 @register("fedbio_local", seqs.SPECS["fedbio_local"])
@@ -370,7 +381,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  storm_block: int | None = None,
                                  compression=None, participation=None,
                                  stragglers=None, faults=None,
-                                 robustness=None, telemetry=None):
+                                 robustness=None, telemetry=None,
+                                 comm_every: dict | None = None):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
@@ -389,7 +401,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
         return FedBiOTrainState(vt["x"], vt["y"], tree_zeros_like(vt["y"]),
                                 step)
 
-    return _make_flat_pair(cfg, seqs.SPECS["fedbio_local"], templates,
+    return _make_flat_pair(cfg, _aspec("fedbio_local", comm_every), templates,
                            voracle, init_trees, storm_block, to_state,
                            compression, participation, stragglers,
                            fault, robust, tel)
@@ -408,7 +420,8 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
                                     storm_block: int | None = None,
                                     compression=None, participation=None,
                                     stragglers=None, faults=None,
-                                    robustness=None, telemetry=None):
+                                    robustness=None, telemetry=None,
+                                 comm_every: dict | None = None):
     """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
     private lower problems.  The heads y and their momenta ω are the
     PRIVATE section, never reduced; the body x and its momentum ν are
@@ -427,9 +440,9 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
         return FedBiOAccLocalTrainState(vt["x"], vt["y"], mt["omega"],
                                         mt["nu"], step)
 
-    return _make_flat_pair(cfg, seqs.SPECS["fedbioacc_local"], templates,
-                           voracle, init_trees, storm_block, to_state,
-                           compression, participation, stragglers,
+    return _make_flat_pair(cfg, _aspec("fedbioacc_local", comm_every),
+                           templates, voracle, init_trees, storm_block,
+                           to_state, compression, participation, stragglers,
                            fault, robust, tel)
 
 
@@ -443,7 +456,8 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            storm_block: int | None = None,
                            compression=None, participation=None,
                            stragglers=None, faults=None, robustness=None,
-                           telemetry=None):
+                           telemetry=None,
+                           comm_every: dict | None = None):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``) with periodic averaging, one fused
     ``momsgd3_step`` launch per dtype buffer."""
@@ -465,7 +479,7 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     def to_state(vt, mt, step):
         return FedAvgTrainState(vt["params"], mt["mom"], step)
 
-    aspec = seqs.SPECS["fedavg"]._replace(beta=momentum)
+    aspec = _aspec("fedavg", comm_every)._replace(beta=momentum)
     return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                            _over_clients(oracle, M), init_trees, storm_block,
                            to_state, compression, participation, stragglers,

@@ -14,11 +14,14 @@ mean.  The layout is the JAX package's, element for element:
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
 Only the unsharded layout (``shards=1``) is ported so far, with exact
-means, unweighted or weighted by participation (``weights=``), unweighted
-compressed means (:class:`CompressCfg`: bf16 or per-tile int8
-quantization, per-tile top-k with per-client error feedback) and the
-guarded reductions of the fault layer (``corrupt=``, ``robust=``:
-:class:`RobustCfg`, :func:`_robust_mean_into`).  The fused launches take
+means over all clients or over contiguous client groups (the hierarchical
+schedule's pod-local ``"group"`` runs), unweighted or weighted by
+participation (``weights=``, one tensor or one per section), compressed
+means of both kinds, also weighted (:class:`CompressCfg`: bf16 or
+per-tile int8 quantization, per-tile top-k with per-client error
+feedback, which a grouped run does not take) and the guarded reductions
+of the fault layer (``corrupt=``, ``robust=``: :class:`RobustCfg`,
+:func:`_robust_mean_into`).  The fused launches take
 a participation ``mask=``, which gates their tile tables (:func:`_gate`).
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
@@ -332,28 +335,61 @@ def _bcast_mean(x, w=None):
     Without ``w``: ``tree_util.client_mean``'s arithmetic.  With
     participation weights ``w`` [M] (zero = non-participant): the mean is
     over participants only, and non-participant rows pass through bit for
-    bit.  The arithmetic is the compiled reference's ``mean(x · col)``
-    (:func:`_weight_col`): XLA fuses the product into the reduction, so each
-    client adds ``x_m · col_m`` to the f32 sum with one rounding, a fused
-    multiply-add, in client order (taken here in f64, where the product of
-    two f32 values is exact, and rounded to f32 once: that rounds twice only
-    where the f64 sum falls exactly half-way between two f32 values); then
-    the sum is multiplied by ``f32(1/M)`` and cast to the buffer's dtype.
-    All-ones weights give ``col = 1`` and the unweighted mean bit for bit."""
+    bit (:func:`_weighted_mean_into`).  All-ones weights give ``col = 1``
+    and the unweighted mean bit for bit."""
     if w is None:
         return client_mean(x)
-    m = x.shape[0]
-    col = _weight_col(x, w)
-    keep = (col > 0).to(x.device).reshape(m, 1)
-    c = col.to(device=x.device, dtype=torch.float64)
-    inv = _inv(m, x.device)
-    flat_x = x.reshape(m, -1)
-    out = torch.empty_like(flat_x)
-    for a in range(0, flat_x.shape[1], _CHUNK):
-        seg = flat_x[:, a:a + _CHUNK]
-        mean = (_weighted_sum(seg, c) * inv).to(x.dtype)
-        out[:, a:a + _CHUNK] = torch.where(keep, mean[None], seg)
-    return out.reshape(x.shape)
+    out = x.clone()
+    _weighted_mean_into(out, x, w)
+    return out
+
+
+def _weighted_mean_into(dst, src, w):
+    """Write the participants' weighted mean of the rows of ``src`` [n, L]
+    into the participants' rows of ``dst`` (same shape; ``dst`` may be
+    ``src``), cast to ``dst``'s dtype; a row of weight 0 is not written.
+    The arithmetic is the compiled reference's ``mean(src · col)``
+    (:func:`_weight_col`, ``col`` in ``src``'s dtype): XLA fuses the
+    product into the reduction, so each client adds ``src_m · col_m`` to
+    the f32 sum with one rounding, a fused multiply-add, in client order
+    (taken here in f64, where the product of two f32 values is exact, and
+    rounded to f32 once: that rounds twice only where the f64 sum falls
+    exactly half-way between two f32 values); then the sum is multiplied
+    by ``f32(1/n)``.  In column chunks, so that the f64 temporaries stay
+    small."""
+    n = src.shape[0]
+    col = _weight_col(src, w)
+    keep = (col > 0).to(dst.device).reshape(n, 1)
+    c = col.to(device=src.device, dtype=torch.float64)
+    inv = _inv(n, src.device)
+    flat_src, flat_dst = src.reshape(n, -1), dst.reshape(n, -1)
+    for a in range(0, flat_src.shape[1], _CHUNK):
+        mean = (_weighted_sum(flat_src[:, a:a + _CHUNK], c) * inv).to(
+            dst.dtype)
+        d = flat_dst[:, a:a + _CHUNK]
+        d.copy_(torch.where(keep, mean[None], d))
+
+
+def _groups(m: int, num_groups: int) -> list:
+    """The row slices of ``num_groups`` contiguous client groups (pods) of
+    equal size; raises where ``m`` clients do not split so (the reference
+    fails in its reshape there)."""
+    if num_groups < 1 or m % num_groups:
+        raise ValueError(f"{m} clients do not split into {num_groups} "
+                         f"equal contiguous groups (hierarchy_groups)")
+    n = m // num_groups
+    return [slice(g * n, (g + 1) * n) for g in range(num_groups)]
+
+
+def _bcast_mean_grouped(x, num_groups: int, w=None):
+    """Pod-local grouped mean over contiguous client groups (the
+    hierarchical multi-pod schedule): each group's rows get
+    :func:`_bcast_mean` of that group, with ``w`` restricted to it, so an
+    empty group (Σw = 0 in it) passes its rows through."""
+    out = torch.empty_like(x)
+    for r in _groups(x.shape[0], num_groups):
+        out[r] = _bcast_mean(x[r], None if w is None else w[r])
+    return out
 
 
 def _inv(m: int, device) -> torch.Tensor:
@@ -590,72 +626,131 @@ def _topk_tiles(x, block: int, frac: float):
     return torch.where(keep, t, 0.0).reshape(x.shape)
 
 
-def _compressed_mean(seg, eseg, ccfg: CompressCfg, block: int):
-    """Compressed client mean of one run [M, L]: every client sends its
-    compressed (row + EF), the mean of the sends is broadcast back, and the
-    residual ``(row + EF) − send`` becomes the client's new EF (None without
-    ``eseg``).  Returns ``(mean row f32 [1, L], new EF f32 [M, L] | None)``.
-
-    The arithmetic is the reference's as the TPU runs it: the int8 send is
-    what its ``quantunpack_flat`` kernel writes (one rounded f32 product per
-    element), and the mean sums the f32 sends from 0 in client order, then
-    multiplies by ``f32(1/M)``.  Under ``jit`` on the CPU, where no kernel
-    stands between them, XLA fuses the product into the sum and the
-    residual as multiply-adds instead."""
-    m = seg.shape[0]
-    acc = seg.to(torch.float32)
-    if eseg is not None:
-        acc = acc + eseg
-    sent = _topk_tiles(acc, block, ccfg.topk_frac) if ccfg.topk_frac > 0 \
-        else acc
+def _compress_sent(acc, ccfg: CompressCfg, block: int):
+    """What each client sends into a compressed reduction, from its f32
+    (row + EF) ``acc`` [M, L]: the per-tile top-k, then the round trip
+    through the reduction's dtype.  The int8 send is what the reference's
+    ``quantunpack_flat`` kernel writes on a TPU (one rounded f32 product per
+    element): one ``quantpack``/``quantunpack`` launch over the run."""
+    sent = (_topk_tiles(acc, block, ccfg.topk_frac) if ccfg.topk_frac > 0
+            else acc)
     if ccfg.quant == "int8":
         q, s = quantpack_flat(sent.reshape(-1), block=block)
         sent = quantunpack_flat(q, s, block=block).reshape(acc.shape)
-        del q, s
     elif ccfg.quant == "bf16":
         sent = sent.to(torch.bfloat16).to(torch.float32)
-    total = torch.zeros(seg.shape[1:], dtype=torch.float32, device=seg.device)
-    for i in range(m):
+    return sent
+
+
+def _mean_of_sends_into(dst, sent, w):
+    """Write the client mean of the f32 sends ``sent`` [n, L] into ``dst``
+    (the run's rows, in its dtype).  Unweighted: summed from 0 in client
+    order, then multiplied by ``f32(1/n)`` (the reference's ``jnp.mean``
+    over the materialized sends).  Weighted: the participants' mean into
+    the participants' rows, non-participants' rows untouched
+    (:func:`_weighted_mean_into`, ``col`` in f32)."""
+    if w is not None:
+        _weighted_mean_into(dst, sent, w)
+        return
+    total = torch.zeros(sent.shape[1:], dtype=torch.float32,
+                        device=sent.device)
+    for i in range(sent.shape[0]):
         total += sent[i]
-    new_e = None if eseg is None else acc.sub_(sent)
-    return (total * _inv(m, seg.device))[None], new_e
+    dst.copy_((total * _inv(sent.shape[0], sent.device)).to(dst.dtype)
+              .expand_as(dst))
 
 
-def _section_runs(grp: _Group, modes, comp_of_sec=None):
-    """[mode, start, stop, compressed] element runs covering the buffer;
-    adjacent runs merge when the mode and the compression flag coincide
-    (``"none"`` runs merge whatever the flag: private tiles are never
-    reduced), so there is one reduction per communicated run."""
+def _compressed_mean_into(seg, eseg, w, ccfg: CompressCfg, block: int):
+    """Compressed client mean of one run [M, L], in place: every
+    participant sends its compressed (row + EF) (:func:`_compress_sent`),
+    the participants' (weighted) mean of the sends replaces their rows, and
+    the residual ``(row + EF) − send`` becomes their EF (``eseg``, written
+    in place; None without error feedback).  With ``w``, a non-participant
+    (w = 0) keeps its row and its EF row bit for bit: it sent nothing."""
+    acc = seg.to(torch.float32)
+    if eseg is not None:
+        acc = acc + eseg
+    sent = _compress_sent(acc, ccfg, block)
+    # with EF, acc is a tensor of its own: seg may be written first
+    _mean_of_sends_into(seg, sent, w)
+    if eseg is None:
+        return
+    new_e = acc.sub_(sent)
+    del sent
+    if w is not None:
+        new_e = torch.where(_rows(w > 0, new_e), new_e, eseg)
+    eseg.copy_(new_e)
+
+
+def _compressed_mean_grouped_into(seg, w, ccfg: CompressCfg, block: int,
+                                  num_groups: int):
+    """Grouped (pod-local) mean of one run over quantized sends, in place:
+    each client's send is rounded once (:func:`_compress_sent`, one launch
+    pair over the run) and each group's rows get the (weighted) mean of its
+    sends; an empty group keeps its rows.  Quantization only
+    (:func:`client_mean_masked` refuses top-k, whose error feedback does
+    not compose with a grouped mean)."""
+    groups = _groups(seg.shape[0], num_groups)
+    sent = _compress_sent(seg.to(torch.float32), ccfg, block)
+    for r in groups:
+        _mean_of_sends_into(seg[r], sent[r], None if w is None else w[r])
+
+
+def _normalize_weights(spec: FlatSpec, weights) -> tuple:
+    """One weight entry per section: a tuple or list passes as it is (its
+    length checked), a single [M] tensor or None is shared by all."""
+    n_sections = max(len(spec.sections), 1)
+    if isinstance(weights, (tuple, list)):
+        if len(weights) != n_sections:
+            raise ValueError(f"{len(weights)} weights for {n_sections} "
+                             f"sections")
+        return tuple(weights)
+    return (weights,) * n_sections
+
+
+def _section_runs(grp: _Group, modes, comp_of_sec=None, w_of_sec=None):
+    """[mode, start, stop, compressed, weights] element runs covering the
+    buffer; adjacent runs merge when the mode, the compression flag and the
+    weight tensor (the same object) coincide (``"none"`` runs merge
+    whatever the rest: private tiles are never reduced), so there is one
+    reduction per communicated run."""
     runs: list = []
     for s, a, b in grp.extents:
         mode = modes[int(s)]
         comp = bool(comp_of_sec[int(s)]) if comp_of_sec else False
+        w = w_of_sec[int(s)] if w_of_sec else None
         if runs and runs[-1][0] == mode and runs[-1][2] == a and (
-                mode == "none" or runs[-1][3] == comp):
+                mode == "none" or (runs[-1][3] == comp and runs[-1][4] is w)):
             runs[-1][2] = b
         else:
-            runs.append([mode, a, b, comp])
+            runs.append([mode, a, b, comp, w])
     return runs
 
 
-def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
-                       corrupt=None, robust: RobustCfg | None = None,
+def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
+                       weights=None, corrupt=None,
+                       robust: RobustCfg | None = None,
                        verdicts: list | None = None, compress=None, ef=None):
     """Section-masked client communication over flat [M, N] buffers, in
-    place: every ``"mean"`` run is replaced by its client mean, ``"none"``
-    (private) runs are not touched.  Returns ``bufs``.
+    place: every ``"mean"`` run is replaced by its client mean, every
+    ``"group"`` run by the pod-local mean of ``num_groups`` contiguous
+    client groups (the hierarchical schedule's local rounds), and
+    ``"none"`` (private) runs are not touched.  Returns ``bufs``.
 
-    ``weights``: participation weights [M] (or None), shared by every
-    section.  Zero-weight clients are non-participants: the mean is over
-    participants only and their rows pass through bit for bit
-    (:func:`_bcast_mean`).
+    ``weights``: participation weights, one [M] tensor (or None) shared by
+    every section or a tuple of one per section.  Zero-weight clients are
+    non-participants: each mean is over participants only (in a grouped
+    run, over the group's participants; an empty group keeps its rows) and
+    their rows pass through bit for bit (:func:`_bcast_mean`).
 
     ``compress``: a :class:`CompressCfg`; the runs of the sections it names
     (every communicated one when ``sections`` is empty) take the compressed
-    mean of :func:`_compressed_mean`, whole-run, and the call returns
-    ``(bufs, ef)``: the updated per-client error-feedback buffers, one f32
-    [M, N] buffer per dtype group (pass the current ones as ``ef=``), or
-    ``()`` when ``compress.has_ef`` is false.
+    mean, whole-run (:func:`_compressed_mean_into`; a ``"group"`` run
+    :func:`_compressed_mean_grouped_into`, quantization only), and the call
+    returns ``(bufs, ef)``: the updated per-client error-feedback buffers,
+    one f32 [M, N] buffer per dtype group (pass the current ones as
+    ``ef=``; copies are written), or ``()`` when ``compress.has_ef`` is
+    false.  A non-participant's EF rows stay as they were.
 
     ``corrupt``: the round's ``(nan, byz, scale)`` fault masks ([M] {0, 1}
     tensors and a scalar), applied to what the clients send into each
@@ -663,32 +758,30 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
     :class:`RobustCfg`: health-screen the senders and reduce with its
     aggregator (:func:`_robust_mean_into`), the screen's statistics over
     each whole run; ``verdicts`` (a list) then gets each run's health mask.
-    Neither composes with compression.  The weighted compressed mean, the
-    grouped mean and sharding are not ported yet."""
+    Neither composes with compression or a grouped mean.  Sharding is not
+    ported yet."""
     n_sections = max(len(spec.sections), 1)
     if len(modes) != n_sections:
         raise ValueError(f"modes {modes} do not match sections {spec.sections}")
+    if any(m not in ("none", "mean", "group") for m in modes):
+        raise ValueError(f"unknown communication modes {modes} "
+                         f"(none | mean | group)")
     guarded = corrupt is not None or robust is not None
-    if guarded and any(m not in ("none", "mean") for m in modes):
+    if guarded and "group" in modes:
         raise ValueError(f"corrupt=/robust= do not compose with grouped "
                          f"(hierarchical) means: modes {modes}")
     if guarded and compress is not None:
         raise ValueError("compress= does not compose with corrupt=/robust= "
                          "(the guarded reductions consume raw client rows)")
-    if any(m not in ("none", "mean") for m in modes):
-        raise NotImplementedError(
-            f"modes {modes}: only 'none' and 'mean' are ported; the grouped "
-            f"(hierarchical) mean waits for ROADMAP queue 1, item "
-            f"'Participation, staleness and cadence'")
     comp_of_sec = None
     if compress is not None:
-        if weights is not None:
-            raise NotImplementedError(
-                "the participation-weighted compressed mean is not ported "
-                "yet (ROADMAP queue 1, item 'Compression, the rest')")
+        if compress.topk_frac > 0 and "group" in modes:
+            raise ValueError(f"top-k compression does not compose with "
+                             f"grouped (hierarchical) means: modes {modes}")
         names = spec.sections if spec.sections else ("",)
         comp_of_sec = tuple(not compress.sections or nm in compress.sections
                             for nm in names)
+    w_of_sec = _normalize_weights(spec, weights)
     has_ef = compress is not None and compress.has_ef
     if has_ef and len(ef or ()) != len(spec.groups):
         raise ValueError("compression with error feedback needs one f32 EF "
@@ -698,21 +791,25 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, weights=None,
         if buf.dim() < 2:
             raise ValueError("client_mean_masked needs a leading client axis")
         ebuf = ef[gi].clone() if has_ef else None
-        for mode, start, stop, comp in _section_runs(grp, modes, comp_of_sec):
+        for mode, start, stop, comp, w in _section_runs(grp, modes,
+                                                         comp_of_sec,
+                                                         w_of_sec):
             if mode == "none":
                 continue
             seg = buf[..., start:stop]
             if guarded:
-                _robust_mean_into(seg, weights, corrupt, robust, verdicts)
-                continue
-            if not comp:
-                seg.copy_(_bcast_mean(seg, weights))
-                continue
-            eseg = None if ebuf is None else ebuf[..., start:stop]
-            mean, new_e = _compressed_mean(seg, eseg, compress, grp.block)
-            seg.copy_(mean.expand_as(seg))
-            if new_e is not None:
-                eseg.copy_(new_e)
+                _robust_mean_into(seg, w, corrupt, robust, verdicts)
+            elif not comp and mode == "mean":
+                seg.copy_(_bcast_mean(seg, w))
+            elif not comp:
+                seg.copy_(_bcast_mean_grouped(seg, num_groups, w))
+            elif mode == "mean":
+                _compressed_mean_into(
+                    seg, None if ebuf is None else ebuf[..., start:stop], w,
+                    compress, grp.block)
+            else:
+                _compressed_mean_grouped_into(seg, w, compress, grp.block,
+                                              num_groups)
         ef_out.append(ebuf)
     if compress is None:
         return bufs

@@ -12,10 +12,16 @@ the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
   ``sgd3_step`` launch when the spec carries no momentum (FedBiO,
   FedBiO-Local) → client mean of the variables.
 
-Ported so far: both kinds with the AVERAGED / PRIVATE policies and
-HIERARCHICAL with ``hierarchy_period = 0`` (the paper's flat averaging),
-compressed communication (``compression=``: quantized and/or top-k sends,
-per-client error feedback on ``FlatState.ef``), partial participation
+Ported so far: both kinds with the three policies (AVERAGED, PRIVATE, and
+HIERARCHICAL: with ``cfg.hierarchy_period = k > 0`` only every k-th round
+takes the full mean and the others the pod-local mean of
+``cfg.hierarchy_groups`` contiguous client groups, while AVERAGED sections
+keep the full mean; ``k = 0`` is the paper's flat averaging), per-sequence
+cadences (``Sequence.comm_every = k``: the section enters a reduction only
+every k-th round, :func:`with_comm_every`), compressed communication
+(``compression=``: quantized and/or top-k sends, per-client error feedback
+on ``FlatState.ef``, also weighted by participation, by arrivals or by
+pod), partial participation
 (``participation=``: the round's client mask gates the fused launches and
 zeroes non-participants' oracle contributions, the reductions average
 participants only, and per-client staleness counters on ``FlatState.stale``
@@ -28,8 +34,8 @@ from the round and the retry count on ``FlatState.retry``; ``keep``
 narrows the launch mask and the weights, and the corruption and
 ``robustness=``'s guarded reductions act inside both means) and telemetry
 (``telemetry=``: the resolved metric groups are computed beside each step
-from its flat buffers, into the step's metrics dict); no sharding or
-per-sequence cadences.  The step's phases (oracles, fused update,
+from its flat buffers, into the step's metrics dict); no sharding and no
+per-sequence staleness discount.  The step's phases (oracles, fused update,
 reductions, metric passes) carry ``telemetry.annotate`` ranges for a
 profiler trace.
 
@@ -66,6 +72,7 @@ class Sequence(NamedTuple):
     lr: str                   # FederatedConfig field holding the lr
     decay: str | None = None  # FederatedConfig field of the STORM constant
     comm: str = HIERARCHICAL  # AVERAGED | HIERARCHICAL | PRIVATE
+    comm_every: int = 1       # reduce only every k-th comm round (cadence)
 
 
 class AlgoSpec(NamedTuple):
@@ -123,6 +130,23 @@ SPECS = {
 }
 
 
+def with_comm_every(aspec: AlgoSpec, cadences: dict) -> AlgoSpec:
+    """Override per-sequence communication cadences by section name (the
+    ``Experiment.schedule.comm_every`` knob): ``{"u": 2}`` makes the u
+    sequence enter a reduction only every 2nd communication round."""
+    unknown = set(cadences) - set(aspec.sections)
+    if unknown:
+        raise ValueError(f"comm_every names unknown sections "
+                         f"{sorted(unknown)} (spec {aspec.name!r} has "
+                         f"{aspec.sections})")
+    if any(int(k) < 1 for k in cadences.values()):
+        raise ValueError(f"comm_every cadences must be >= 1: {cadences}")
+    return aspec._replace(sequences=tuple(
+        q._replace(comm_every=int(cadences[q.section]))
+        if q.section in cadences else q
+        for q in aspec.sequences))
+
+
 def _f32(v) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
@@ -162,34 +186,59 @@ def advance_stale(cfg, step: int, mask, stale):
 
 
 def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
-                 weights=None, corrupt=None, robust=None, verdicts=None,
-                 compress=None, ef=()):
+                 weights=None, comm_every=None, corrupt=None, robust=None,
+                 verdicts=None, compress=None, ef=()):
     """Apply the per-section policies to flat [M, N] buffers at a
     communication step: one masked reduction per communicated run, private
     sections untouched.  Other steps return ``bufs`` as they are.
 
-    ``weights``: participation weights [M] (or None): the means are over
-    participants only.
+    ``weights``: participation weights, one [M] tensor (or None) or one
+    per section: the means are over participants only.
+    ``comm_every``: per-section cadences: a section reduces only at the
+    rounds its cadence divides; the sections of one cadence share one
+    reduction.  At a pod-local round (``cfg.hierarchy_period > 0`` and the
+    round not a multiple of it) HIERARCHICAL sections take the grouped mean
+    of ``cfg.hierarchy_groups`` pods and AVERAGED sections the full mean.
     ``corrupt`` / ``robust`` / ``verdicts``: the round's fault transform,
     the :class:`flat.RobustCfg` and a list for the health verdicts, as
-    :func:`flat.client_mean_masked` takes them.
+    :func:`flat.client_mean_masked` takes them (not with the hierarchical
+    schedule).
     ``compress`` / ``ef``: a :class:`flat.CompressCfg` and the current
     error-feedback buffers; with ``compress`` set the call returns
-    ``(bufs, ef)``, and a step that does not communicate leaves both as
-    they are."""
-    if cfg.hierarchy_period > 0 and HIERARCHICAL in policies:
-        raise NotImplementedError(
-            "the hierarchical schedule (hierarchy_period > 0) is not ported "
-            "yet (ROADMAP queue 1, item 'Participation, staleness and "
-            "cadence')")
-    is_comm, _ = _round_preds(cfg, step)
-    modes = tuple("none" if p == PRIVATE else "mean" for p in policies)
-    if not is_comm or all(m == "none" for m in modes):
-        return bufs if compress is None else (bufs, ef)
-    return flat.client_mean_masked(spec, bufs, modes, weights=weights,
-                                   corrupt=corrupt, robust=robust,
-                                   verdicts=verdicts, compress=compress,
-                                   ef=ef)
+    ``(bufs, ef)``, and a section that does not reduce leaves both as they
+    are."""
+    n = len(policies)
+    ce = tuple(comm_every) if comm_every is not None else (1,) * n
+    if len(ce) != n or any(c < 1 for c in ce):
+        raise ValueError(f"comm_every {ce} for {n} sections")
+    w_of_sec = (tuple(weights) if isinstance(weights, (tuple, list))
+                else (weights,) * n)
+    is_comm, is_global = _round_preds(cfg, step)
+    round_idx = (step + 1) // cfg.local_steps
+    for c in sorted(set(ce)):
+        live = [i for i in range(n) if ce[i] == c and policies[i] != PRIVATE]
+        if not is_comm or not live or round_idx % c:
+            continue
+        hier = cfg.hierarchy_period > 0 and any(
+            policies[i] == HIERARCHICAL for i in live)
+        if hier and (corrupt is not None or robust is not None):
+            raise ValueError(
+                "corrupt/robust do not compose with the hierarchical grouped "
+                "mean (hierarchy_period > 0)")
+        local = hier and not is_global
+        # pod-local rounds: HIERARCHICAL sections take the grouped mean
+        # while AVERAGED sections still take the full mean
+        modes = tuple("none" if i not in live else
+                      "group" if local and policies[i] == HIERARCHICAL
+                      else "mean" for i in range(n))
+        out = flat.client_mean_masked(
+            spec, bufs, modes, num_groups=cfg.hierarchy_groups,
+            weights=tuple(w_of_sec[i] if i in live else None
+                          for i in range(n)),
+            corrupt=corrupt, robust=robust, verdicts=verdicts,
+            compress=compress, ef=ef)
+        bufs, ef = (out, ef) if compress is None else out
+    return bufs if compress is None else (bufs, ef)
 
 
 class FlatState(NamedTuple):
@@ -310,7 +359,16 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
 
     ``compression``: a ``CompressionSpec`` (or None): every communicated
     reduction of the sections it names moves compressed sends, and with
-    top-k error feedback the state carries ``ef``.
+    top-k error feedback the state carries ``ef``.  It composes with
+    participation and stragglers (the weighted compressed mean: a client
+    that does not send keeps its row and its EF row) and, quantization
+    only, with the hierarchical grouped mean.
+
+    The sequences' cadences (``Sequence.comm_every``) and
+    ``cfg.hierarchy_period``/``cfg.hierarchy_groups`` decide which
+    sections reduce at a round and how (:func:`comm_buffers`); the
+    staleness counters advance at every communication step whatever the
+    cadence.
 
     ``participation``: a compiled
     :class:`~repro_torch.federation.participation.Participation` (or None):
@@ -357,13 +415,6 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         raise ValueError(
             "compression= does not compose with faults=/robustness= — the "
             "guarded reductions consume raw client rows; drop one layer")
-    if compression is not None and (participation is not None
-                                    or stragglers is not None):
-        raise NotImplementedError(
-            f"{'stragglers' if participation is None else 'participation'} "
-            f"with compression needs the participation-weighted compressed "
-            f"mean, which is not ported yet (ROADMAP queue 1, item "
-            f"'Compression, the rest')")
     ccfg = (None if compression is None
             else _compress_cfg(cfg, aspec, compression))
     tel_groups = ()
@@ -395,6 +446,7 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                           sections=sections,
                           block=block if block else flat.BLOCK)
     policies = aspec.policies
+    cadence = tuple(q.comm_every for q in aspec.sequences)
     part, strag = participation, stragglers
     # staleness counters exist for either kind of absence: a round the
     # sampler left a client out of, or a deadline it missed
@@ -471,10 +523,11 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
         if ccfg is None:
             return comm_buffers(spec, cfg, step, bufs, policies,
-                                weights=weights, corrupt=corrupt,
-                                robust=rcfg, verdicts=verdicts), ef
-        return comm_buffers(spec, cfg, step, bufs, policies, compress=ccfg,
-                            ef=ef)
+                                weights=weights, comm_every=cadence,
+                                corrupt=corrupt, robust=rcfg,
+                                verdicts=verdicts), ef
+        return comm_buffers(spec, cfg, step, bufs, policies, weights=weights,
+                            comm_every=cadence, compress=ccfg, ef=ef)
 
     def init_state(var_trees, mom_trees=None, step: int = 0, ef=None,
                    stale=None, deadline=None, retry=None):

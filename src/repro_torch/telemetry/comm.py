@@ -14,7 +14,10 @@ model from the event stream's embedded experiment and checks every
 section runs of every dtype buffer); ``bytes_wire`` is what one
 all-reduce of that payload moves (dense partial sums: only the dtype
 narrows it), ``bytes_uplink_per_client`` what one participating client
-ships (top-k sends only the kept values and their indices).  The port's
+ships (top-k sends only the kept values and their indices).  A section
+counts at the rounds its cadence (``Sequence.comm_every``) divides; the
+model does not tell a pod-local round from a global one, as the
+reference's does not.  The port's
 layout is the reference's unsharded one, so the integers are the
 reference's for every spec the port builds.
 """
@@ -58,11 +61,8 @@ def comm_plan(flat_spec, aspec, compression=None) -> CommPlan | None:
             name = flat_spec.sections[s]
             elems[name] = elems.get(name, 0) + (b - a)
     block = flat_spec.groups[0].block if flat_spec.groups else 256
-    # the port's sequences have no cadence of their own yet (ROADMAP queue
-    # 1, 'Participation, staleness and cadence'): each one communicates at
-    # every round, the reference's default comm_every of 1
-    secs = tuple((q.section, elems.get(q.section, 0), 1, q.section in csecs)
-                 for q in comm)
+    secs = tuple((q.section, elems.get(q.section, 0), q.comm_every,
+                  q.section in csecs) for q in comm)
     wire = (wire_bytes_per_elem(compression, block)
             if compression is not None else F32_BYTES)
     uplink = (uplink_bytes_per_elem(compression, block)

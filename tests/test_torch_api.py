@@ -5,9 +5,11 @@ parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
 ``fedbioacc_straggler.json``, ``fedbioacc_faulty.json`` and
 ``fedbioacc_telemetry.json`` build; the other committed spec (sharded) is
 refused with ``NotImplementedError`` naming the feature the port does not
-run yet (so is the telemetry spec asking for a per-section cadence, and
-training through the model kernels, or of the hybrid family); and the entry
-points want a card unless the CPU is asked for."""
+run yet (so is the telemetry spec asking for rematerialization, and
+training through the model kernels); the edits that were refused until
+their slice ported them (the hierarchical schedule, per-sequence cadences,
+compression with participation or stragglers) build and step; and the
+entry points want a card unless the CPU is asked for."""
 import ast
 from pathlib import Path
 
@@ -42,7 +44,7 @@ REFUSED = {
     "fedbioacc_sharded_overlap.json": (
         {}, ["execution.mesh", "execution.overlap"]),
     "fedbioacc_telemetry.json": (
-        {"schedule.comm_every": {"u": 2}}, ["schedule.comm_every"]),
+        {"execution.remat": True}, ["execution.n_micro > 1 / remat"]),
 }
 
 
@@ -197,19 +199,54 @@ def test_straggled_spec_builds_and_steps_on_cpu(name):
     assert decided["deadline"] == exp.stragglers.deadline
 
 
+def _two_steps(exp: Experiment):
+    """Build ``exp`` on the CPU and take one round (2 steps); returns the
+    run, the entering state, the state after and the last step's
+    metrics."""
+    run = build(exp.edit(**{"schedule.steps": 2}), device="cpu")
+    state = run.init(torch.Generator().manual_seed(0))
+    entering, data = state, torch.Generator().manual_seed(1)
+    for _ in range(2):
+        state, metrics = run.step(state, run.batch_fn(data))
+    assert state.step == metrics["step"] == 2
+    return run, entering, state, metrics
+
+
+def _rows(run, bufs, sec: str) -> torch.Tensor:
+    """Section ``sec`` of [M, N] buffers, [M, n] in f32."""
+    spec = run.init.spec
+    s = spec.sections.index(sec)
+    return torch.cat([b[:, a:z].float() for grp, b in zip(spec.groups, bufs)
+                      for t, a, z in grp.extents if t == s], 1)
+
+
+def _one_mean(rows: torch.Tensor, clients) -> bool:
+    return all(torch.equal(rows[clients[0]], rows[i]) for i in clients)
+
+
 @pytest.mark.parametrize("edit", [
     {"compression.quant": "int8"},
     {"compression.quant": "bf16", "participation.sampler": "full",
      "stragglers.over_provision": 0},
 ])
 def test_stragglers_with_compression_are_refused_by_name(edit):
+    """Refused until the arrival-weighted compressed mean was ported
+    (ROADMAP queue 1, 'Compression, the rest'): now one round builds and
+    runs, the arrivals leave it on one mean row and the late clients
+    (``drop``) keep their entering rows."""
     exp = Experiment.load(str(ROOT / "experiments" /
                               "fedbioacc_straggler.json"))
-    with pytest.raises(NotImplementedError) as err:
-        build(exp.edit(**edit), device="cpu")
-    assert "stragglers with compression: the participation-weighted " \
-        "compressed mean (ROADMAP queue 1, 'Compression, the rest')" in \
-        str(err.value)
+    run, entering, state, metrics = _two_steps(exp.edit(**edit))
+    assert run.spec.compression.quant == edit["compression.quant"]
+    arrivals = metrics["decision"]["arrivals"]
+    ins = [i for i in range(8) if arrivals[i] > 0]
+    assert 0 < len(ins) < 8
+    for sec in ("x", "y", "u"):
+        rows, before = (_rows(run, s.vars, sec) for s in (state, entering))
+        assert _one_mean(rows, ins)
+        for i in range(8):
+            if i not in ins:
+                assert torch.equal(rows[i], before[i])
 
 
 @pytest.mark.parametrize("edit,item", [
@@ -220,10 +257,23 @@ def test_stragglers_with_compression_are_refused_by_name(edit):
     ({"compression.quant": "int8"}, "'Compression, the rest'"),
 ])
 def test_sampled_spec_refuses_unported_features_by_item(edit, item):
+    """``fedbioacc_local.json`` (2 of 4 clients a round) with an edit that
+    was refused until ROADMAP queue 1 ``item`` ported it: one round builds
+    and runs.  Pod-local (groups {0, 1} and {2, 3}): each pod's
+    participants share their x rows; x at a cadence of 2: round 1 reduces
+    nothing; int8: the participants share one x row."""
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc_local.json"))
-    with pytest.raises(NotImplementedError) as err:
-        build(exp.edit(**edit), device="cpu")
-    assert f"ROADMAP queue 1, {item}" in str(err.value)
+    run, _, state, _ = _two_steps(exp.edit(**edit))
+    ins = [i for i in range(4) if run.init.participation.mask_fn(0)[i] > 0]
+    x = _rows(run, state.vars, "x")
+    assert len(ins) == 2 and item in ("'Participation, staleness and "
+                                      "cadence'", "'Compression, the rest'")
+    if "schedule.hierarchy_period" in edit:
+        for pod in ((0, 1), (2, 3)):
+            assert _one_mean(x, [i for i in pod if i in ins] or [pod[0]])
+        assert _one_mean(x, ins) == (ins[0] // 2 == ins[1] // 2)
+    else:
+        assert _one_mean(x, ins) == ("compression.quant" in edit)
 
 
 @pytest.mark.parametrize("edit,feature", [
@@ -235,11 +285,28 @@ def test_sampled_spec_refuses_unported_features_by_item(edit, item):
 ])
 def test_compression_with_unported_features_is_refused_by_name(edit,
                                                                 feature):
+    """``fedbioacc_int8_topk.json`` quantizing only (8 clients): the mesh
+    stays refused (ROADMAP queue 1, 'Sharded substrate'); the grouped int8
+    mean (2 pods of 4) and the participation-weighted int8 mean, refused
+    until this slice, run a round."""
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc_int8_topk.json"))
     exp = exp.edit(**{"compression.topk_frac": 0.0, **edit})
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        build(exp, device="cpu")
-    assert feature in str(err.value)
+    if "execution.mesh" in edit:
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+            build(exp, device="cpu")
+        assert feature in str(err.value)
+        return
+    run, entering, state, _ = _two_steps(exp)
+    x, before = (_rows(run, s.vars, "x") for s in (state, entering))
+    if "schedule.hierarchy_period" in edit:
+        assert _one_mean(x, [0, 1, 2, 3]) and _one_mean(x, [4, 5, 6, 7])
+        assert not torch.equal(x[0], x[4])
+    else:
+        ins = [i for i in range(8)
+               if run.init.participation.mask_fn(0)[i] > 0]
+        assert len(ins) == 4 and _one_mean(x, ins)
+        assert all(torch.equal(x[i], before[i]) for i in range(8)
+                   if i not in ins)
 
 
 @pytest.mark.parametrize("edit", [{"schedule.hierarchy_period": 2},
@@ -248,9 +315,20 @@ def test_compression_with_unported_features_is_refused_by_name(edit,
                                   {"execution.fuse_storm": False},
                                   {"execution.remat": True}])
 def test_single_feature_edits_are_refused(edit):
+    """``fedbioacc.json`` (2 clients) with one edit.  The hierarchical
+    schedule and the per-sequence cadence, refused until this slice, run a
+    round: with 2 pods of one client round 1 averages nothing; with u at a
+    cadence of 2 it averages x and not u.  The others stay refused."""
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc.json"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(exp.edit(**edit), device="cpu")
+    if "execution.use_flash" in edit or "execution.fuse_storm" in edit \
+            or "execution.remat" in edit:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(exp.edit(**edit), device="cpu")
+        return
+    run, _, state, _ = _two_steps(exp.edit(**edit))
+    x, u = (_rows(run, state.vars, sec) for sec in ("x", "u"))
+    assert _one_mean(x, [0, 1]) == ("schedule.comm_every" in edit)
+    assert not _one_mean(u, [0, 1])
 
 
 @pytest.mark.parametrize("edit,why", [

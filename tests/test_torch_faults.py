@@ -212,7 +212,7 @@ def _run_both(spec, jbufs, tspec, modes, *, w=None, corrupt=None,
     verdicts, jverdicts = [], []
     if robust is not None and robust.screen:
         for grp, jb, tb in zip(tspec.groups, jbufs, tbufs):
-            for mode, a, b, _ in flat._section_runs(grp, modes):
+            for mode, a, b, *_ in flat._section_runs(grp, modes):
                 if mode != "mean":
                     continue
                 _assert_margins(tb[:, a:b], tw, tc, robust)

@@ -236,11 +236,26 @@ def test_all_ones_weights_are_the_unweighted_mean_bitwise(dtype):
 
 
 def test_weighted_compressed_mean_is_refused_by_name():
+    """Once refused (ROADMAP queue 1, 'Compression, the rest'), the
+    participation-weighted compressed mean runs (held to the reference in
+    ``test_torch_compress_weighted.py``): all-ones weights give the
+    unweighted compressed mean bit for bit, and a client of weight 0 keeps
+    its row."""
     _, ts, _, tb = _flat_pair("float32")
-    with pytest.raises(NotImplementedError, match="Compression, the rest"):
-        tflat.client_mean_masked(ts, tb, ("mean", "none", "mean"),
-                                 weights=torch.ones(M),
-                                 compress=tflat.CompressCfg(quant="bf16"))
+    modes, cfg = ("mean", "none", "mean"), tflat.CompressCfg(quant="bf16")
+    plain, _ = tflat.client_mean_masked(ts, tuple(b.clone() for b in tb),
+                                        modes, compress=cfg)
+    ones, _ = tflat.client_mean_masked(ts, tuple(b.clone() for b in tb),
+                                       modes, weights=torch.ones(M),
+                                       compress=cfg)
+    np.testing.assert_array_equal(bits(ones[0]), bits(plain[0]))
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    some, ef = tflat.client_mean_masked(ts, tuple(b.clone() for b in tb),
+                                        modes, weights=w, compress=cfg)
+    assert ef == () and torch.equal(some[0][1], tb[0][1])
+    a, b = ts.groups[0].extents[0][1:]          # x, communicated
+    assert torch.equal(some[0][0, a:b], some[0][2, a:b])
+    assert not torch.equal(some[0][0, a:b], plain[0][0, a:b])
 
 
 # ---------------------------------------------------------------------------
@@ -411,10 +426,28 @@ def test_uniform_m_equals_no_participation_bitwise(algo):
 
 
 def test_engine_refuses_participation_with_compression():
+    """Once refused (ROADMAP queue 1, 'Compression, the rest'),
+    participation with compression runs: over two rounds of the toy FedBiO
+    engine with bf16 sends, every step leaves the non-participants' rows
+    at their entering bits and every round the participants' rows on one
+    mean."""
     from repro_torch.federation.compression import CompressionSpec
-    with pytest.raises(NotImplementedError, match="Compression, the rest"):
-        _engines("fedbio", dict(sampler="uniform", clients_per_round=2),
-                 compression=CompressionSpec(quant="bf16"))
+    _, _, te, ts, tpart = _engines(
+        "fedbio", dict(sampler="uniform", clients_per_round=2),
+        compression=CompressionSpec(quant="bf16"))
+    for t, b in enumerate(_batches()):
+        before = ts
+        ts = te.step(ts, torch.tensor(b))
+        mask = tpart.mask_fn(t // 2)
+        ins = [c for c in range(M) if mask[c] > 0]
+        for c in range(M):
+            if mask[c] == 0:
+                np.testing.assert_array_equal(bits(ts.vars[0][c]),
+                                              bits(before.vars[0][c]))
+        if t % 2:
+            assert torch.equal(ts.vars[0][ins[0]], ts.vars[0][ins[1]])
+    missed = [(tpart.mask_fn(r) == 0).tolist() for r in (0, 1)]
+    assert ts.stale.tolist() == [(m0 + 1) * m1 for m0, m1 in zip(*missed)]
 
 
 def test_init_state_takes_staleness_counters():

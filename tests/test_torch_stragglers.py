@@ -416,9 +416,25 @@ def test_init_state_takes_a_deadline_and_refusals():
     v = {s: torch.zeros((M,) + TOY[s]) for s in ("x", "y", "u")}
     st = te.init_state(v, deadline=1.25, stale=[0, 1, 0, 2])
     assert float(st.deadline) == 1.25 and st.stale.tolist() == [0, 1, 0, 2]
-    with pytest.raises(NotImplementedError, match="Compression, the rest"):
-        _engines("fedbio", None, compression=CompressionSpec(quant="bf16"),
-                 stragglers=MIXED)
+    # stragglers with compression, once refused (ROADMAP queue 1,
+    # 'Compression, the rest'), run the arrival-weighted compressed mean:
+    # after round 0 the arrivals share one mean row, a late client keeps
+    # its entering row
+    _, _, te, st, _ = _engines("fedbio", None,
+                               compression=CompressionSpec(quant="bf16"),
+                               stragglers=MIXED)
+    entering = st.vars[0].clone()
+    metrics = {}
+    for b in _batches()[:2]:
+        st = te.step(st, torch.tensor(b), metrics)
+    arrivals = metrics["decision"]["arrivals"]
+    ins = [c for c in range(M) if arrivals[c] > 0]
+    assert 0 < len(ins) < M
+    for c in range(M):
+        if c in ins:
+            assert torch.equal(st.vars[0][c], st.vars[0][ins[0]])
+        else:
+            assert torch.equal(st.vars[0][c], entering[c])
     from repro_torch.config import FederatedConfig
     from repro_torch.optim import sequences as tseqs
     with pytest.raises(ValueError, match="hierarchical grouped mean"):

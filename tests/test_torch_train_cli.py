@@ -172,9 +172,11 @@ def test_unported_flags_reach_the_spec_and_are_refused(tmp_path):
     exp = train.apply_overrides(Experiment.load(STRAGGLER),
                                 {"telemetry_sink": sink})
     assert exp.telemetry == exp.telemetry._replace(sink=sink)
-    with pytest.raises(SystemExit, match="schedule.comm_every"):
+    # (--comm-every, the flag this case used until per-sequence cadences
+    # were ported, now runs: tests/test_torch_hierarchical.py)
+    with pytest.raises(SystemExit, match="execution.mesh"):
         train.main(["--experiment", STRAGGLER, "--telemetry-sink", sink,
-                    "--comm-every", "x=2", "--device", "cpu"])
+                    "--mesh", "2,1", "--device", "cpu"])
     assert not os.path.exists(sink)
 
 
