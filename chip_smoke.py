@@ -87,6 +87,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    committed spec under ``--max-restarts 1 --restart-backoff 0
    --crash-at-step 2`` exits 0 and ends bit for bit as the uninterrupted
    run (every line, every array of the final checkpoint, ``retries``).
+   These two train CLI checks run their subprocesses from threads of their
+   own, and phase 9's generator check and (a) run in a child process,
+   beside the cross-checks of this phase, which time nothing.
    Then telemetry: the reduced ``fedbioacc_telemetry.json`` through the
    train CLI in process for 4 steps with ``--telemetry-sink``, on the card
    and on the CPU from the CPU's initial state: both streams pass
@@ -112,7 +115,7 @@ Phases, each of which stops the script with a non-zero exit on failure:
    path's own: 4 of which 2 take part a round, the straggler path's 8 of
    which 6 are sampled and those that beat the round's deadline arrive,
    the faulty path's 8, the telemetry path's 4; ``MAIN_LAYERS`` of the
-   24 layers, the schedule's two paths ``PATH_LAYERS``; 1
+   24 layers; 1
    sequence of 512 tokens each — two SSD chunks), four steps (two
    communication rounds), with the kernels' launch counts taken over that
    path's run alone (as ``PATHS`` lists them, every other kernel never; the
@@ -179,6 +182,28 @@ Phases, each of which stops the script with a non-zero exit on failure:
    step logged) and each round's elements reduced must be what
    ``round_bytes`` of the run's comm plan (the train CLI's ``comm``
    event) says, round 1 of the hierarchical path without u;
+5b. the unfused tree path (``execution.fuse_storm`` false, the
+   reference's default), microbatching and remat (``tree_path_phase``):
+   (a) each of the five algorithms' committed spec edited to the tree
+   path (``TREE_EDITS``: 4 clients in 2 pods, ``hierarchy_period`` 2, the
+   ``uniform`` sampler taking 2 a round, one step a round), reduced, two
+   rounds on the card against two on the CPU from the same initial state
+   and batches, each state field within ``TREE_TOL`` of its norm, no
+   kernel launched; (b) ``fedbioacc.json`` edited to the tree path at full
+   width (``MAIN_LAYERS``, 2 clients, 4 steps) through
+   ``repro_torch.launch.train.main`` in process, as a user runs the
+   reference's default CLI path: each step between CUDA events, the peak
+   memory, a finite val loss, no kernel of the fused engine launched (the
+   storm family and ``quantpack`` read 0); the same run stopped after its
+   step-2 checkpoint (``--crash-at-step 2``, the hard exit caught) and
+   resumed must end as the uninterrupted run, every line and every array
+   of the final checkpoint bit for bit; (c) ``fedbioacc.json`` at full
+   width with ``n_micro`` 2 over 2 sequences a client, with remat and
+   without (``MICRO_EDITS``), 2 steps each from the same state and
+   batches: the step times (CUDA events) and peaks logged, the two runs'
+   buffers bit for bit (a remat-free repeat decides, should they differ,
+   whether an operation on the path is not deterministic), ``storm3_step``
+   once per buffer a step;
 6. the model kernels against their plain versions at the serving path's
    shapes (full-width RecurrentGemma-9B, batch 2, prompt 4096): the RG-LRU
    scan at [2, 4096, 4096] f32 bit for bit on the TMA kernel (timed beside
@@ -256,7 +281,8 @@ Phases, each of which stops the script with a non-zero exit on failure:
    with ``use_flash`` over 4 clips of 1,500 frames (the attention once a
    layer at head dim 80), finite logits of the expected shape, timed, its
    logits beside the same forward with the plain attention;
-9. the paper's problems (``repro_torch.core``): the Threefry generator on
+9. the paper's problems (``repro_torch.core``; the generator check and
+   (a) in a child process started in phase 4): the Threefry generator on
    the card against the CPU (keys, bits, integers, uniforms, permutations
    bit for bit, normals within 4 ulps); (a) two rounds of each of the
    eight algorithms (Algorithms 1-4 and the Table-1 baselines) on the
@@ -284,6 +310,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -291,6 +318,7 @@ import gc
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -418,12 +446,10 @@ ILL_CONDITIONED = 1e-3
 # resumed from there
 RESUME_AT = 2
 # the phase-5 paths keep Mamba-2-130M's published widths and cut its depth
-# to this many of its 24 layers, so that phases 8b and 8c fit in the
-# script's time (6 until the communication schedule's two paths came,
-# which keep 6)
+# to this many of its 24 layers, so that the script fits in its time (6
+# until phases 8b and 8c came; the communication schedule's two paths kept
+# 6 until phase 5b came)
 MAIN_LAYERS = 3
-PATH_LAYERS = {"fedbioacc_hierarchical": 6,
-               "fedbioacc_straggler_int8_topk": 6}
 # the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
 # CPU in-band metrics agree within this (relative)
 TEL_LOG_EVERY = 2
@@ -497,10 +523,27 @@ ENCODE_BATCH, ENCODE_FRAMES = 4, 1500
 CHECK_TILES = 4096
 # the families whose training must fit at one of its depths
 REQUIRED_TRAIN = ("granite-moe-1b-a400m", "hubert-xlarge", "gemma2-2b")
+# phase 5b, the unfused tree path: the five algorithms' committed specs
+# edited so (4 clients in 2 pods: round 1 pod-local, round 2 global; 2 of
+# 4 sampled a round; one step a round), card against CPU within TREE_TOL
+# of each field's norm; n_micro 2 over 2 sequences a client, with remat
+# and without, at full width
+TREE_ALGOS = ("fedbioacc", "fedbio", "fedbio_local", "fedavg",
+              "fedbioacc_local")
+TREE_EDITS = {"execution.fuse_storm": False, "problem.num_clients": 4,
+              "schedule.local_steps": 1, "schedule.hierarchy_period": 2,
+              "schedule.hierarchy_groups": 2,
+              "participation.sampler": "uniform",
+              "participation.clients_per_round": 2}
+TREE_TOL = 1e-4
+MICRO_EDITS = {"execution.n_micro": 2, "problem.per_client": 2,
+               "schedule.steps": 2}
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # one write a line: the train CLI checks log from threads of their own
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -1688,9 +1731,9 @@ def cli_fault_phase() -> None:
     retry of round 1 sends NaN unscreened must roll back twice to step 2,
     write ``<ckpt-dir>/diagnostic`` and exit non-zero naming round 4; the
     committed spec under ``--max-restarts 1 --crash-at-step 2`` must exit
-    0 and end bit for bit as the uninterrupted run (in this process):
-    every logged line, every array of the final checkpoint, ``retries``."""
-    from repro_torch.launch import train
+    0 and end bit for bit as the uninterrupted run: every logged line,
+    every array of the final checkpoint, ``retries``.  Every run is a
+    subprocess, so that the check can run beside this process's own."""
     spec = os.path.join(ROOT, "experiments", f"{FAULTY}.json")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
@@ -1719,8 +1762,7 @@ def cli_fault_phase() -> None:
                 f"resumed from {sup} @ step 2" not in out:
             raise SystemExit(f"train CLI, supervisor: no crash or no "
                              f"resume:\n{out[-3000:]}")
-        full = [{k: v for k, v in h.items() if k != "wall_s"}
-                for h in train.main(common + ["--ckpt-dir", whole])]
+        full, _ = _cli(common + ["--ckpt-dir", whole])
         got, want = _final_arrays(sup), _final_arrays(whole)
         md = (checkpoint_metadata(sup), checkpoint_metadata(whole))
         if lines != full or md[0] != md[1] or len(got) != len(want) or \
@@ -2506,6 +2548,222 @@ def _main_path(name: str, exp: Experiment, run, oracle_events: list,
         resumed = resume_full_width(name, run, final, ckpt, batches,
                                     decided, dev)
         launches = {k: v + resumed[k] for k, v in launches.items()}
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the unfused tree path, microbatching and remat
+# ---------------------------------------------------------------------------
+
+_HOST_FIELDS = ("step", "stale", "deadline", "retry")
+
+
+def _tree_to(state, dev):
+    """A tree-path train state with its variables and momenta on ``dev``
+    (the step and the staleness counters stay on the host)."""
+    return state._replace(**{
+        f: tree_map(lambda t: t.to(dev), getattr(state, f))
+        for f in state._fields if f not in _HOST_FIELDS})
+
+
+def _field_rel(got, want) -> float:
+    """``|got - want| / |want|`` over a field's leaves (0 where both are
+    zero: FedBiO-Local's unused u slot)."""
+    num = sum(float(((g.cpu().float() - w.float()) ** 2).sum())
+              for g, w in zip(tree_leaves(got), tree_leaves(want)))
+    den = sum(float((w.float() ** 2).sum()) for w in tree_leaves(want))
+    return (num / den) ** 0.5 if den else (0.0 if num == 0 else math.inf)
+
+
+def tree_cross_check(name: str, exp: Experiment, dev) -> None:
+    """Two rounds of the reduced tree path on the card against the CPU
+    from the same initial state and batches."""
+    cpu_run = build(exp, device="cpu")
+    gpu_run = build(exp, device=dev)
+    cpu_state = cpu_run.init(torch.Generator().manual_seed(0))
+    gpu_state = _tree_to(cpu_state, dev)
+    data = torch.Generator().manual_seed(1)
+    reset_counts()
+    for _ in range(2 * exp.schedule.local_steps):
+        batch = cpu_run.batch_fn(data)
+        cpu_state, _ = cpu_run.step(cpu_state, batch)
+        gpu_state, _ = gpu_run.step(gpu_state, tree_map(lambda v: v.to(dev),
+                                                        batch))
+    fields = [f for f in cpu_state._fields if f not in _HOST_FIELDS
+              and tree_leaves(getattr(cpu_state, f))]
+    errs = {f: _field_rel(getattr(gpu_state, f), getattr(cpu_state, f))
+            for f in fields}
+    worst = max(errs.values())
+    on_card = {f: all(t.device.type == "cuda" for t in
+                      tree_leaves(getattr(gpu_state, f))) for f in fields}
+    log(f"tree path, {name}: card vs CPU after 2 rounds (pod-local, "
+        f"global; 2 of 4 clients a round), relative difference by field "
+        f"{ {f: float(f'{e:.3e}') for f, e in errs.items()} } (limit "
+        f"{TREE_TOL}), launches {launch_counts()}")
+    if not (worst <= TREE_TOL and all(on_card.values())
+            and not any(launch_counts().values())):
+        raise SystemExit(f"tree path cross-check of {name} failed")
+
+
+def _cuda_timed(events: list):
+    """A ``train_cli.build`` hook: the run's steps each between two CUDA
+    events, appended to ``events``."""
+    def hook(run):
+        step = run.step
+
+        @functools.wraps(step)
+        def stepped(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = step(state, batch)
+            end.record()
+            events.append((start, end))
+            return out
+        return run._replace(step=stepped)
+    return hook
+
+
+def tree_cli_path(dev) -> None:
+    """``fedbioacc.json`` edited to the tree path at full width through
+    the train CLI in process: timed, no engine kernel, stopped after its
+    step-2 checkpoint and resumed bit for bit."""
+    exp = full_width_experiment(Experiment.load(os.path.join(
+        ROOT, "experiments", "fedbioacc.json"))).edit(
+            **{"execution.fuse_storm": False})
+    common = ["--device", "cuda", "--log-every", "1", "--ckpt-every", "2"]
+    strip = lambda hs: [{k: v for k, v in h.items()  # noqa: E731
+                         if k != "wall_s"} for h in hs]
+    events = []
+
+    def crash(code):
+        raise SystemExit(code)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tree_") as tmp:
+        spec, whole, crashed = (os.path.join(tmp, f) for f in
+                                ("spec.json", "whole", "crashed"))
+        exp.save(spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        # the uninterrupted run is held to the others at its end only
+        full = _cli_in_process(["--experiment", spec, "--ckpt-dir", whole,
+                                *common[:-1], "4"], _cuda_timed(events))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_ms = [round(s.elapsed_time(e), 3) for s, e in events]
+        exit_ = os._exit
+        os._exit = crash
+        try:
+            train_cli.main(["--experiment", spec, "--ckpt-dir", crashed,
+                            "--crash-at-step", "2", *common])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            os._exit = exit_
+        resumed = train_cli.main(["--resume", crashed, "--ckpt-dir", crashed,
+                                  *common])
+        launches = launch_counts()
+        mine, want = _final_arrays(crashed), _final_arrays(whole)
+        same = (code == 17 and strip(resumed) == strip(full)[2:]
+                and len(mine) == len(want) and all(
+                    a.dtype == b.dtype and np.array_equal(
+                        np.atleast_1d(a).view(np.uint8),
+                        np.atleast_1d(b).view(np.uint8))
+                    for a, b in zip(mine, want)))
+        with open(os.path.join(whole, "manifest.json")) as fh:
+            state_kind = json.load(fh)["treedef"].split("[", 1)[1].split("]")[0]
+    val = [h["val_loss"] for h in full]
+    log(f"tree path, fedbioacc.json with fuse_storm false at full width "
+        f"({MAIN_LAYERS} layers, {exp.problem.num_clients} clients) "
+        f"through the train CLI: state {state_kind}, step ms {step_ms} "
+        f"(CUDA events), {run_s:.1f} s for the run, peak memory {peak} B, "
+        f"val_loss {val}; stopped after the step-2 checkpoint (exit {code}) "
+        f"and resumed: steps {[h['step'] for h in resumed]} and the final "
+        f"checkpoint's {len(want)} arrays "
+        f"{'bit for bit' if same else 'NOT'} the uninterrupted run's; "
+        f"launches over the three runs {launches}, on {card_line()}")
+    if not (same and state_kind == "FedBiOAccTrainState"
+            and all(math.isfinite(v) for v in val)
+            and not any(launches.values()) and len(step_ms) == 4):
+        raise SystemExit("tree path through the train CLI failed")
+
+
+def _micro_run(exp: Experiment, dev) -> tuple:
+    """Two full-width steps of ``exp``: (its buffers on the host, step ms,
+    peak bytes, launches, val loss)."""
+    run = build(exp, device=dev)
+    state = run.init(torch.Generator(device=dev).manual_seed(
+        exp.schedule.seed))
+    data = torch.Generator().manual_seed(exp.schedule.seed)
+    batches = [run.batch_fn(data) for _ in range(exp.schedule.steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    events = []
+    step = _cuda_timed(events)(run).step
+    for batch in batches:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    out = ([b.cpu() for b in state.vars + state.mom],
+           [round(s.elapsed_time(e), 3) for s, e in events],
+           torch.cuda.max_memory_allocated(dev), launch_counts(),
+           run.eval_fn(state))
+    del run, state, batches, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def micro_remat_path(dev) -> dict:
+    """``fedbioacc.json`` at full width with ``n_micro`` 2, with remat and
+    without: the two runs' buffers bit for bit.  Returns the launches of
+    both runs."""
+    base = full_width_experiment(Experiment.load(os.path.join(
+        ROOT, "experiments", "fedbioacc.json"))).edit(**MICRO_EDITS)
+    on, off = (_micro_run(base.edit(**{"execution.remat": r}), dev)
+               for r in (True, False))
+    same = all(same_bits(a, b) for a, b in zip(on[0], off[0]))
+    note = "bit for bit"
+    if not same:
+        # a repeat that differs too says an operation is not deterministic
+        again = _micro_run(base.edit(**{"execution.remat": False}), dev)
+        worst = max(float((a.float() - b.float()).norm() / b.float().norm())
+                    for a, b in zip(on[0], off[0]))
+        repeat = all(same_bits(a, b) for a, b in zip(again[0], off[0]))
+        note = (f"NOT bit for bit (worst relative {worst:.3e}); a remat-free "
+                f"repeat is {'' if repeat else 'NOT '}bit for bit")
+        if repeat or not worst <= 1e-4:
+            raise SystemExit(f"n_micro 2: remat changed the result: {note}")
+    want = {**dict.fromkeys(on[3], 0), "storm3_step": 2 * base.schedule.steps}
+    log(f"n_micro 2 over {base.problem.per_client} sequences a client, "
+        f"fedbioacc.json at full width ({MAIN_LAYERS} layers, "
+        f"{base.problem.num_clients} clients): remat "
+        f"on step ms {on[1]}, peak {on[2]} B, val_loss {on[4]}; remat off "
+        f"step ms {off[1]}, peak {off[2]} B, val_loss {off[4]}; buffers "
+        f"{note}; launches {on[3]} / {off[3]}")
+    if on[3] != want or off[3] != want or not math.isfinite(on[4]):
+        raise SystemExit(f"n_micro 2 paths launched {on[3]} / {off[3]}, "
+                         f"expected {want}")
+    return {k: on[3][k] + off[3][k] for k in on[3]}
+
+
+def tree_path_phase(dev) -> dict:
+    """Phase 5b; returns the launches of its full-width paths."""
+    t0 = time.perf_counter()
+    for algo in TREE_ALGOS:
+        exp = Experiment.load(os.path.join(ROOT, "experiments",
+                                           f"{algo}.json")).edit(**TREE_EDITS)
+        tree_cross_check(algo, exp, dev)
+    t1 = time.perf_counter()
+    with _depth(MAIN_LAYERS):
+        tree_cli_path(dev)
+        torch.cuda.empty_cache()
+        launches = micro_remat_path(dev)
+    log(f"phase 5b took {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t1 - t0:.1f} s)")
     return launches
 
 
@@ -3702,12 +3960,23 @@ def paper_kernels(buffers: dict, dev) -> None:
             f"bound)")
 
 
-def paper_phase(dev) -> dict:
-    """Phase 9: (a), (b) and (c); returns the launches of (b) and (c)."""
+def paper_checks() -> float:
+    """Phase 9's generator check and (a), which time nothing, in a child
+    process of their own (started during phase 4); returns their
+    seconds."""
     t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
     random_cross_check(dev)
     paper_cross_check(dev)
-    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def paper_phase(dev, checks_s: float) -> dict:
+    """Phase 9: (b) and (c), after the generator check and (a) (seconds
+    ``checks_s``, in phase 4's child); returns the launches of (b) and
+    (c)."""
     t1 = time.perf_counter()
     launches = paper_examples(dev)
     torch.cuda.empty_cache()
@@ -3717,8 +3986,9 @@ def paper_phase(dev) -> dict:
     del buffers
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
-    log(f"phase 9 (the paper's problems) took {t3 - t0:.1f} s: generator "
-        f"and (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s")
+    log(f"phase 9 (the paper's problems) took {t3 - t1:.1f} s here: (b) "
+        f"{t2 - t1:.1f} s, (c) {t3 - t2:.1f} s; the generator and (a) "
+        f"{checks_s:.1f} s in phase 4's child process")
     return {k: launches.get(k, 0) + real.get(k, 0)
             for k in set(launches) | set(real)}
 
@@ -3776,7 +4046,18 @@ def main() -> None:
     log(f"phases 1-3 took {t3 - t_start:.1f} s")
     gated_phase(groups_of, gates, dev)
     kernels["storm_update"] = storm_update_phase(dev)
+    log(f"phase 3b took {time.perf_counter() - t3:.1f} s")
 
+    # the two train CLI checks that run only subprocesses wait on them from
+    # threads of their own, and phase 9's checks run in a child process,
+    # while this one cross-checks (timing nothing until they are joined); a
+    # failure there stops the script at the join
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    child = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    clis = [pool.submit(cli_resume_phase), pool.submit(cli_fault_phase)]
+    paper = child.submit(paper_checks)
+    t = time.perf_counter()
     for name, base in bases.items():
         if name in (HIERARCHICAL, STRAGGLED_INT8):
             round_cross_check(name, base, dev)
@@ -3788,7 +4069,6 @@ def main() -> None:
             cross_check(f"{name} ({policy})", base.edit(
                 **{"stragglers.late_policy": policy}), dev,
                 steps=2 * base.schedule.local_steps)
-    cli_resume_phase()
     base = bases[FAULTY]
     for what, edits in (("clip", {}), ("trim", {"robustness.aggregator":
                                                 "trim"}),
@@ -3799,13 +4079,22 @@ def main() -> None:
         exp = (base.edit(**edits) if edits is not None else
                dataclasses.replace(base, robustness=None))
         fault_cross_check(f"{FAULTY} ({what})", exp, dev)
-    cli_fault_phase()
+    log(f"the reduced cross-checks took {time.perf_counter() - t:.1f} s")
     telemetry_cross_check(dev)
     cli_schedule_phase()
+    t = time.perf_counter()
+    for f in clis:
+        f.result()
+    pool.shutdown()
+    paper_s = paper.result()
+    child.shutdown()
+    log(f"waited {time.perf_counter() - t:.1f} s for the train CLI's "
+        f"subprocess checks and phase 9's child")
     t4 = time.perf_counter()
     log(f"phases 3b-4 took {t4 - t3:.1f} s")
     for name, full in fulls.items():
-        with _depth(PATH_LAYERS.get(name, MAIN_LAYERS)):
+        t = time.perf_counter()
+        with _depth(MAIN_LAYERS):
             if name == FAULTY:
                 launches = faulty_path(name, full, dev)
             elif name == TELEMETRY:
@@ -3813,9 +4102,14 @@ def main() -> None:
             else:
                 launches = main_path(name, full, dev)
         torch.cuda.empty_cache()
+        log(f"path {name} took {time.perf_counter() - t:.1f} s")
         for kname, k in kernels.items():
             k["launches"] += launches[kname]
     log(f"phase 5 took {time.perf_counter() - t4:.1f} s")
+    torch.cuda.empty_cache()
+    launches = tree_path_phase(dev)
+    for kname, k in kernels.items():
+        k["launches"] += launches.get(kname, 0)
 
     kernels["lru_scan"] = lru_phase(dev)
     kernels["flash_attention"] = flash_phase(dev)
@@ -3836,7 +4130,7 @@ def main() -> None:
         k["launches"] += launches.get(kname, 0)
 
     torch.cuda.empty_cache()
-    launches = paper_phase(dev)
+    launches = paper_phase(dev, paper_s)
     for kname, k in kernels.items():
         k["launches"] += launches[kname]
 

@@ -92,7 +92,9 @@ def main() -> None:
             f"{k} {d}" for k, d in zip(ALLOC_KEYS, delta)), flush=True)
     step_ms = steps[0]
 
-    f, g = make_model_bilevel(run.model, lower_l2=run.fed.lower_l2)
+    ex = run.spec.execution
+    f, g = make_model_bilevel(run.model, lower_l2=run.fed.lower_l2,
+                              n_micro=ex.n_micro, remat=ex.remat)
     views = run.views(state)
     x, y = client_slice(views.x, 0), client_slice(views.y, 0)
     b0 = client_slice(batches[4], 0)

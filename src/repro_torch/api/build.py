@@ -76,7 +76,6 @@ def unported_features(exp: Experiment) -> list:
     ex = exp.execution
     algos = "queue 1, 'Remaining algorithms'"
     shard = "queue 1, 'Sharded substrate'"
-    model_scale = "queue 1, 'Model-scale FedBiOAcc, spec API and train CLI'"
     kernel_training = "queue 1, 'Training through the model kernels'"
     no_grad = ("the reference's train step cannot differentiate through its "
                "Pallas {} kernel: pallas_call has no reverse-mode rule and "
@@ -91,10 +90,6 @@ def unported_features(exp: Experiment) -> list:
          ")", kernel_training),
         (ex.use_lru_kernel, "execution.use_lru_kernel (" +
          no_grad.format("LRU-scan") + ")", kernel_training),
-        (not ex.fuse_storm, "execution.fuse_storm=false (the unfused tree "
-         "path)", model_scale),
-        (ex.n_micro != 1 or ex.remat, "execution.n_micro > 1 / remat",
-         model_scale),
     ]
     return [f"{what} (ROADMAP {where})" for hit, what, where in checks if hit]
 
@@ -164,14 +159,17 @@ def build(experiment: Experiment, *, device=None) -> Run:
     eval_batch = client_slice(
         batch_fn(torch.Generator().manual_seed(EVAL_SEED))["val"], 0)
 
+    # the fused engine's pytree view; an unfused state is its own
+    views = getattr(step, "views", lambda s: s)
+
     def eval_fn(state) -> float:
-        s = step.views(state)
+        s = views(state)
         p = s.params if hasattr(s, "params") else {"body": s.x, "head": s.y}
         p0 = client_slice(p, 0)
         with torch.no_grad():
             return float(model.loss(p0, eval_batch)[0])
 
-    return Run(spec=exp, init=init, step=step, views=step.views,
+    return Run(spec=exp, init=init, step=step, views=views,
                eval_fn=eval_fn, batch_fn=batch_fn, model=model,
                model_cfg=model_cfg, fed=fed, participation=participation,
                device=dev)

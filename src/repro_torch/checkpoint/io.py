@@ -20,7 +20,10 @@ the reference's ``FlatState`` is: fields ``vars, mom, step, stale, retry,
 ef, deadline``, the step a 0-d int32 leaf, ``retry`` the fault engine's
 0-d int32 retry counter (empty without faults).  The port's own field
 order (``vars, mom, step, ef, stale, deadline, retry``) is mapped on save
-and load.
+and load.  The unfused path's pytree train states (``FedBiOTrainState``
+… ``FedAvgTrainState`` of ``federation/trainer.py``) are written as the
+reference's: their empty ``deadline`` and ``retry`` slots, which the
+reference's states lack, are left out, and the step is a 0-d int32 leaf.
 
 ``experiment=`` (an :class:`repro_torch.api.Experiment`) also writes
 ``<dir>/experiment.json``, so ``load_experiment(ckpt_dir)`` and
@@ -54,21 +57,50 @@ _ReferenceFlatState = NamedTuple("FlatState", [
     ("retry", Any), ("ef", Any), ("deadline", Any)])
 
 
+_PORT_ONLY = ("deadline", "retry")
+_REFERENCE_STATES: Dict[type, type] = {}
+
+
+def _is_tree_state(tree) -> bool:
+    """A pytree train state of the unfused path: a NamedTuple with a host
+    ``step`` and empty ``deadline`` and ``retry`` slots."""
+    fields = getattr(type(tree), "_fields", ())
+    return "step" in fields and all(
+        isinstance(getattr(tree, f, None), tuple) and not getattr(tree, f)
+        for f in _PORT_ONLY)
+
+
+def _reference_state(cls) -> type:
+    """The reference's class of the same name: ``cls``'s fields without
+    the port's own slots."""
+    if cls not in _REFERENCE_STATES:
+        _REFERENCE_STATES[cls] = NamedTuple(cls.__name__, [
+            (f, Any) for f in cls._fields if f not in _PORT_ONLY])
+    return _REFERENCE_STATES[cls]
+
+
 def _to_reference(tree):
-    if not isinstance(tree, FlatState):
-        return tree
-    return _ReferenceFlatState(
-        vars=tree.vars, mom=tree.mom,
-        step=torch.tensor(tree.step, dtype=torch.int32), stale=tree.stale,
-        retry=tree.retry, ef=tree.ef, deadline=tree.deadline)
+    if isinstance(tree, FlatState):
+        return _ReferenceFlatState(
+            vars=tree.vars, mom=tree.mom,
+            step=torch.tensor(tree.step, dtype=torch.int32),
+            stale=tree.stale, retry=tree.retry, ef=tree.ef,
+            deadline=tree.deadline)
+    if _is_tree_state(tree):
+        ref = _reference_state(type(tree))
+        return ref(**{f: getattr(tree, f) for f in ref._fields})._replace(
+            step=torch.tensor(int(tree.step), dtype=torch.int32))
+    return tree
 
 
 def _from_reference(tree, like):
-    if not isinstance(like, FlatState):
-        return tree
-    return FlatState(vars=tree.vars, mom=tree.mom, step=int(tree.step),
-                     ef=tree.ef, stale=tree.stale, deadline=tree.deadline,
-                     retry=tree.retry)
+    if isinstance(like, FlatState):
+        return FlatState(vars=tree.vars, mom=tree.mom, step=int(tree.step),
+                         ef=tree.ef, stale=tree.stale,
+                         deadline=tree.deadline, retry=tree.retry)
+    if _is_tree_state(like):
+        return like._replace(**{**tree._asdict(), "step": int(tree.step)})
+    return tree
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

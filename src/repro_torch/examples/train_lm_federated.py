@@ -2,9 +2,8 @@
 with FedBiOAcc and checkpoints, on the port (counterpart of
 ``examples/train_lm_federated.py``).
 
-It wraps :func:`repro_torch.launch.train.main` with the reference's flags,
-plus ``--fuse-storm --fuse-oracles`` (the port runs the fused engine only;
-the unfused tree path is ROADMAP item 8's open part) and ``--device``.
+It wraps :func:`repro_torch.launch.train.main` with the reference's flags
+(the unfused tree path, the reference's default), plus ``--device``.
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm_federated \\
         [--steps 200] [--ckpt-dir DIR] [--device cuda|cpu]
@@ -29,7 +28,6 @@ def main(argv=None):
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_lm_ckpt_")
     history = train.main([
         "--arch", args.arch, "--reduced", "--algo", "fedbioacc",
-        "--fuse-storm", "--fuse-oracles",
         "--steps", str(args.steps), "--clients", "4", "--per-client", "2",
         "--seq", "128", "--ckpt-every", "100",
         "--ckpt-dir", ckpt_dir, "--log-every", "20",

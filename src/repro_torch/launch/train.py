@@ -6,9 +6,9 @@ edits of a base spec (the built-in defaults, ``--experiment exp.json``, or
 the spec embedded in a checkpoint).  The spec is embedded in every
 checkpoint, so a resume needs no re-specified flags.
 
-    # flags build a spec (the port runs the fused engine: --fuse-storm)
+    # flags build a spec (the unfused tree path unless --fuse-storm)
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
-        --reduced --algo fedbioacc --fuse-storm --steps 100 --clients 4 \\
+        --reduced --algo fedbioacc --steps 100 --clients 4 \\
         --per-client 2 --seq 128
 
     # a committed spec runs as it is; flags override single fields
@@ -73,7 +73,8 @@ resumes it from the latest checkpoint after a crash, up to N times
 (``--crash-at-step`` hard-exits, code 17, after that step of a fresh run,
 to test it).
 
-A checkpoint holds the raw train state (``FlatState``), the embedded spec
+A checkpoint holds the raw train state (a ``FlatState``, or the unfused
+path's pytree train state), the embedded spec
 and the metadata ``step``, ``arch``, ``retries`` (the rollbacks taken) and
 ``data_gen``: the exact state of the CPU ``torch.Generator`` that draws
 the batches, restored on resume (the reference records its JAX batch key
@@ -187,8 +188,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="alpha^staleness discount for returning clients' "
                          "contributions (1.0 = off)")
     ap.add_argument("--fuse-storm", action="store_true", default=S,
-                    help="flat-buffer substrate with fused updates (the "
-                         "engine the port runs)")
+                    help="flat-buffer substrate with fused updates")
     ap.add_argument("--fuse-oracles", action="store_true", default=S,
                     help="share one linearization across the oracle "
                          "directions")
@@ -530,10 +530,11 @@ def main(argv=None):
         banner = f"resumed from {ns.resume} @ step {start}"
         emit("note", render=banner, text=banner)
 
-    # the analytic per-round bytes plan: one reconcilable `comm` event a
-    # communication round
-    plan = (comm_plan(run.step.spec, run.step.aspec, exp.compression)
-            if log is not None else None)
+    # the analytic per-round bytes plan (the fused engine's layout): one
+    # reconcilable `comm` event a communication round
+    flat_spec = getattr(run.step, "spec", None)
+    plan = (comm_plan(flat_spec, run.step.aspec, exp.compression)
+            if log is not None and flat_spec is not None else None)
     in_band = bool(run.step.telemetry_groups)
     local_steps = exp.schedule.local_steps
     retry = lambda: guard.retries if guard is not None else 0  # noqa: E731

@@ -105,28 +105,32 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
         return {"body": body, "head": head_init(gen, cfg, dtype)}
 
     def _run(params, x, positions, *, caches=None, cache_index=None,
-             use_flash=False, use_lru_kernel=False):
+             remat=False, use_flash=False, use_lru_kernel=False):
         body, head = params["body"], params["head"]
         x, new_caches, aux = stk.apply_stack(
             body["stages"], x, cfg, positions=positions, caches=caches,
-            cache_index=cache_index, use_flash=use_flash,
+            cache_index=cache_index, remat=remat, use_flash=use_flash,
             use_lru_kernel=use_lru_kernel)
         x = rmsnorm(body["final_ln"], x, cfg.norm_eps)
         logits = _softcap((x @ head["w"]).to(torch.float32),
                           cfg.logit_softcap)
         return logits, new_caches, aux
 
-    def forward(params, batch, *, use_flash=False, use_lru_kernel=False):
+    def forward(params, batch, *, remat=False, use_flash=False,
+                use_lru_kernel=False):
+        """Logits and the MoE auxiliary loss; ``remat`` rematerialises
+        each unit of the layer stack (``stack.apply_stack``)."""
         x, positions, offset = _embed_inputs(params["body"], batch, cfg)
-        logits, _, aux = _run(params, x, positions, use_flash=use_flash,
+        logits, _, aux = _run(params, x, positions, remat=remat,
+                              use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
         return logits[:, offset:, :], aux
 
-    def loss(params, batch, *, use_flash=False, use_lru_kernel=False,
-             aux_weight: float = 0.01):
+    def loss(params, batch, *, remat=False, use_flash=False,
+             use_lru_kernel=False, aux_weight: float = 0.01):
         """Masked CE plus ``aux_weight`` times the MoE auxiliary loss:
         positions with ``labels < 0`` are ignored."""
-        logits, aux = forward(params, batch, use_flash=use_flash,
+        logits, aux = forward(params, batch, remat=remat, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
         labels = batch["labels"]
         mask = (labels >= 0).to(torch.float32)

@@ -12,6 +12,9 @@ the flat substrate of ``repro_torch.optim.flat``.  Two kinds of step:
   ``sgd3_step`` launch when the spec carries no momentum (FedBiO,
   FedBiO-Local) → client mean of the variables.
 
+The same policies drive the trainers' unfused tree paths through
+:func:`comm_tree`, so that both paths see the same communication events.
+
 Ported so far: both kinds with the three policies (AVERAGED, PRIVATE, and
 HIERARCHICAL: with ``cfg.hierarchy_period = k > 0`` only every k-th round
 takes the full mean and the others the pod-local mean of
@@ -55,6 +58,9 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.tree_util import (client_mean, client_mean_grouped,
+                                        client_mean_grouped_weighted,
+                                        client_mean_weighted)
 from repro_torch.federation.stragglers import arrival_histogram
 from repro_torch.optim import flat
 from repro_torch.telemetry.spec import resolve_metric_groups
@@ -183,6 +189,31 @@ def advance_stale(cfg, step: int, mask, stale):
     if (step + 1) % cfg.local_steps != 0:
         return stale
     return torch.where(mask > 0, 0, stale + 1).to(torch.int32)
+
+
+def comm_tree(cfg, step: int, tree, policy: str, *, weights=None,
+              comm_every: int = 1):
+    """Apply one sequence's communication policy to a pytree with a
+    leading client axis (the unfused train steps), decided on the host
+    from the step: ``PRIVATE`` passes the tree through; otherwise only a
+    communication step reduces (and with ``comm_every = k`` only every k-th
+    round), with the full client mean, or at a pod-local round of the
+    hierarchical schedule (HIERARCHICAL, ``cfg.hierarchy_period > 0``) the
+    grouped mean of ``cfg.hierarchy_groups`` pods.  ``weights``: the
+    round's participation weights [M] (zero: a non-participant, whose rows
+    pass through bit for bit); the weighted means then."""
+    if policy == PRIVATE:
+        return tree
+    is_comm, is_global = _round_preds(cfg, step)
+    round_idx = (step + 1) // cfg.local_steps
+    if not is_comm or round_idx % comm_every:
+        return tree
+    if policy == AVERAGED or cfg.hierarchy_period <= 0 or is_global:
+        return (client_mean(tree) if weights is None
+                else client_mean_weighted(tree, weights))
+    return (client_mean_grouped(tree, cfg.hierarchy_groups)
+            if weights is None else
+            client_mean_grouped_weighted(tree, cfg.hierarchy_groups, weights))
 
 
 def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,

@@ -5,11 +5,11 @@ parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
 ``fedbioacc_straggler.json``, ``fedbioacc_faulty.json`` and
 ``fedbioacc_telemetry.json`` build; the other committed spec (sharded) is
 refused with ``NotImplementedError`` naming the feature the port does not
-run yet (so is the telemetry spec asking for rematerialization, and
-training through the model kernels); the edits that were refused until
-their slice ported them (the hierarchical schedule, per-sequence cadences,
-compression with participation or stragglers) build and step; and the
-entry points want a card unless the CPU is asked for."""
+run yet (so is training through the model kernels); the edits that were
+refused until their slice ported them (the hierarchical schedule,
+per-sequence cadences, compression with participation or stragglers, the
+unfused tree path, rematerialization) build and step; and the entry
+points want a card unless the CPU is asked for."""
 import ast
 from pathlib import Path
 
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.api import Experiment, build
 from repro_torch.api.build import resolve_device
+from repro_torch.core.tree_util import tree_leaves
 
 torch.set_num_threads(1)
 
@@ -38,13 +39,13 @@ STRAGGLED = {"fedbioacc_straggler.json": ("drop", 6)}
 FAULTED = {"fedbioacc_faulty.json": ("clip", 2)}
 # committed specs with telemetry: the metric groups each step computes
 TELEMETRIED = {"fedbioacc_telemetry.json": ("norms", "drift")}
-# each other committed spec, and the telemetry spec edited to ask for an
-# unported feature: (edits, what the port refuses in it)
+# each other committed spec, and the telemetry spec edited to ask for
+# rematerialization: (edits, what the port refuses in it; None where the
+# slice that ported the feature now runs it)
 REFUSED = {
     "fedbioacc_sharded_overlap.json": (
         {}, ["execution.mesh", "execution.overlap"]),
-    "fedbioacc_telemetry.json": (
-        {"execution.remat": True}, ["execution.n_micro > 1 / remat"]),
+    "fedbioacc_telemetry.json": ({"execution.remat": True}, None),
 }
 
 
@@ -102,8 +103,23 @@ def test_committed_specs_are_all_covered():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_features_are_refused_by_name(name):
+    """The sharded spec is refused naming its features.  The telemetry spec
+    with remat, refused until rematerialization was ported, takes a step
+    with its in-band metrics, bit for bit the step without remat."""
     edits, features = REFUSED[name]
     exp = Experiment.load(str(ROOT / "experiments" / name)).edit(**edits)
+    if features is None:
+        states = []
+        for e in (edits, {k: False for k in edits}):
+            run = build(exp.edit(**e, **{"schedule.steps": 1}), device="cpu")
+            state, metrics = run.step(run.init(torch.Generator().manual_seed(
+                0)), run.batch_fn(torch.Generator().manual_seed(1)))
+            assert metrics["step"] == 1 and run.step.telemetry_groups
+            states.append(state)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(states[0].vars + states[0].mom,
+                       states[1].vars + states[1].mom))
+        return
     with pytest.raises(NotImplementedError) as err:
         build(exp, device="cpu")
     for feature in features:
@@ -316,19 +332,27 @@ def test_compression_with_unported_features_is_refused_by_name(edit,
                                   {"execution.remat": True}])
 def test_single_feature_edits_are_refused(edit):
     """``fedbioacc.json`` (2 clients) with one edit.  The hierarchical
-    schedule and the per-sequence cadence, refused until this slice, run a
-    round: with 2 pods of one client round 1 averages nothing; with u at a
-    cadence of 2 it averages x and not u.  The others stay refused."""
+    schedule and the per-sequence cadence run a round: with 2 pods of one
+    client round 1 averages nothing; with u at a cadence of 2 it averages x
+    and not u.  The unfused tree path and remat, refused until they were
+    ported, run a round too, averaging x and u (on the tree path every
+    leaf of both).  ``use_flash`` stays refused."""
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc.json"))
-    if "execution.use_flash" in edit or "execution.fuse_storm" in edit \
-            or "execution.remat" in edit:
+    if "execution.use_flash" in edit:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(exp.edit(**edit), device="cpu")
         return
     run, _, state, _ = _two_steps(exp.edit(**edit))
+    if "execution.fuse_storm" in edit:
+        assert type(state).__name__ == "FedBiOAccTrainState"
+        for sec in ("x", "u", "nu", "q"):
+            assert all(torch.equal(v[0], v[1])
+                       for v in tree_leaves(getattr(state, sec)))
+        return
     x, u = (_rows(run, state.vars, sec) for sec in ("x", "u"))
-    assert _one_mean(x, [0, 1]) == ("schedule.comm_every" in edit)
-    assert not _one_mean(u, [0, 1])
+    averaged = "schedule.hierarchy_period" not in edit
+    assert _one_mean(x, [0, 1]) == averaged
+    assert _one_mean(u, [0, 1]) == ("execution.remat" in edit)
 
 
 @pytest.mark.parametrize("edit,why", [

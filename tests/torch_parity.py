@@ -106,30 +106,45 @@ def routes_gap(probs, k) -> float:
     return float(np.min(top[..., :-1] - top[..., 1:]))
 
 
+def port_state(run, jstate):
+    """The reference's train state as the port's, bit for bit: its
+    ``FlatState`` as the port's engine state (with zero staleness counters
+    where the port's engine keeps them), or an unfused pytree train state
+    as the port's class of the same name (the step a host int)."""
+    from repro_torch.federation import trainer
+    from repro_torch.optim import sequences as seqs
+
+    if not hasattr(jstate, "vars"):
+        cls = getattr(trainer, type(jstate).__name__)
+        return cls(**{f: int(v) if f == "step" else to_torch(v)
+                      for f, v in jstate._asdict().items()})
+    extra = {}
+    if run.init.participation is not None:
+        extra["stale"] = torch.zeros(run.fed.num_clients, dtype=torch.int32)
+    return seqs.FlatState(tuple(to_torch(list(jstate.vars))),
+                          tuple(to_torch(list(jstate.mom))), 0, **extra)
+
+
 def paired_steps(spec_path, edits: dict, steps: int, on_state=None):
     """The JAX package's run of the spec at ``spec_path`` edited by
     ``edits`` and the port's, ``steps`` steps each from the reference's
-    initial ``FlatState`` on the reference's batches (the port cannot draw
-    the reference's Threefry heads or streams).  ``on_state(run, state,
-    batch)`` sees the port's state before each step and after the last
-    (with the last step's batch).  Returns ``(jrun, run, jstate, state,
-    storm3_step calls of the port's steps)``."""
+    initial state (a ``FlatState``, or an unfused pytree train state) on
+    the reference's batches (the port cannot draw the reference's Threefry
+    heads or streams).  ``on_state(run, state, batch)`` sees the port's
+    state before each step and after the last (with the last step's
+    batch).  Returns ``(jrun, run, jstate, state, storm3_step calls of the
+    port's steps)``."""
     import jax
     from repro.api import Experiment as JExperiment
     from repro.api import build as jbuild
     from repro_torch.api import Experiment, build
     from repro_torch.kernels.storm import kernel as tk
-    from repro_torch.optim import sequences as seqs
 
     jrun = jbuild(JExperiment.load(str(spec_path)).edit(**edits))
     run = build(Experiment.load(str(spec_path)).edit(**edits), device="cpu")
     key = jax.random.PRNGKey(jrun.spec.schedule.seed)
     jstate = jrun.init(key)
-    extra = {}
-    if run.init.participation is not None:
-        extra["stale"] = torch.zeros(run.fed.num_clients, dtype=torch.int32)
-    state = seqs.FlatState(tuple(to_torch(list(jstate.vars))),
-                           tuple(to_torch(list(jstate.mom))), 0, **extra)
+    state = port_state(run, jstate)
     jstep = jax.jit(jrun.step)
     calls = 0
     for _ in range(steps):
@@ -159,3 +174,21 @@ def section_errors(spec, got, want) -> dict:
                 np.sum((g[:, a:b] - w[:, a:b]) ** 2))
             den[name] = den.get(name, 0.0) + float(np.sum(w[:, a:b] ** 2))
     return {s: (num[s] / den[s]) ** 0.5 for s in num}
+
+
+def field_errors(got, want, fields) -> dict:
+    """Per field of two pytree train states (the port's, the
+    reference's): ``|got - want| / |want|`` over the field's leaves."""
+    import jax
+    from repro_torch.core.tree_util import tree_leaves
+    out = {}
+    for name in fields:
+        g = [f32(t).astype(np.float64)
+             for t in tree_leaves(getattr(got, name))]
+        w = [np.asarray(t, np.float64)
+             for t in jax.tree.leaves(getattr(want, name))]
+        assert len(g) == len(w), name
+        num = sum(float(np.sum((a - b) ** 2)) for a, b in zip(g, w))
+        den = sum(float(np.sum(b ** 2)) for b in w)
+        out[name] = (num / den) ** 0.5
+    return out
