@@ -107,6 +107,24 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``fedbioacc.json``, 4 clients): stopped after step 1, inside pod-local
    round 1, and resumed, bit for bit the uninterrupted run; its ``comm``
    events ``round_bytes``' (``cli_schedule_phase``);
+4b. the sharded substrate (``sharded_phase``): 8 ranks spawned beside
+   phase 4, a ``[4, 2]`` mesh over gloo, every rank on ``cuda:0``, each
+   running the train CLI's ``main`` in process: (a) the committed
+   ``fedbioacc_sharded_overlap.json`` at its own size for 4 steps on the
+   CPU, and steps 3-4 again on the card resumed from the CPU's step-2
+   checkpoint, each field of the two final checkpoints (gathered on rank
+   0) within ``SHARDED_TOL`` of its norm; (b) an edit at full Mamba-2-130M
+   width (bf16, ``MAIN_LAYERS`` layers, 4 clients, 512 tokens) for 4 steps
+   with overlap: ``storm3_step`` launched once per dtype buffer a step on
+   every rank (counted over the ranks), each rank's step times and peak
+   memory, the variable reduction's issue and wait times beside the same
+   reduction's time in a sequential run of the edit (its share the overlap
+   hides), and the run resumed from its step-2 checkpoint by a second
+   ``main`` ending bit for bit as the uninterrupted one; (c)
+   ``fedbioacc_int8_topk.json`` edited to the mesh at that width (4
+   clients, 2 steps): ``quantpack``/``quantunpack`` launched on every
+   rank's block (the int8 wire between them), a finite loss.  Its step
+   times include phase 4's load on the host;
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
    ``fedbioacc_local.json``, ``fedbioacc_straggler.json``,
@@ -448,8 +466,8 @@ RESUME_AT = 2
 # the phase-5 paths keep Mamba-2-130M's published widths and cut its depth
 # to this many of its 24 layers, so that the script fits in its time (6
 # until phases 8b and 8c came; the communication schedule's two paths kept
-# 6 until phase 5b came)
-MAIN_LAYERS = 3
+# 6 until phase 5b came; 3 until phase 4b came)
+MAIN_LAYERS = 2
 # the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
 # CPU in-band metrics agree within this (relative)
 TEL_LOG_EVERY = 2
@@ -1471,11 +1489,11 @@ def _timed_oracles(over_clients, events: list):
     current stream around the call, with no synchronization, so that the
     step's own time is untouched (the loop visits the clients in order,
     once each a pass)."""
-    def timed(oracle, m):
-        calls = itertools.count()
+    def timed(oracle):
+        calls = [itertools.count()]
 
         def one(v, batch):
-            i = next(calls) % m
+            i = next(calls[0])
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
@@ -1483,7 +1501,13 @@ def _timed_oracles(over_clients, events: list):
             end.record()
             events.append((i, start, end))
             return out
-        return over_clients(one, m)
+
+        inner = over_clients(one)
+
+        def voracle(v, batch):
+            calls[0] = itertools.count()    # a pass visits clients 0..M-1
+            return inner(v, batch)
+        return voracle
     return timed
 
 
@@ -2549,6 +2573,367 @@ def _main_path(name: str, exp: Experiment, run, oracle_events: list,
                                     decided, dev)
         launches = {k: v + resumed[k] for k, v in launches.items()}
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the sharded substrate on a [4, 2] mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+SHARDED = "fedbioacc_sharded_overlap"
+SHARDED_MESH = (4, 2)
+SHARDED_TOL = 1e-5           # card against CPU, of each field's norm
+SHARDED_TIMEOUT = 900.0      # seconds the ranks may take, beside phase 4
+
+
+def _sharded_specs(tmp: str) -> dict:
+    """The phase's spec files: (a) the committed spec; (b) its edit at full
+    width (4 steps with overlap) and (b') the same without overlap for one
+    communication round; (c) the compressed spec edited to the mesh at
+    that width, 4 clients, one communication round."""
+    base = Experiment.load(os.path.join(ROOT, "experiments",
+                                        f"{SHARDED}.json"))
+    width = {"problem.reduced": False, "problem.seq_len": 512,
+             "problem.per_client": 1}
+    full = base.edit(**width)
+    specs = {"a": base, "b": full,
+             "seq": full.edit(**{"execution.overlap": False,
+                                 "schedule.steps": 2}),
+             "c": Experiment.load(os.path.join(
+                 ROOT, "experiments", f"{COMPRESSED}.json")).edit(
+                 **width, **{"problem.num_clients": 4,
+                             "execution.mesh": list(SHARDED_MESH),
+                             "schedule.steps": 2})}
+    paths = {}
+    for k, exp in specs.items():
+        paths[k] = os.path.join(tmp, f"{k}.json")
+        exp.save(paths[k])
+    return paths
+
+
+@contextlib.contextmanager
+def _timed_steps(times: list):
+    """``train_cli.build`` whose runs time each step on the host, between
+    two synchronizations of the card (milliseconds into ``times``)."""
+    orig = train_cli.build
+
+    def timed_build(exp, **kw):
+        run = orig(exp, **kw)
+        inner = run.step
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(state, batch)
+            torch.cuda.synchronize()
+            times.append(round((time.perf_counter() - t) * 1e3, 3))
+            return out
+
+        step.__dict__.update(inner.__dict__)
+        return run._replace(step=step)
+
+    train_cli.build = timed_build
+    try:
+        yield
+    finally:
+        train_cli.build = orig
+
+
+@contextlib.contextmanager
+def _timed_comm(records: list):
+    """``seqs.comm_buffers`` timed at communication steps: each call's time
+    to return (the whole reduction when synchronous, its issue when the
+    overlap leaves it pending) and the time the step then waits for its
+    pending writes, between synchronizations of the card."""
+    orig = seqs.comm_buffers
+
+    def timed(spec, cfg, step, bufs, policies, **kw):
+        if (step + 1) % cfg.local_steps:
+            return orig(spec, cfg, step, bufs, policies, **kw)
+        pending = kw.get("pending")
+        n0 = 0 if pending is None else len(pending)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(spec, cfg, step, bufs, policies, **kw)
+        torch.cuda.synchronize()
+        rec = {"step": step, "pending": pending is not None,
+               "elems": sum(b.numel() for b in bufs),
+               "issue_ms": round((time.perf_counter() - t) * 1e3, 3),
+               "wait_ms": 0.0}
+        records.append(rec)
+
+        def waited(fn):
+            def finish():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rec["wait_ms"] = round(rec["wait_ms"] + (
+                    time.perf_counter() - t0) * 1e3, 3)
+            return finish
+
+        for i in range(n0, len(pending or ())):
+            pending[i] = waited(pending[i])
+        return out
+
+    seqs.comm_buffers = timed
+    try:
+        yield
+    finally:
+        seqs.comm_buffers = orig
+
+
+@contextlib.contextmanager
+def _keep_checkpoint(step: int, src: str, dst: str):
+    """``train_cli.save_checkpoint`` that also copies ``src`` to ``dst``
+    once the checkpoint of ``step`` is written (rank 0 writes)."""
+    orig = train_cli.save_checkpoint
+
+    def save(path, tree, meta, **kw):
+        orig(path, tree, meta, **kw)
+        if path == src and meta.get("step") == step:
+            shutil.copytree(src, dst)
+
+    train_cli.save_checkpoint = save
+    try:
+        yield
+    finally:
+        train_cli.save_checkpoint = orig
+
+
+def _sharded_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of phase 4b: every run of the phase through the train CLI's
+    ``main`` in this process (one gloo world for all of them); writes its
+    counts, times and peak memory to ``tmp/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks
+    init_ranks(rank, world, store)
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    with open(os.path.join(tmp, "specs.json")) as fh:
+        specs = json.load(fh)
+    out = {"rank": rank}
+    t = time.perf_counter()
+    # (a) the CPU runs the spec, the card resumes the CPU's step-2
+    # checkpoint (the initial states are drawn on each device otherwise)
+    a_cpu, a_step2 = (os.path.join(tmp, d) for d in ("a-cpu", "a-step2"))
+    with _keep_checkpoint(2, a_cpu, a_step2):
+        out["a_cpu"] = train_cli.main([
+            "--experiment", specs["a"], "--device", "cpu", "--log-every",
+            "1", "--ckpt-dir", a_cpu, "--ckpt-every", "2"])
+    dist.barrier()
+    out["a_cuda"] = train_cli.main([
+        "--resume", a_step2, "--device", "cuda", "--log-every", "1",
+        "--ckpt-dir", os.path.join(tmp, "a-cuda"), "--ckpt-every", "2"])
+    out["a_s"] = round(time.perf_counter() - t, 1)
+    with _depth(MAIN_LAYERS):
+        t = time.perf_counter()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        b_dir, b2_dir = (os.path.join(tmp, d) for d in ("b", "b-step2"))
+        out["b_steps_ms"], out["b_comm"] = [], []
+        with _timed_steps(out["b_steps_ms"]), _timed_comm(out["b_comm"]), \
+                _keep_checkpoint(2, b_dir, b2_dir):
+            out["b"] = train_cli.main([
+                "--experiment", specs["b"], "--device", "cuda",
+                "--log-every", "2", "--ckpt-dir", b_dir, "--ckpt-every",
+                "2"])
+        torch.cuda.synchronize()
+        out["b_launches"] = launch_counts()
+        out["b_peak"] = torch.cuda.max_memory_allocated()
+        out["b_s"] = round(time.perf_counter() - t, 1)
+        dist.barrier()
+        t = time.perf_counter()
+        reset_counts()
+        out["b_resumed_steps_ms"] = []
+        with _timed_steps(out["b_resumed_steps_ms"]):
+            out["b_resumed"] = train_cli.main([
+                "--resume", b2_dir, "--device", "cuda", "--log-every", "2",
+                "--ckpt-dir", os.path.join(tmp, "b-resumed"),
+                "--ckpt-every", "2"])
+        out["b_resumed_launches"] = launch_counts()
+        out["resume_s"] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+        out["seq_comm"], out["seq_steps_ms"] = [], []
+        with _timed_steps(out["seq_steps_ms"]), _timed_comm(out["seq_comm"]):
+            train_cli.main(["--experiment", specs["seq"], "--device", "cuda",
+                            "--log-every", "2"])
+        out["seq_s"] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out["c_steps_ms"] = []
+        with _timed_steps(out["c_steps_ms"]):
+            out["c"] = train_cli.main(["--experiment", specs["c"],
+                                       "--device", "cuda", "--log-every",
+                                       "2"])
+        torch.cuda.synchronize()
+        out["c_launches"] = launch_counts()
+        out["c_variants"] = variant_counts()
+        out["c_peak"] = torch.cuda.max_memory_allocated()
+        out["c_s"] = round(time.perf_counter() - t, 1)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_sharded_phase() -> tuple:
+    """Write the phase's specs and start its ranks, which run beside phase
+    4; returns what :func:`sharded_phase` joins."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    with open(os.path.join(tmp, "specs.json"), "w") as fh:
+        json.dump(_sharded_specs(tmp), fh)
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_rank,
+                         args=(r, world, os.path.join(tmp, "store"), tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, tmp, time.perf_counter()
+
+
+def _ckpt_arrays(d: str, step: int = 4) -> list:
+    with np.load(os.path.join(d, f"arrays-{step:08d}.npz")) as data:
+        return [data[f"a{i}"].copy() for i in range(len(data.files))]
+
+
+def _first_call(records: list) -> list:
+    """The variable reduction of each communication step: the step's first
+    ``comm_buffers`` call (the momenta's follows it)."""
+    seen, out = set(), []
+    for r in records:
+        if r["step"] not in seen:
+            seen.add(r["step"])
+            out.append(r)
+    return out
+
+
+def _stop_ranks(procs: list) -> list:
+    for p in procs:
+        if p.exitcode is None:
+            p.kill()
+        p.join()
+    return [p.exitcode for p in procs]
+
+
+def sharded_phase(started: tuple) -> dict:
+    """Join phase 4b's ranks and check what they wrote (see the module
+    docstring); returns the launches of (b)'s and (c)'s runs, summed over
+    the ranks."""
+    procs, tmp, t0 = started
+    for p in procs:
+        p.join(max(1.0, t0 + SHARDED_TIMEOUT - time.perf_counter()))
+    codes = _stop_ranks(procs)
+    if codes != [0] * len(procs):
+        raise SystemExit(f"phase 4b: the ranks exited {codes} (a rank "
+                         f"still running after {SHARDED_TIMEOUT} s is "
+                         f"killed)")
+    ranks = []
+    for r in range(len(procs)):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    r0 = ranks[0]
+    # (a) the committed spec: card against CPU, field by field
+    for dev, n in (("cpu", 4), ("cuda", 2)):
+        losses = [h["val_loss"] for h in r0[f"a_{dev}"]]
+        if len(losses) != n or not all(math.isfinite(v) for v in losses):
+            raise SystemExit(f"phase 4b (a): {dev} val_loss {losses}")
+    errs = []
+    for card, cpu in zip(_ckpt_arrays(os.path.join(tmp, "a-cuda")),
+                         _ckpt_arrays(os.path.join(tmp, "a-cpu"))):
+        c, h = (torch.from_numpy(np.asarray(v, np.float64))
+                for v in (card, cpu))
+        errs.append(float((c - h).norm()) / max(float(h.norm()), 1e-30))
+    if not all(e <= SHARDED_TOL for e in errs):
+        raise SystemExit(f"phase 4b (a): card against CPU, relative error "
+                         f"by field {errs} > {SHARDED_TOL}")
+    log(f"phase 4b (a): {SHARDED}.json on a [4, 2] mesh of 8 gloo ranks "
+        f"(each on cuda:0), 4 steps on the CPU, steps 3-4 again on the card "
+        f"from the CPU's step-2 checkpoint (its communication step with "
+        f"overlap): relative error by field of the final state "
+        f"{[f'{e:.3e}' for e in errs]} (within {SHARDED_TOL}); val_loss "
+        f"CPU {[h['val_loss'] for h in r0['a_cpu']]}, card "
+        f"{[h['val_loss'] for h in r0['a_cuda']]}; {r0['a_s']} s")
+    # (b) full width with overlap: launches, times, memory, the resume
+    b_dir = os.path.join(tmp, "b")
+    final = _ckpt_arrays(b_dir)
+    groups = (len(final) - 1) // 2        # variables, momenta, the step
+    want = {k: 0 for k in r0["b_launches"]}
+    want["storm3_step"] = len(ranks) * 4 * groups
+    got = {k: sum(r["b_launches"][k] for r in ranks) for k in want}
+    losses = [h["val_loss"] for h in r0["b"]]
+    if got != want or not losses or not all(math.isfinite(v)
+                                            for v in losses):
+        raise SystemExit(f"phase 4b (b): launches over the ranks {got} "
+                         f"(expected {want}), val_loss {losses}")
+    resumed = [h["val_loss"] for h in r0["b_resumed"]]
+    same = all(a.tobytes() == b.tobytes() for a, b in zip(
+        final, _ckpt_arrays(os.path.join(tmp, "b-resumed"))))
+    r_launches = sum(r["b_resumed_launches"]["storm3_step"] for r in ranks)
+    if not same or resumed[-1] != losses[-1] or \
+            r_launches != len(ranks) * 2 * groups:
+        raise SystemExit(f"phase 4b (b): the run resumed at step 2 ended "
+                         f"{'bit for bit' if same else 'otherwise'} "
+                         f"(val_loss {resumed} against {losses}, "
+                         f"storm3_step {r_launches})")
+    over = [_first_call(r["b_comm"])[0] for r in ranks]
+    seq = [_first_call(r["seq_comm"])[0] for r in ranks]
+    hidden = [round(1.0 - (o["issue_ms"] + o["wait_ms"]) / s["issue_ms"], 4)
+              for o, s in zip(over, seq)]
+    log(f"phase 4b (b): full-width mamba2-130m ({MAIN_LAYERS} layers, bf16) "
+        f"on the [4, 2] mesh, 4 clients, 4 steps with overlap, {groups} "
+        f"dtype buffers; launches over the 8 ranks {got}; step ms by rank "
+        f"{[r['b_steps_ms'] for r in ranks]}; peak memory by rank "
+        f"{[r['b_peak'] for r in ranks]} B (sum "
+        f"{sum(r['b_peak'] for r in ranks)} B); val_loss {losses}; "
+        f"{r0['b_s']} s with the checkpoints of steps 2 and 4")
+    log(f"phase 4b (b): the variable reduction of the communication step "
+        f"({over[0]['elems']} elements a rank), by rank: with overlap "
+        f"(issue ms, wait after the new-iterate oracle ms) "
+        f"{[(o['issue_ms'], o['wait_ms']) for o in over]}; sequential (the "
+        f"edit without overlap, 2 steps) ms {[s['issue_ms'] for s in seq]}; "
+        f"share of the sequential time the overlap hides, by rank {hidden}; "
+        f"the momentum reduction (sequential in both) ms "
+        f"{[r['b_comm'][1]['issue_ms'] for r in ranks]}; sequential step "
+        f"ms {[r['seq_steps_ms'] for r in ranks]}; {r0['seq_s']} s")
+    log(f"phase 4b (b): resumed from the step-2 checkpoint by a second "
+        f"main in the same ranks: steps 3-4 ms by rank "
+        f"{[r['b_resumed_steps_ms'] for r in ranks]}, the final checkpoint "
+        f"bit for bit the uninterrupted run's, storm3_step {r_launches} "
+        f"launches; {r0['resume_s']} s, on {card_line()}")
+    # (c) the compressed spec on the mesh
+    c_got = {k: sum(r["c_launches"][k] for r in ranks)
+             for k in r0["c_launches"]}
+    c_var = {k: sum(r["c_variants"][k] for r in ranks)
+             for k in r0["c_variants"]}
+    packs = len(ranks) * 2 * groups       # variables and momenta, 1 round
+    c_want = {k: 0 for k in c_got}
+    c_want.update(storm3_step=len(ranks) * 2 * groups, quantpack=packs,
+                  quantunpack=packs)
+    c_loss = [h["val_loss"] for h in r0["c"]]
+    pack_kernels = sum(v for k, v in c_var.items()
+                       if k.startswith("quantpack_"))
+    if c_got != c_want or pack_kernels != packs or \
+            not all(math.isfinite(v) for v in c_loss):
+        raise SystemExit(f"phase 4b (c): launches {c_got} (expected "
+                         f"{c_want}), packs by kernel {c_var}, val_loss "
+                         f"{c_loss}")
+    log(f"phase 4b (c): {COMPRESSED}.json on the [4, 2] mesh at full width "
+        f"(4 clients, 2 steps, int8 + top-k 10 % sends, the int8 wire): "
+        f"launches over the ranks {c_got}, packs by kernel {c_var}; step ms "
+        f"by rank {[r['c_steps_ms'] for r in ranks]}; peak memory by rank "
+        f"{[r['c_peak'] for r in ranks]} B; val_loss {c_loss}; "
+        f"{r0['c_s']} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 4b took {time.perf_counter() - t0:.1f} s from its start "
+        f"(beside phase 4)")
+    return {k: got[k] + c_got[k] for k in got}
 
 
 # ---------------------------------------------------------------------------
@@ -4057,6 +4442,7 @@ def main() -> None:
         1, mp_context=multiprocessing.get_context("spawn"))
     clis = [pool.submit(cli_resume_phase), pool.submit(cli_fault_phase)]
     paper = child.submit(paper_checks)
+    sharded = start_sharded_phase()
     t = time.perf_counter()
     for name, base in bases.items():
         if name in (HIERARCHICAL, STRAGGLED_INT8):
@@ -4088,6 +4474,9 @@ def main() -> None:
     pool.shutdown()
     paper_s = paper.result()
     child.shutdown()
+    sharded_launches = sharded_phase(sharded)
+    for kname, k in kernels.items():
+        k["launches"] += sharded_launches.get(kname, 0)
     log(f"waited {time.perf_counter() - t:.1f} s for the train CLI's "
         f"subprocess checks and phase 9's child")
     t4 = time.perf_counter()

@@ -25,6 +25,12 @@ and load.  The unfused path's pytree train states (``FedBiOTrainState``
 reference's: their empty ``deadline`` and ``retry`` slots, which the
 reference's states lack, are left out, and the step is a 0-d int32 leaf.
 
+A state sharded over a mesh of ranks is written whole, as the reference
+writes one: ``sharding.rules.gather_state`` assembles its shard-major
+[M, N] buffers on rank 0, which saves them here, and on resume rank 0
+loads them into ``sharding.rules.whole_like`` and ``scatter_state`` sends
+every rank its block (``launch/train.py``).
+
 ``experiment=`` (an :class:`repro_torch.api.Experiment`) also writes
 ``<dir>/experiment.json``, so ``load_experiment(ckpt_dir)`` and
 ``repro_torch.api.build`` rebuild the run the checkpoint came from.

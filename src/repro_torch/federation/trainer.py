@@ -38,6 +38,17 @@ each step's metrics carry the round's fault masks and health verdicts
 also carry the in-band metric groups it resolves to
 (``train_step.telemetry_groups``), under the reference's keys.
 
+Every factory takes ``mesh=`` (a ``repro_torch.launch.mesh.Mesh`` of
+``torch.distributed`` ranks with ``data`` and ``model`` axes, or a prebuilt
+``flat.ShardCtx``, the way to reach ``use_scatter``) and ``overlap=``, on
+the fused path only: each rank keeps its block of the flat [M, N] buffers
+(its clients' rows over ``data``, one column chunk over ``model``), the
+fused launches run on the blocks and the means all-reduce partial sums
+over the data axis; ``overlap=True`` runs the new-iterate oracle while the
+variable reduction is in flight (``repro_torch.optim.sequences``).  The
+step then takes the rank's clients' rows of the batch, and
+``train_step.views`` a whole state (``sharding.rules.gather_state``).
+
 ``fuse_oracles`` picks the fused oracles (one shared linearization) or the
 separate ones (``grad_y``, ``nu_direction``, ``u_residual``;
 ``neumann_hypergrad`` for the local-lower pair), on the
@@ -69,12 +80,13 @@ from repro_torch.core import hypergrad as hg
 from repro_torch.core.model_problem import (_microbatch_mean,
                                             check_model_options,
                                             make_model_bilevel)
-from repro_torch.core.tree_util import (client_slice, tree_map, tree_stack,
-                                        tree_zeros_like)
+from repro_torch.core.tree_util import (client_slice, tree_leaves, tree_map,
+                                        tree_stack, tree_zeros_like)
 from repro_torch.federation.faults import make_faults
 from repro_torch.federation.participation import make_participation
 from repro_torch.federation.stragglers import make_stragglers, over_provision
 from repro_torch.models.registry import Model
+from repro_torch.optim import flat
 from repro_torch.optim import sequences as seqs
 from repro_torch.optim.sequences import FlatState
 
@@ -244,10 +256,12 @@ def _tree_pair(init, train_step, part):
     return init, train_step
 
 
-def _over_clients(oracle, m: int):
+def _over_clients(oracle):
     """The per-client ``oracle(v, batch) -> {section: tree}`` looped over the
-    leading client axis of ``v`` and ``batch``, results stacked."""
+    leading client axis of ``v`` and ``batch`` (all clients, or a mesh
+    rank's), results stacked."""
     def voracle(v, batch):
+        m = tree_leaves(v)[0].shape[0]
         outs = [oracle(client_slice(v, i), client_slice(batch, i))
                 for i in range(m)]
         return {s: tree_stack([o[s] for o in outs]) for s in outs[0]}
@@ -290,7 +304,7 @@ def _global_lower_setup(model: Model, cfg: FederatedConfig, f, g,
         return {"x": _bcast(p["body"], M), "y": _bcast(p["head"], M),
                 "u": _bcast(tree_zeros_like(p["head"]), M)}
 
-    return _over_clients(oracle, M), templates, init_trees
+    return _over_clients(oracle), templates, init_trees
 
 
 def _local_lower_setup(model: Model, cfg: FederatedConfig, f, g,
@@ -318,7 +332,7 @@ def _local_lower_setup(model: Model, cfg: FederatedConfig, f, g,
         p, heads = _private_heads_init(model, gen, M)
         return {"x": _bcast(p["body"], M), "y": heads}
 
-    return _over_clients(oracle, M), templates, init_trees
+    return _over_clients(oracle), templates, init_trees
 
 
 def _straggler_setup(cfg: FederatedConfig, stragglers, participation):
@@ -376,10 +390,28 @@ def _telemetry_setup(telemetry, fuse_storm: bool):
     return telemetry
 
 
+def _shard_setup(mesh, overlap: bool, fuse_storm: bool):
+    """Compile the mesh knob into a :class:`flat.ShardCtx` (None without a
+    mesh); ``mesh`` may also be a prebuilt ``ShardCtx``.  The sharded
+    substrate and the overlap schedule live on the fused engine only, as
+    in the reference, which also takes ``overlap`` without a mesh."""
+    if (mesh is not None or overlap) and not fuse_storm:
+        raise ValueError(
+            "mesh=/overlap= require fuse_storm=True — the sharded flat "
+            "substrate and the comm/compute overlap schedule are features "
+            "of the fused sequence-spec engine")
+    if mesh is None:
+        return None
+    if isinstance(mesh, flat.ShardCtx):
+        return mesh
+    return flat.make_shard_ctx(mesh)
+
+
 def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
                     init_trees, storm_block, to_state, compression=None,
                     participation=None, stragglers=None, faults=None,
-                    robustness=None, telemetry=None):
+                    robustness=None, telemetry=None, shard=None,
+                    overlap: bool = False):
     """The fuse_storm=True (init, train_step) pair over the engine;
     ``to_state(vars, moms or None, step)`` builds the pytree state.  Each
     step's metrics carry ``step`` and what the engine writes
@@ -392,7 +424,8 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
                               block=storm_block, compression=compression,
                               participation=part, stragglers=strag,
                               faults=faults, robustness=robustness,
-                              telemetry=telemetry)
+                              telemetry=telemetry, shard=shard,
+                              overlap=overlap)
 
     def init(gen: torch.Generator) -> FlatState:
         return engine.init_state(init_trees(gen))
@@ -418,6 +451,7 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
         fn.robustness = robustness
         fn.telemetry = telemetry
         fn.telemetry_groups = engine.step.telemetry_groups
+        fn.shard = shard
     return init, train_step
 
 
@@ -466,7 +500,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
                               compression=None, participation=None,
                               stragglers=None, faults=None, robustness=None,
                               telemetry=None,
-                              comm_every: dict | None = None):
+                              comm_every: dict | None = None,
+                              mesh=None, overlap: bool = False):
     """FedBiOAcc (Alg. 2) train step; returns ``(init(gen) -> state,
     train_step(state, batch) -> (state, metrics))``.  Fused: the state is
     a ``FlatState`` and ``train_step.views(state)`` its pytree view;
@@ -474,6 +509,7 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
     fault, robust, comp, tel = _engine_features(
         cfg, fuse_storm, stragglers, faults, robustness, compression,
         telemetry)
+    shard = _shard_setup(mesh, overlap, fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
@@ -487,7 +523,8 @@ def make_fedbioacc_train_step(model: Model, cfg: FederatedConfig, *,
 
         return _make_flat_pair(cfg, aspec, templates, voracle, init_trees,
                                storm_block, to_state, comp, participation,
-                               stragglers, fault, robust, tel)
+                               stragglers, fault, robust, tel, shard,
+                               overlap)
     part, round_ctx, init_stale, next_stale = _participation_setup(
         cfg, aspec, participation)
 
@@ -546,13 +583,15 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
                            compression=None, participation=None,
                            stragglers=None, faults=None, robustness=None,
                            telemetry=None,
-                           comm_every: dict | None = None):
+                           comm_every: dict | None = None,
+                           mesh=None, overlap: bool = False):
     """FedBiO (Alg. 1) train step: alternating SGD on (x, y, u) with the
     global lower problem; fused, one ``sgd3_step`` launch per dtype
     buffer."""
     fault, robust, comp, tel = _engine_features(
         cfg, fuse_storm, stragglers, faults, robustness, compression,
         telemetry)
+    shard = _shard_setup(mesh, overlap, fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
@@ -565,7 +604,8 @@ def make_fedbio_train_step(model: Model, cfg: FederatedConfig, *,
 
         return _make_flat_pair(cfg, aspec, templates, voracle, init_trees,
                                storm_block, to_state, comp, participation,
-                               stragglers, fault, robust, tel)
+                               stragglers, fault, robust, tel, shard,
+                               overlap)
     part, round_ctx, init_stale, next_stale = _participation_setup(
         cfg, aspec, participation)
 
@@ -599,7 +639,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
                                  compression=None, participation=None,
                                  stragglers=None, faults=None,
                                  robustness=None, telemetry=None,
-                                 comm_every: dict | None = None):
+                                 comm_every: dict | None = None,
+                                 mesh=None, overlap: bool = False):
     """FedBiO-Local (Alg. 3) train step: each client keeps its own head y
     (the PRIVATE section, never reduced), the hyper-gradient comes from the
     truncated Neumann series (Eq. 6, Q = ``cfg.neumann_q`` HVPs), and only
@@ -607,6 +648,7 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
     fault, robust, comp, tel = _engine_features(
         cfg, fuse_storm, stragglers, faults, robustness, compression,
         telemetry)
+    shard = _shard_setup(mesh, overlap, fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
@@ -622,7 +664,8 @@ def make_fedbio_local_train_step(model: Model, cfg: FederatedConfig, *,
 
         return _make_flat_pair(cfg, aspec, templates, voracle, init_trees,
                                storm_block, to_state, comp, participation,
-                               stragglers, fault, robust, tel)
+                               stragglers, fault, robust, tel, shard,
+                               overlap)
     part, round_ctx, init_stale, next_stale = _participation_setup(
         cfg, aspec, participation)
 
@@ -658,7 +701,8 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
                                     compression=None, participation=None,
                                     stragglers=None, faults=None,
                                     robustness=None, telemetry=None,
-                                    comm_every: dict | None = None):
+                                    comm_every: dict | None = None,
+                                    mesh=None, overlap: bool = False):
     """FedBiOAcc-Local (Alg. 4) train step: STORM momenta on (y, Φ) with
     private lower problems.  The heads y and their momenta ω are the
     PRIVATE section, never reduced; the body x and its momentum ν are
@@ -667,6 +711,7 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
     fault, robust, comp, tel = _engine_features(
         cfg, fuse_storm, stragglers, faults, robustness, compression,
         telemetry)
+    shard = _shard_setup(mesh, overlap, fuse_storm)
     f, g = make_model_bilevel(model, lower_l2=cfg.lower_l2, n_micro=n_micro,
                               remat=remat, use_flash=use_flash,
                               use_lru_kernel=use_lru_kernel)
@@ -680,7 +725,8 @@ def make_fedbioacc_local_train_step(model: Model, cfg: FederatedConfig, *,
 
         return _make_flat_pair(cfg, aspec, templates, voracle, init_trees,
                                storm_block, to_state, comp, participation,
-                               stragglers, fault, robust, tel)
+                               stragglers, fault, robust, tel, shard,
+                               overlap)
     part, round_ctx, init_stale, next_stale = _participation_setup(
         cfg, aspec, participation)
 
@@ -730,7 +776,8 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
                            compression=None, participation=None,
                            stragglers=None, faults=None, robustness=None,
                            telemetry=None,
-                           comm_every: dict | None = None):
+                           comm_every: dict | None = None,
+                           mesh=None, overlap: bool = False):
     """FedAvg baseline: local heavy-ball SGD on the whole params tree (the
     CE on ``batch["train"]``, averaged over ``n_micro`` microbatches) with
     periodic averaging; fused, one ``momsgd3_step`` launch per dtype
@@ -738,6 +785,7 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     fault, robust, comp, tel = _engine_features(
         cfg, fuse_storm, stragglers, faults, robustness, compression,
         telemetry)
+    shard = _shard_setup(mesh, overlap, fuse_storm)
     check_model_options(use_flash, use_lru_kernel)
     M = cfg.num_clients
 
@@ -753,7 +801,7 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
     def init_trees(gen):
         return {"params": _bcast(model.init(gen), M)}
 
-    voracle = _over_clients(oracle, M)
+    voracle = _over_clients(oracle)
     aspec = _aspec("fedavg", comm_every)._replace(beta=momentum)
     if fuse_storm:
         def to_state(vt, mt, step):
@@ -762,7 +810,7 @@ def make_fedavg_train_step(model: Model, cfg: FederatedConfig, *,
         return _make_flat_pair(cfg, aspec, {"params": model.init(None)},
                                voracle, init_trees, storm_block, to_state,
                                comp, participation, stragglers, fault,
-                               robust, tel)
+                               robust, tel, shard, overlap)
     part, round_ctx, init_stale, next_stale = _participation_setup(
         cfg, aspec, participation)
 

@@ -73,6 +73,18 @@ resumes it from the latest checkpoint after a crash, up to N times
 (``--crash-at-step`` hard-exits, code 17, after that step of a fresh run,
 to test it).
 
+A spec with ``execution.mesh [d, k]`` (or ``--mesh d,k``) runs over a
+``[data, model]`` mesh of ``d·k`` ranks: run outside a process group, the
+CLI starts them itself (``torch.multiprocessing`` spawn, a gloo world over
+a ``FileStore`` in a temporary directory; on the card every rank uses
+``cuda:0``, whose kernels the CLI builds once before it spawns), each rank
+running this same CLI; rank 0 alone prints the lines, writes the event
+stream and the checkpoints (the whole state, gathered), and a rank's
+failure stops them all with its exit code.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --experiment experiments/fedbioacc_sharded_overlap.json --device cpu
+
 A checkpoint holds the raw train state (a ``FlatState``, or the unfused
 path's pytree train state), the embedded spec
 and the metadata ``step``, ``arch``, ``retries`` (the rollbacks taken) and
@@ -85,16 +97,22 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing.connection
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro_torch.api import (Experiment, RollbackError, RollbackGuard,
                              SpecError, build)
+from repro_torch.api.build import checked, resolve_device
 from repro_torch.api.spec import ARCH_NAMES
 from repro_torch.checkpoint import (checkpoint_metadata, load_checkpoint,
                                     load_experiment, save_checkpoint)
@@ -364,14 +382,14 @@ def _set_gen_state(gen: torch.Generator, hexstate: str) -> None:
                                dtype=torch.uint8))
 
 
-def _diagnostic_checkpoint(ns, state, step: int, exp) -> None:
+def _diagnostic_checkpoint(ns, save, step: int) -> None:
     """Write the offending state beside the regular checkpoints, so that a
-    failed run can be inspected (never over the last good checkpoint)."""
+    failed run can be inspected (never over the last good checkpoint);
+    ``save(path, metadata)`` writes the run's state."""
     if not ns.ckpt_dir:
         return
     d = os.path.join(ns.ckpt_dir, "diagnostic")
-    save_checkpoint(d, state, {"step": int(step), "diagnostic": True},
-                    experiment=exp)
+    save(d, {"step": int(step), "diagnostic": True})
     print(f"diagnostic checkpoint -> {d}", flush=True)
 
 
@@ -456,6 +474,75 @@ def _round_events(emit, metrics, exp, t: int, retry: int) -> None:
              deadline=dl)
 
 
+def _rank_main(rank: int, world: int, store: str, argv: list,
+               history_path: str) -> None:
+    """One rank of a mesh run: join the gloo world, run this CLI (rank 0
+    alone prints), and leave the world."""
+    from repro_torch.launch.mesh import init_ranks
+    init_ranks(rank, world, store)
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    history = main(argv)
+    if rank == 0:
+        with open(history_path, "w") as fh:
+            json.dump(history, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(exp, ns, argv: list) -> list:
+    """Run a mesh spec outside a process group: start its ``d·k`` ranks
+    (spawned processes over a ``FileStore``), wait for them, and return
+    rank 0's history; the first rank to fail stops the others, and its exit
+    code is the run's.  On the card the kernels are built once here, so
+    that the ranks only load them."""
+    mesh = exp.execution.mesh
+    if mesh == "production":
+        from repro_torch.launch.mesh import make_production_mesh
+        try:
+            make_production_mesh()
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+    if resolve_device(ns.device).type == "cuda":
+        from repro_torch.kernels.build import build_all
+        build_all(("storm3", "quantpack"))
+    world = mesh[0] * mesh[1]
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    hist = os.path.join(tmp, "history.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, os.path.join(tmp, "store"), argv,
+                               hist))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    rc = 0
+    try:
+        while not rc and any(p.exitcode is None for p in procs):
+            multiprocessing.connection.wait(
+                [p.sentinel for p in procs if p.exitcode is None])
+            for p in procs:
+                if p.exitcode not in (None, 0) and not rc:
+                    rc = p.exitcode if p.exitcode > 0 else 1
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.terminate()
+            p.join(30)
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+    history = []
+    if not rc:
+        with open(hist) as fh:
+            history = json.load(fh)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if rc:
+        raise SystemExit(rc)
+    return history
+
+
 def main(argv=None):
     ns = _parser().parse_args(argv)
     if ns.max_restarts > 0:
@@ -473,15 +560,25 @@ def main(argv=None):
             f"so the run cannot continue exactly — load its state through "
             f"repro_torch.checkpoint.load_checkpoint instead")
 
+    if exp.execution.mesh is not None and not dist.is_initialized():
+        try:
+            exp = checked(exp)
+        except (SpecError, NotImplementedError) as e:
+            raise SystemExit(str(e))
+        return _spawn_ranks(exp, ns, list(argv) if argv is not None
+                            else sys.argv[1:])
     try:
         run = build(exp, device=ns.device)
     except (SpecError, NotImplementedError) as e:
         raise SystemExit(str(e))
     exp = run.spec
+    shard = run.shard
+    rank0 = shard is None or dist.get_rank() == 0
 
     # every line the CLI reports goes through the event stream (with
-    # experiment.telemetry) and stdout renders the same records
-    log = _event_log(exp, ns, start)
+    # experiment.telemetry) and stdout renders the same records; on a mesh
+    # rank 0 alone writes them
+    log = _event_log(exp, ns, start) if rank0 else None
     tracing = log is not None and exp.telemetry.trace
 
     def emit(event, render=None, **fields):
@@ -521,9 +618,18 @@ def main(argv=None):
     state = run.init(torch.Generator(device=run.device)
                      .manual_seed(exp.schedule.seed))
     data_gen = torch.Generator().manual_seed(exp.schedule.seed)
-    if start:
+    if start and shard is not None:
+        # rank 0 reads the whole state and sends every rank its blocks
+        from repro_torch.sharding.rules import scatter_state, whole_like
+        whole = (load_checkpoint(ns.resume,
+                                 whole_like(run.step.spec, state, shard))
+                 if rank0 else None)
+        state = scatter_state(run.step.spec, whole, state, shard)
+        del whole
+    elif start:
         # copied in place into init's tensors: no second copy of the state
         state = load_checkpoint(ns.resume, state)
+    if start:
         _set_gen_state(data_gen, md["data_gen"])
         if guard is not None:
             guard.retries = int(md.get("retries", 0))
@@ -541,8 +647,22 @@ def main(argv=None):
     history = []
     t0 = time.perf_counter()
     t = start
+    def save(path: str, meta: dict) -> None:
+        """Checkpoint ``state`` (on a mesh, gathered on rank 0, which writes
+        it; the other ranks wait for the write)."""
+        whole = state
+        if shard is not None:
+            from repro_torch.sharding.rules import gather_state
+            whole = gather_state(run.step.spec, state, shard)
+        if rank0:
+            save_checkpoint(path, whole, meta, experiment=exp)
+        del whole
+        if shard is not None:
+            dist.barrier()
+
     while t < exp.schedule.steps:
-        state, metrics = run.step(state, run.batch_fn(data_gen))
+        state, metrics = run.step(state,
+                                  run.place_batch(run.batch_fn(data_gen)))
         t += 1
         is_comm = t % local_steps == 0
         # the reference's evaluation steps; the port also prints the last
@@ -570,7 +690,7 @@ def main(argv=None):
                     emit("retry_budget_exhausted", step=t, retry=retry(),
                          bad_loss=float(loss))
                     end("retry_budget_exhausted", t)
-                    _diagnostic_checkpoint(ns, state, t, exp)
+                    _diagnostic_checkpoint(ns, save, t)
                     raise SystemExit(f"round {t}: {e}")
                 if rb is not None:
                     t, state, _ = rb
@@ -585,7 +705,7 @@ def main(argv=None):
                     continue
             elif guard is None and not math.isfinite(loss):
                 end("diverged", t)
-                _diagnostic_checkpoint(ns, state, t, exp)
+                _diagnostic_checkpoint(ns, save, t)
                 raise SystemExit(
                     f"non-finite eval loss ({loss}) at round {t}: training "
                     f"diverged — inspect the diagnostic checkpoint, enable "
@@ -603,11 +723,9 @@ def main(argv=None):
             # structure from the spec alone; the generator's state makes
             # the batches that follow the uninterrupted run's, and the
             # retry count those after a rollback
-            save_checkpoint(ns.ckpt_dir, state,
-                            {"step": t, "arch": run.model_cfg.name,
-                             "retries": retry(),
-                             "data_gen": _gen_state(data_gen)},
-                            experiment=exp)
+            save(ns.ckpt_dir, {"step": t, "arch": run.model_cfg.name,
+                               "retries": retry(),
+                               "data_gen": _gen_state(data_gen)})
             emit("checkpoint",
                  render=f"checkpoint @ step {t} -> {ns.ckpt_dir}",
                  step=t, path=ns.ckpt_dir)

@@ -13,16 +13,33 @@ mean.  The layout is the JAX package's, element for element:
   per-section (lr, decay) scalars become per-tile tables for the kernel);
 * buffers may carry a leading client axis (``batch_dims=1`` → [M, N]).
 
-Only the unsharded layout (``shards=1``) is ported so far, with exact
-means over all clients or over contiguous client groups (the hierarchical
-schedule's pod-local ``"group"`` runs), unweighted or weighted by
-participation (``weights=``, one tensor or one per section), compressed
-means of both kinds, also weighted (:class:`CompressCfg`: bf16 or
-per-tile int8 quantization, per-tile top-k with per-client error
-feedback, which a grouped run does not take) and the guarded reductions
-of the fault layer (``corrupt=``, ``robust=``: :class:`RobustCfg`,
-:func:`_robust_mean_into`).  The fused launches take
-a participation ``mask=``, which gates their tile tables (:func:`_gate`).
+The means run over all clients or over contiguous client groups (the
+hierarchical schedule's pod-local ``"group"`` runs), unweighted or weighted
+by participation (``weights=``, one tensor or one per section); compressed
+means of both kinds, also weighted (:class:`CompressCfg`: bf16 or per-tile
+int8 quantization, per-tile top-k with per-client error feedback, which a
+grouped run does not take); and the guarded reductions of the fault layer
+(``corrupt=``, ``robust=``: :class:`RobustCfg`, :func:`_robust_mean_into`).
+The fused launches take a participation ``mask=``, which gates their tile
+tables (:func:`_gate`).
+
+Mesh sharding (``shards`` / :class:`ShardCtx`): ``make_spec(...,
+shards=k)`` pads every section to a multiple of ``block · k`` and lays the
+buffer out **shard-major**, as the reference does: chunk j of the k
+contiguous chunks holds the j-th ``1/k`` slice of every section, in
+section order, so every chunk carries the same tile-aligned section pattern
+(``_Group.extents`` describes one chunk; ``section_ids`` is that pattern
+tiled k times).  On a ``[data, model]`` mesh of ``torch.distributed`` ranks
+(``repro_torch.launch.mesh``), rank ``(i, j)`` holds the block of client
+rows ``i`` and column chunk ``j`` of every [M, N] buffer
+(``sharding.rules``).  With ``shard=`` each fused launch runs the same
+kernel on the rank's local [M/d, N/k] block with the chunk's tile tables,
+and no collective; :func:`client_mean_masked` sums each communicated run's
+local rows and all-reduces the partial sums over the data axis (or its
+reduce-scatter + all-gather under ``ShardCtx.use_scatter``, a pod's ranks
+for a grouped run), the compressed runs in the wire dtype
+(:func:`_wire_allreduce`).  Private and non-participant tiles never enter a
+collective.  ``shards=1`` is the unsharded layout bit for bit.
 
 In-place updates: :func:`client_mean_masked` writes each reduced run back
 into the buffers it is given (the engine always passes buffers it has just
@@ -36,6 +53,7 @@ import math
 from typing import Any, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree_util import client_mean, tree_flatten, tree_map
 from repro_torch.kernels.storm.kernel import (BLOCK, momsgd3_step, sgd3_step,
@@ -54,10 +72,11 @@ class _Leaf(NamedTuple):
 class _Group(NamedTuple):
     dtype: Any                  # torch dtype of the buffer
     leaves: tuple               # of _Leaf, ascending offset
-    padded: int                 # buffer length, a multiple of block
+    padded: int                 # buffer length, a multiple of block·shards
     block: int
     section_ids: torch.Tensor   # [padded // block] int64, tile → section
-    extents: tuple = ()         # ((section, start_elem, stop_elem), ...)
+    extents: tuple = ()         # ((section, start_elem, stop_elem), ...) of
+    #   ONE shard chunk, covering [0, padded // shards)
 
 
 class FlatSpec(NamedTuple):
@@ -65,6 +84,63 @@ class FlatSpec(NamedTuple):
     num_leaves: int
     sections: tuple
     groups: tuple
+    shards: int = 1             # model-axis chunks of the layout
+
+
+class ShardCtx(NamedTuple):
+    """How the flat substrate is partitioned over a mesh of ranks
+    (``repro_torch.launch.mesh.Mesh``): the client axis M over
+    ``data_axis``, the packed parameter axis N over ``model_axis`` (whose
+    size must equal ``FlatSpec.shards``).  ``use_scatter`` lowers each
+    participant mean to a reduce-scatter + all-gather over the data axis
+    instead of one all-reduce."""
+    mesh: Any
+    data_axis: str = "data"
+    model_axis: str = "model"
+    use_scatter: bool = False
+
+    @property
+    def data_size(self) -> int:
+        return self.mesh.shape[self.data_axis]
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape[self.model_axis]
+
+    @property
+    def data_index(self) -> int:
+        return self.mesh.coords[self.data_axis]
+
+    @property
+    def model_index(self) -> int:
+        return self.mesh.coords[self.model_axis]
+
+    @property
+    def data_group(self):
+        return self.mesh.group(self.data_axis)
+
+    @property
+    def model_group(self):
+        return self.mesh.group(self.model_axis)
+
+    def rows(self, m: int) -> slice:
+        """This rank's rows of an [M, ...] operand."""
+        per = m // self.data_size
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+    def local_rows(self, v):
+        """This rank's rows of a per-client [M] operand (None passes)."""
+        return None if v is None else v[self.rows(v.shape[0])]
+
+
+def make_shard_ctx(mesh, *, data_axis: str = "data",
+                   model_axis: str = "model",
+                   use_scatter: bool = False) -> ShardCtx:
+    axes = dict(mesh.shape)
+    for a in (data_axis, model_axis):
+        if a not in axes:
+            raise ValueError(f"mesh axes {tuple(axes)} carry no {a!r} axis")
+    return ShardCtx(mesh, data_axis, model_axis, use_scatter)
 
 
 def _round_up(n: int, block: int) -> int:
@@ -72,12 +148,16 @@ def _round_up(n: int, block: int) -> int:
 
 
 def make_spec(tree, *, sections: Sequence[str] | None = None,
-              block: int = BLOCK) -> FlatSpec:
+              block: int = BLOCK, shards: int = 1) -> FlatSpec:
     """Flat layout of ``tree`` (leaves need ``.shape`` and ``.dtype``; meta
     tensors will do).  ``sections``: top-level keys of ``tree`` whose
     subtrees occupy contiguous tile-aligned runs of each dtype buffer, in
-    this order.  The layout is the reference's unsharded one
-    (``shards=1``)."""
+    this order.  ``shards``: model-axis chunks; every section is padded to
+    a multiple of ``block · shards`` and the buffer is shard-major (see the
+    module docstring).  The layout is the reference's, element for
+    element."""
+    if shards < 1:
+        raise ValueError(f"shards={shards} must be >= 1")
     leaves, treedef = tree_flatten(tree)
     if sections is None:
         sec_names: tuple = ()
@@ -98,11 +178,12 @@ def make_spec(tree, *, sections: Sequence[str] | None = None,
         if leaves[i].dtype not in dtypes:
             dtypes.append(leaves[i].dtype)
 
+    quantum = block * shards
     groups = []
     for dt in dtypes:
         lfs, offset = [], 0
-        pattern: list = []
-        extents: list = []
+        pattern: list = []      # one chunk's tile → section
+        extents: list = []      # one chunk's (section, start, stop)
         for s in range(n_sections):
             start = offset
             for i in order:
@@ -115,51 +196,99 @@ def make_spec(tree, *, sections: Sequence[str] | None = None,
                 lfs.append(_Leaf(i, shape, size, offset))
                 offset += size
             if offset > start:
-                offset = _round_up(offset, block)
-                k = (offset - start) // block
+                offset = _round_up(offset, quantum)
+                k = (offset - start) // quantum    # tiles per chunk
                 a = extents[-1][2] if extents else 0
                 extents.append((s, a, a + k * block))
                 pattern += [s] * k
         if lfs:
             groups.append(_Group(dt, tuple(lfs), offset, block,
-                                 torch.tensor(pattern, dtype=torch.int64),
-                                 tuple(extents)))
-    return FlatSpec(treedef, len(leaves), sec_names, tuple(groups))
+                                 torch.tensor(pattern, dtype=torch.int64)
+                                 .repeat(shards), tuple(extents)))
+    return FlatSpec(treedef, len(leaves), sec_names, tuple(groups), shards)
 
 
-def flatten_tree(spec: FlatSpec, tree, *, batch_dims: int = 0, dtype=None):
+def _pieces(spec: FlatSpec, grp: _Group, lf: _Leaf) -> list:
+    """Where leaf ``lf`` lies in the shard-major buffer: ``(start in the
+    leaf, start in the buffer, length)`` pieces.  A leaf's offset is in the
+    section-contiguous order; a section of per-chunk width w occupies w
+    columns of every chunk, so a leaf splits at the chunk boundaries."""
+    if spec.shards == 1:
+        return [(0, lf.offset, lf.size)]
+    chunk = grp.padded // spec.shards
+    cont = 0
+    for _, a, b in grp.extents:
+        w = b - a
+        if lf.offset < cont + w * spec.shards:
+            break
+        cont += w * spec.shards
+    out, p, end = [], lf.offset, lf.offset + lf.size
+    while p < end:
+        c, r = divmod(p - cont, w)
+        n = min(w - r, end - p)
+        out.append((p - lf.offset, c * chunk + a + r, n))
+        p += n
+    return out
+
+
+def flatten_tree(spec: FlatSpec, tree, *, batch_dims: int = 0, dtype=None,
+                 chunk: int | None = None):
     """Pack ``tree`` into the spec's flat buffers (one per dtype group).
     Leaves may carry ``batch_dims`` shared leading axes; ``dtype`` overrides
-    every buffer's dtype (momenta and gradients live in f32 buffers)."""
+    every buffer's dtype (momenta and gradients live in f32 buffers).
+    ``chunk=j`` packs only model chunk j of every buffer (``padded //
+    shards`` columns): a rank's block, without the whole buffer."""
     leaves = spec.treedef.flatten_up_to(tree)
     bufs = []
     for grp in spec.groups:
         out_dt = dtype if dtype is not None else grp.dtype
         first = leaves[grp.leaves[0].index]
         batch_shape = tuple(first.shape[:batch_dims])
-        # each leaf is copied (and converted) straight into its slice, so
-        # the buffer is the only copy made
-        buf = torch.empty(batch_shape + (grp.padded,), dtype=out_dt,
+        if spec.shards == 1 and chunk is None:
+            # each leaf is copied (and converted) straight into its slice,
+            # so the buffer is the only copy made
+            buf = torch.empty(batch_shape + (grp.padded,), dtype=out_dt,
+                              device=first.device)
+            cursor = 0
+            for lf in grp.leaves:
+                buf[..., cursor:lf.offset].zero_()
+                buf[..., lf.offset:lf.offset + lf.size].copy_(
+                    leaves[lf.index].reshape(batch_shape + (-1,)))
+                cursor = lf.offset + lf.size
+            buf[..., cursor:].zero_()
+            bufs.append(buf)
+            continue
+        width = grp.padded // spec.shards
+        lo, hi = ((0, grp.padded) if chunk is None
+                  else (chunk * width, (chunk + 1) * width))
+        buf = torch.zeros(batch_shape + (hi - lo,), dtype=out_dt,
                           device=first.device)
-        cursor = 0
         for lf in grp.leaves:
-            buf[..., cursor:lf.offset].zero_()
-            buf[..., lf.offset:lf.offset + lf.size].copy_(
-                leaves[lf.index].reshape(batch_shape + (-1,)))
-            cursor = lf.offset + lf.size
-        buf[..., cursor:].zero_()
+            src = leaves[lf.index].reshape(batch_shape + (-1,))
+            for s0, d0, n in _pieces(spec, grp, lf):
+                if lo <= d0 < hi:
+                    buf[..., d0 - lo:d0 - lo + n].copy_(src[..., s0:s0 + n])
         bufs.append(buf)
     return tuple(bufs)
 
 
 def unflatten_tree(spec: FlatSpec, bufs):
-    """Pytree view of flat buffers: slices and reshapes only, so the leaves
-    are views into the buffers."""
+    """Pytree view of flat buffers (whole buffers, not a rank's block):
+    slices and reshapes only under ``shards=1``, so the leaves are views
+    into the buffers; a shard-major leaf that spans chunks is copied
+    together."""
     leaves: list = [None] * spec.num_leaves
     for grp, buf in zip(spec.groups, bufs):
+        if buf.shape[-1] != grp.padded:
+            raise ValueError(f"a buffer of {buf.shape[-1]} columns for a "
+                             f"layout of {grp.padded}: gather a rank's "
+                             f"block first (sharding.rules.gather_state)")
         batch_shape = tuple(buf.shape[:-1])
         for lf in grp.leaves:
-            seg = buf[..., lf.offset:lf.offset + lf.size]
+            parts = [buf[..., d0:d0 + n]
+                     for _, d0, n in _pieces(spec, grp, lf)]
+            seg = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+                   if parts else buf[..., :0])
             leaves[lf.index] = seg.reshape(batch_shape + lf.shape)
     return spec.treedef.unflatten(leaves)
 
@@ -169,6 +298,52 @@ def zeros_buffers(spec: FlatSpec, *, batch_shape: tuple = (), device=None):
                              device=device) for g in spec.groups)
 
 
+def _check_shard(spec: FlatSpec, shard: ShardCtx, buf):
+    """A rank's block of one dtype buffer against the spec and the mesh:
+    the reference's checks, in its words."""
+    if buf.dim() != 2:
+        raise ValueError("the sharded substrate needs [M, N] buffers "
+                         "(batch_dims=1)")
+    if spec.shards != shard.model_size:
+        raise ValueError(
+            f"spec was built for shards={spec.shards} but the mesh "
+            f"{shard.model_axis} axis has size {shard.model_size}; rebuild "
+            f"the spec with make_spec(..., shards={shard.model_size})")
+
+
+def _check_rows(shard: ShardCtx, m: int):
+    if m % shard.data_size:
+        raise ValueError(
+            f"client axis M={m} is not divisible by the mesh "
+            f"{shard.data_axis} axis size {shard.data_size}")
+
+
+def local_blocks(spec: FlatSpec, bufs, shard: ShardCtx) -> tuple:
+    """This rank's blocks (its client rows, its model chunk) of whole
+    [M, N] buffers, as contiguous tensors of their own."""
+    out = []
+    for grp, buf in zip(spec.groups, bufs):
+        _check_shard(spec, shard, buf)
+        _check_rows(shard, buf.shape[0])
+        width = grp.padded // spec.shards
+        j = shard.model_index
+        out.append(buf[shard.rows(buf.shape[0]),
+                       j * width:(j + 1) * width].contiguous())
+    return tuple(out)
+
+
+def _check_blocks(spec: FlatSpec, shard: ShardCtx, bufs):
+    """Rank-local blocks: [M/d, padded // shards] each."""
+    for grp, buf in zip(spec.groups, bufs):
+        _check_shard(spec, shard, buf)
+        width = grp.padded // spec.shards
+        if buf.shape[1] != width:
+            raise ValueError(
+                f"a rank's block has {buf.shape[1]} columns, but one model "
+                f"chunk of the {grp.dtype} buffer holds {width}: pass the "
+                f"rank's block (flat.local_blocks), not the whole buffer")
+
+
 # ---------------------------------------------------------------------------
 # Per-tile hyper-parameter tables and fused launches
 # ---------------------------------------------------------------------------
@@ -176,12 +351,15 @@ def zeros_buffers(spec: FlatSpec, *, batch_shape: tuple = (), device=None):
 def _tile_table(grp: _Group, buf, table):
     """Per-section scalars → the per-tile table of ``buf``, [reps, T] f32 on
     the CPU (``reps`` the product of the leading dims: client-major like the
-    flattened buffer)."""
+    flattened buffer).  The tiles are the buffer's own: a rank's block of
+    one model chunk takes the chunk's pattern, the first ``T`` entries of
+    ``section_ids``, which every chunk repeats."""
     reps = 1
     for d in buf.shape[:-1]:
         reps *= int(d)
+    ids = grp.section_ids[:buf.shape[-1] // grp.block]
     row = torch.stack([torch.as_tensor(v, dtype=torch.float32)
-                       for v in table])[grp.section_ids]
+                       for v in table])[ids]
     return row.expand(reps, -1)
 
 
@@ -224,16 +402,27 @@ def mask_buffers(bufs, mask):
 
 
 def _launch(kern, grp: _Group, bufs, tables, n_out: int):
-    """One kernel launch on one dtype buffer, flattened client-major; the
-    kernel returns ``n_out`` flat outputs (a bare tensor when 1)."""
+    """One kernel launch on one dtype buffer (or a rank's block of it),
+    flattened client-major; the kernel returns ``n_out`` flat outputs (a
+    bare tensor when 1).  Under a mesh each rank launches on its own block:
+    the launch has no collective."""
     shape = bufs[0].shape
     outs = kern(*[b.reshape(-1) for b in bufs], *tables, block=grp.block)
     outs = outs if n_out > 1 else (outs,)
     return tuple(o.reshape(shape) for o in outs)
 
 
+def _shard_mask(spec: FlatSpec, shard, bufs, mask):
+    """With ``shard``: check the rank's blocks and take its rows of the
+    [M] launch mask; without, the mask as it is."""
+    if shard is None:
+        return mask
+    _check_blocks(spec, shard, bufs)
+    return shard.local_rows(mask)
+
+
 def storm_partial_step(spec: FlatSpec, var_bufs, mom_bufs, g_old_bufs,
-                       lrs, decays, *, mask=None):
+                       lrs, decays, *, mask=None, shard=None):
     """One fused ``storm3_step`` launch per dtype buffer:
 
         v_new  = v − lr_sec·m            (variable step, entering momentum)
@@ -242,7 +431,10 @@ def storm_partial_step(spec: FlatSpec, var_bufs, mom_bufs, g_old_bufs,
     ``lrs``/``decays``: one f32 scalar per section.  ``mask``: optional
     participation mask [M]: non-participants' tiles run with lr = 0 and
     decay = 1, so (with ``g_old`` zeroed by :func:`mask_buffers`) their rows
-    come out of the same launch bit for bit as they went in."""
+    come out of the same launch bit for bit as they went in.  ``shard``: a
+    :class:`ShardCtx`; the buffers are then the rank's blocks and ``mask``
+    stays the whole [M] mask."""
+    mask = _shard_mask(spec, shard, var_bufs, mask)
     out_v, out_m = [], []
     for grp, v, m, go in zip(spec.groups, var_bufs, mom_bufs, g_old_bufs):
         tables = _gate(_tile_table(grp, v, lrs), _tile_table(grp, v, decays),
@@ -255,9 +447,11 @@ def storm_partial_step(spec: FlatSpec, var_bufs, mom_bufs, g_old_bufs,
 
 
 def storm_full_update(spec: FlatSpec, var_bufs, mom_bufs, g_new_bufs,
-                      g_old_bufs, lrs, decays):
+                      g_old_bufs, lrs, decays, *, shard=None):
     """One fused ``storm3_update`` launch per dtype buffer:
-    (v − lr·m, g_new + decay·(m − g_old))."""
+    (v − lr·m, g_new + decay·(m − g_old)).  ``shard``: as in
+    :func:`storm_partial_step`."""
+    _shard_mask(spec, shard, var_bufs, None)
     out_v, out_m = [], []
     for grp, v, m, gn, go in zip(spec.groups, var_bufs, mom_bufs,
                                  g_new_bufs, g_old_bufs):
@@ -270,7 +464,7 @@ def storm_full_update(spec: FlatSpec, var_bufs, mom_bufs, g_new_bufs,
 
 
 def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas,
-                      *, mask=None):
+                      *, mask=None, shard=None):
     """One fused ``momsgd3_step`` launch per dtype buffer:
 
         m_new = β_sec·m + g        (momentum update, FedAvg's order)
@@ -278,7 +472,8 @@ def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas,
 
     ``lrs``/``betas``: one f32 scalar per section.  ``mask``: as in
     :func:`storm_partial_step` (lr = 0, β = 1 for non-participants, whose
-    ``g`` :func:`mask_buffers` zeroes)."""
+    ``g`` :func:`mask_buffers` zeroes).  ``shard``: as there."""
+    mask = _shard_mask(spec, shard, var_bufs, mask)
     out_v, out_m = [], []
     for grp, v, m, gb in zip(spec.groups, var_bufs, mom_bufs, g_bufs):
         tables = _gate(_tile_table(grp, v, lrs), _tile_table(grp, v, betas),
@@ -290,10 +485,13 @@ def momentum_sgd_step(spec: FlatSpec, var_bufs, mom_bufs, g_bufs, lrs, betas,
     return tuple(out_v), tuple(out_m)
 
 
-def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs, *, mask=None):
+def sgd_step(spec: FlatSpec, var_bufs, g_bufs, lrs, *, mask=None,
+             shard=None):
     """One fused ``sgd3_step`` launch per dtype buffer: v_new = v − lr_sec·g,
     for the specs that carry no momentum (no momentum stream is read or
-    written).  ``mask``: non-participants' tiles run with lr = 0."""
+    written).  ``mask``: non-participants' tiles run with lr = 0.
+    ``shard``: as in :func:`storm_partial_step`."""
+    mask = _shard_mask(spec, shard, var_bufs, mask)
     out = []
     for grp, v, gb in zip(spec.groups, var_bufs, g_bufs):
         lr_t, _ = _gate(_tile_table(grp, v, lrs), None, mask, 1.0)
@@ -708,29 +906,37 @@ def _normalize_weights(spec: FlatSpec, weights) -> tuple:
     return (weights,) * n_sections
 
 
-def _section_runs(grp: _Group, modes, comp_of_sec=None, w_of_sec=None):
+def _section_runs(grp: _Group, modes, comp_of_sec=None, w_of_sec=None,
+                  shards: int = 1):
     """[mode, start, stop, compressed, weights] element runs covering the
-    buffer; adjacent runs merge when the mode, the compression flag and the
-    weight tensor (the same object) coincide (``"none"`` runs merge
-    whatever the rest: private tiles are never reduced), so there is one
-    reduction per communicated run."""
+    buffer (``shards`` chunks of the chunk extents; 1 for a rank's block);
+    adjacent runs merge when the mode, the compression flag and the weight
+    tensor (the same object) coincide (``"none"`` runs merge whatever the
+    rest: private tiles are never reduced), across chunk boundaries too, so
+    there is one reduction per communicated run."""
+    width = grp.padded // shards
     runs: list = []
-    for s, a, b in grp.extents:
-        mode = modes[int(s)]
-        comp = bool(comp_of_sec[int(s)]) if comp_of_sec else False
-        w = w_of_sec[int(s)] if w_of_sec else None
-        if runs and runs[-1][0] == mode and runs[-1][2] == a and (
-                mode == "none" or (runs[-1][3] == comp and runs[-1][4] is w)):
-            runs[-1][2] = b
-        else:
-            runs.append([mode, a, b, comp, w])
+    for j in range(shards):
+        for s, a, b in grp.extents:
+            mode = modes[int(s)]
+            comp = bool(comp_of_sec[int(s)]) if comp_of_sec else False
+            w = w_of_sec[int(s)] if w_of_sec else None
+            a, b = j * width + a, j * width + b
+            if runs and runs[-1][0] == mode and runs[-1][2] == a and (
+                    mode == "none"
+                    or (runs[-1][3] == comp and runs[-1][4] is w)):
+                runs[-1][2] = b
+            else:
+                runs.append([mode, a, b, comp, w])
     return runs
 
 
 def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
                        weights=None, corrupt=None,
                        robust: RobustCfg | None = None,
-                       verdicts: list | None = None, compress=None, ef=None):
+                       verdicts: list | None = None, compress=None, ef=None,
+                       shard: ShardCtx | None = None,
+                       pending: list | None = None):
     """Section-masked client communication over flat [M, N] buffers, in
     place: every ``"mean"`` run is replaced by its client mean, every
     ``"group"`` run by the pod-local mean of ``num_groups`` contiguous
@@ -758,8 +964,16 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
     :class:`RobustCfg`: health-screen the senders and reduce with its
     aggregator (:func:`_robust_mean_into`), the screen's statistics over
     each whole run; ``verdicts`` (a list) then gets each run's health mask.
-    Neither composes with compression or a grouped mean.  Sharding is not
-    ported yet."""
+    Neither composes with compression or a grouped mean.
+
+    ``shard``: a :class:`ShardCtx`; ``bufs`` (and ``ef``) are then the
+    rank's blocks, while ``weights`` and ``corrupt`` stay the [M] operands
+    of every client (:func:`_client_mean_masked_sharded`).  ``pending``: a
+    list, with ``shard``; each run's all-reduce is then issued without
+    waiting and a function that waits and writes the run back is appended
+    to it (the overlap schedule calls them after the new-iterate oracle);
+    the error-feedback updates need no collective and are written at
+    once."""
     n_sections = max(len(spec.sections), 1)
     if len(modes) != n_sections:
         raise ValueError(f"modes {modes} do not match sections {spec.sections}")
@@ -786,6 +1000,11 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
     if has_ef and len(ef or ()) != len(spec.groups):
         raise ValueError("compression with error feedback needs one f32 EF "
                          "buffer per dtype group (pass ef=)")
+    if shard is not None:
+        return _client_mean_masked_sharded(
+            spec, bufs, modes, num_groups, w_of_sec, shard, corrupt, robust,
+            verdicts, compress, comp_of_sec, ef if has_ef else None,
+            pending)
     ef_out = []
     for gi, (grp, buf) in enumerate(zip(spec.groups, bufs)):
         if buf.dim() < 2:
@@ -793,7 +1012,8 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
         ebuf = ef[gi].clone() if has_ef else None
         for mode, start, stop, comp, w in _section_runs(grp, modes,
                                                          comp_of_sec,
-                                                         w_of_sec):
+                                                         w_of_sec,
+                                                         spec.shards):
             if mode == "none":
                 continue
             seg = buf[..., start:stop]
@@ -817,6 +1037,296 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
 
 
 # ---------------------------------------------------------------------------
+# Sharded communication: collectives over the mesh's ranks
+# ---------------------------------------------------------------------------
+#
+# Each function below runs on every rank of the mesh with that rank's block
+# of the buffers.  A communicated run's local rows are summed into a partial
+# sum [L] and the partial sums are all-reduced over the data axis (the
+# ranks of one model column), or over one pod's ranks for a grouped run.
+# The per-client weights and fault masks are host decisions that every rank
+# holds for all M clients, so the weight sums need no collective.
+
+def _group_index_sets(shard: ShardCtx, num_groups: int):
+    """Contiguous rank groups along the data axis for the pod-local mean
+    (data indices of each pod)."""
+    d = shard.data_size
+    if num_groups < 1 or d % num_groups:
+        raise ValueError(
+            f"hierarchy_groups={num_groups} must divide the mesh "
+            f"{shard.data_axis} axis size {d} on the sharded path")
+    per = d // num_groups
+    return [[g * per + i for i in range(per)] for g in range(num_groups)]
+
+
+def _psum(x, group):
+    """Sum of ``x`` over the ranks of ``group``, in place, waited for."""
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def _allreduce(x, shard: ShardCtx, group=None, *, async_op: bool = False):
+    """All-reduce (sum) of a partial sum [L] over the data axis (``group``
+    None) or over ``group`` (a pod's ranks); with ``shard.use_scatter``
+    and no group, a reduce-scatter followed by an all-gather.  Returns a
+    function that waits and gives the reduced tensor; ``async_op`` issues
+    the first collective without waiting."""
+    if (shard.use_scatter and group is None
+            and x.shape[-1] % shard.data_size == 0):
+        piece = torch.empty(x.shape[-1] // shard.data_size, dtype=x.dtype,
+                            device=x.device)
+        work = dist.reduce_scatter_tensor(piece, x, group=shard.data_group,
+                                          async_op=async_op)
+
+        def gathered():
+            if work is not None:
+                work.wait()
+            out = torch.empty_like(x)
+            dist.all_gather_into_tensor(out, piece, group=shard.data_group)
+            return out
+
+        return gathered
+    work = dist.all_reduce(x, group=shard.data_group if group is None
+                           else group, async_op=async_op)
+
+    def reduced():
+        if work is not None:
+            work.wait()
+        return x
+
+    return reduced
+
+
+def _wire_allreduce(partial, quant, block: int, shard: ShardCtx, group,
+                    nsum: int, *, async_op: bool = False):
+    """All-reduce of f32 partial sums [L] in the WIRE dtype (returns a
+    function that waits and gives the f32 sum):
+
+    * bf16: cast, reduce, cast back (2 B an element);
+    * int8: symmetric per-tile quantization on a scale SHARED by the
+      ``nsum`` ranks being summed, ``s = Σ amax / (127 − nsum/2)``: each
+      rank's |q| ≤ amax/s + 1/2, so the int8 sum stays within 127 and
+      cannot wrap (integer adds wrap, they do not saturate).  The scales
+      are one small f32 all-reduce of [L/block] first;
+    * None (top-k only): dense f32, as sparsity does not shrink the sum."""
+    if quant is None:
+        return _allreduce(partial, shard, group, async_op=async_op)
+    if quant == "bf16":
+        f = _allreduce(partial.to(torch.bfloat16), shard, group,
+                       async_op=async_op)
+        return lambda: f().to(torch.float32)
+    if quant != "int8":
+        raise ValueError(f"unknown compression quant {quant!r}")
+    t = partial.reshape(-1, block)
+    gmax = _psum(t.abs().amax(dim=-1), shard.data_group if group is None
+                 else group)
+    s = gmax / (127.0 - 0.5 * nsum)
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.clamp(torch.round(t / safe[:, None]), -127.0, 127.0).to(
+        torch.int8)
+    f = _allreduce(q.reshape(partial.shape), shard, group, async_op=async_op)
+    return lambda: (f().reshape(t.shape).to(torch.float32)
+                    * s[:, None]).reshape(partial.shape)
+
+
+def _rank_sum(w, shard: ShardCtx, ranks) -> torch.Tensor:
+    """Σ w over the clients of data ranks ``ranks``: each rank's rows
+    summed, then the rank sums in rank order (f32), as an all-reduce of
+    the ranks' local sums adds them."""
+    per = w.shape[0] // shard.data_size
+    tot = torch.zeros((), dtype=torch.float32)
+    for r in ranks:
+        tot = tot + w[r * per:(r + 1) * per].to(torch.float32).sum()
+    return tot
+
+
+def _robust_mean_sharded(seg, w, corrupt, robust: RobustCfg | None,
+                         shard: ShardCtx, m: int,
+                         verdicts: list | None) -> None:
+    """The guarded participant mean of one run on a rank's block, written
+    into ``seg`` in place (the sharded mirror of
+    :func:`_robust_mean_into`, the reference's ``_robust_mean_sharded``
+    step for step): per-client row statistics (finiteness, norms) are
+    completed over the MODEL axis, each rank holding a column slice of its
+    rows; the screen's and the aggregate's statistics over the DATA axis;
+    clipping is row-local; the trimmed mean all-gathers the rows over the
+    data axis (an order statistic needs every client).  ``w`` and
+    ``corrupt`` are the [M] operands of every client."""
+    da, ma = shard.data_group, shard.model_group
+    dev = seg.device
+    seg0 = seg.clone()
+    w_l = shard.local_rows(w)
+    corr = (None if corrupt is None else
+            (shard.local_rows(corrupt[0]), shard.local_rows(corrupt[1]),
+             corrupt[2]))
+    sent = _sent(seg0, w_l, corr)
+    n_l = seg.shape[0]
+    wv = (torch.ones(n_l) if w_l is None
+          else w_l.to(torch.float32).cpu()).to(dev)
+    p = wv > 0
+    if robust is None:
+        # the unguarded faulty mean: corrupted rows enter the sum
+        wsum = _psum(wv.sum(), da)
+        scale = torch.where(wsum > 0, m / wsum, 0.0)
+        col = (wv * scale).to(seg.dtype)[:, None]
+        tot = _allreduce((sent * col).sum(dim=0), shard)()
+        mean = (tot / m)[None].to(seg.dtype).expand_as(seg)
+        seg.copy_(mean if w_l is None else torch.where(col > 0, mean, seg0))
+        return
+    if robust.screen:
+        nonfinite = _psum((~torch.isfinite(sent)).sum(dim=1).to(
+            torch.float32), ma)
+        h = p & (nonfinite == 0)
+    else:
+        h = p
+    sq = _psum(torch.where(h[:, None], sent, 0).to(torch.float32).square()
+               .sum(dim=1), ma)
+    n = sq.sqrt()
+    hf = h.to(torch.float32)
+    if robust.screen and robust.z_thresh > 0:
+        cnt = torch.clamp_min(_psum(hf.sum(), da), 1.0)
+        mu = _psum((n * hf).sum(), da) / cnt
+        sd = (_psum(((n - mu).square() * hf).sum(), da) / cnt).sqrt()
+        tol = robust.z_thresh * sd + 1e-4 * mu + 1e-12
+        h = h & ((n - mu).abs() <= tol)
+        hf = h.to(torch.float32)
+    if verdicts is not None and robust.screen:
+        every = torch.empty(m, dtype=torch.float32, device=dev)
+        dist.all_gather_into_tensor(every, hf, group=da)
+        verdicts.append(every.cpu())
+    w_eff = wv * hf
+    wsum_eff = _psum(w_eff.sum(), da)
+    if robust.aggregator == "trim":
+        rows = torch.empty((m,) + tuple(seg.shape[1:]), dtype=torch.float32,
+                           device=dev)
+        dist.all_gather_into_tensor(
+            rows, torch.where(h[:, None], sent.to(torch.float32), math.inf),
+            group=da)
+        xs = torch.sort(rows, dim=0).values
+        nh = _psum(hf.sum(), da)
+        k = torch.minimum(torch.floor(robust.trim_frac * nh),
+                          torch.clamp_min(torch.floor((nh - 1.0) / 2.0),
+                                          0.0))
+        idx = torch.arange(m, dtype=torch.float32, device=dev)[:, None]
+        keep = (idx >= k) & (idx < nh - k)
+        mean = (torch.where(keep, xs, 0.0).sum(dim=0, keepdim=True)
+                / torch.clamp_min(nh - 2.0 * k, 1.0))
+    else:
+        xh = torch.where(h[:, None], sent, torch.zeros((), dtype=seg.dtype,
+                                                       device=dev))
+        if robust.aggregator == "clip":
+            tau = robust.clip_factor * (
+                _psum((n * w_eff).sum(), da)
+                / torch.clamp_min(wsum_eff, 1e-12))
+            sc = torch.minimum(torch.ones((), device=dev),
+                               tau / torch.clamp_min(n, 1e-12))
+            xh = xh * sc[:, None].to(xh.dtype)
+        scale = torch.where(wsum_eff > 0, m / wsum_eff, 0.0)
+        col = (w_eff * scale).to(seg.dtype)[:, None]
+        tot = _allreduce((xh * col).sum(dim=0), shard)()
+        mean = (tot / m)[None]
+    mean = mean.to(seg.dtype).expand_as(seg)
+    seg.copy_(torch.where(p[:, None] & (wsum_eff > 0), mean, seg0))
+
+
+def _client_mean_masked_sharded(spec: FlatSpec, bufs, modes, num_groups,
+                                w_of_sec, shard: ShardCtx, corrupt, robust,
+                                verdicts, compress, comp_of_sec, ef,
+                                pending):
+    """:func:`client_mean_masked` on a rank's blocks.  One run list per
+    model chunk, the same on every rank (the chunk extents), so all ranks
+    issue the same collectives in the same order.  Each communicated run
+    sums its local rows (weighted by ``w·(denom/Σw)``, Σw over the run's
+    clients) and all-reduces the partial sum over the data axis, or over
+    its pod's ranks for a ``"group"`` run; a compressed run sums the
+    clients' compressed sends and all-reduces in the wire dtype
+    (:func:`_wire_allreduce`).  Private and non-participant rows never
+    enter a collective, and a non-participant's rows (and EF rows) keep
+    their bits."""
+    guarded = corrupt is not None or robust is not None
+    _check_blocks(spec, shard, bufs)
+    d = shard.data_size
+    ef_out = []
+    for gi, (grp, buf) in enumerate(zip(spec.groups, bufs)):
+        m = buf.shape[0] * d
+        ebuf = None if ef is None else ef[gi].clone()
+        for mode, a, stop, comp, w in _section_runs(grp, modes, comp_of_sec,
+                                                    w_of_sec):
+            if mode == "none":
+                continue        # private tiles never enter the collective
+            seg = buf[:, a:stop]
+            if w is not None and w.shape[0] != m:
+                raise ValueError(f"weights for {w.shape[0]} clients on a "
+                                 f"mesh of {m}")
+            if guarded:
+                _robust_mean_sharded(seg, w, corrupt, robust, shard, m,
+                                     verdicts)
+                continue
+            if mode == "group":
+                pods = _group_index_sets(shard, num_groups)
+                ranks = pods[shard.data_index // (d // num_groups)]
+                pg = shard.mesh.pod_group(num_groups)
+                denom, nsum = m // num_groups, d // num_groups
+            else:
+                ranks, pg, denom, nsum = range(d), None, m, d
+            col = None
+            if w is not None:
+                wsum = _rank_sum(w, shard, ranks)
+                scale = torch.where(wsum > 0, denom / wsum, 0.0)
+                col = (shard.local_rows(w) * scale).to(torch.float32)
+            async_op = pending is not None
+            if comp:
+                eseg = (ebuf[:, a:stop]
+                        if ebuf is not None and mode == "mean" else None)
+                acc = seg.to(torch.float32)
+                if eseg is not None:
+                    acc = acc + eseg
+                sent = _compress_sent(acc, compress, grp.block)
+                if col is None:
+                    partial = sent.sum(dim=0)
+                else:
+                    col = col.to(seg.device)[:, None]
+                    partial = (sent * col).sum(dim=0)
+                if eseg is not None:
+                    new_e = acc - sent
+                    if w is not None:
+                        new_e = torch.where(
+                            _rows(shard.local_rows(w) > 0, new_e), new_e,
+                            eseg)
+                    eseg.copy_(new_e)
+                    del new_e
+                del acc, sent
+                fin = _wire_allreduce(partial, compress.quant, grp.block,
+                                      shard, pg, nsum, async_op=async_op)
+                upd_dtype = torch.float32
+            else:
+                if col is None:
+                    partial = seg.sum(dim=0)
+                else:
+                    col = col.to(device=seg.device, dtype=seg.dtype)[:, None]
+                    partial = (seg * col).sum(dim=0)
+                fin = _allreduce(partial, shard, pg, async_op=async_op)
+                upd_dtype = seg.dtype
+
+            def write(seg=seg, fin=fin, col=col, denom=denom,
+                      upd_dtype=upd_dtype):
+                mean = (fin() / denom)[None].to(upd_dtype)
+                if col is None:
+                    seg.copy_(mean.expand_as(seg))
+                else:
+                    seg.copy_(torch.where(col > 0, mean, seg.to(upd_dtype)))
+
+            if pending is None:
+                write()
+            else:
+                pending.append(write)
+        ef_out.append(ebuf)
+    if compress is None:
+        return bufs
+    return bufs, (tuple(ef_out) if ef is not None else ())
+
+
+# ---------------------------------------------------------------------------
 # Telemetry metrics (read-only side outputs: they never touch a trajectory)
 # ---------------------------------------------------------------------------
 #
@@ -827,12 +1337,15 @@ def client_mean_masked(spec: FlatSpec, bufs, modes, *, num_groups: int = 2,
 # host only where the train CLI logs them.
 
 def _section_cols(spec: FlatSpec, grp: _Group) -> dict:
-    """Column ranges of every section in one buffer:
-    ``{section_index: [(start, stop), ...]}`` (the port's layout is the
-    unsharded one, so one range a section)."""
+    """Column ranges of every section in one (whole, possibly shard-major)
+    buffer: ``{section_index: [(start, stop), ...]}``.  The extents cover
+    one chunk, so a sharded layout repeats them at every chunk offset."""
+    chunk = grp.padded // spec.shards
     out: dict = {}
     for s, a, b in grp.extents:
-        out.setdefault(int(s), []).append((a, b))
+        for j in range(spec.shards):
+            out.setdefault(int(s), []).append((j * chunk + a,
+                                               j * chunk + b))
     return out
 
 

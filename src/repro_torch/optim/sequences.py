@@ -37,10 +37,28 @@ from the round and the retry count on ``FlatState.retry``; ``keep``
 narrows the launch mask and the weights, and the corruption and
 ``robustness=``'s guarded reductions act inside both means) and telemetry
 (``telemetry=``: the resolved metric groups are computed beside each step
-from its flat buffers, into the step's metrics dict); no sharding and no
-per-sequence staleness discount.  The step's phases (oracles, fused update,
+from its flat buffers, into the step's metrics dict); no per-sequence
+staleness discount.  The step's phases (oracles, fused update,
 reductions, metric passes) carry ``telemetry.annotate`` ranges for a
 profiler trace.
+
+Mesh sharding and the overlap schedule (``shard=``, ``overlap=``): with a
+:class:`flat.ShardCtx` the spec is built with ``shards =`` the mesh's
+model-axis size, and each rank of the ``[data, model]`` mesh keeps its
+block of every buffer (its M/d clients' rows, one model chunk;
+``repro_torch.sharding.rules``).  The fused launches run on the blocks and
+the reductions all-reduce partial sums over the data axis
+(:func:`flat.client_mean_masked` with ``shard=``).  The oracle needs whole
+parameter rows, so each rank all-gathers its clients' rows over the model
+axis, runs the oracle for its clients, flattens the result and keeps its
+chunk: the k ranks of a data row compute the same oracle.
+``overlap=True`` issues the variable reduction of a communication step
+without waiting, runs the new-iterate oracle on the local iterate from
+before the reduction (the reference's documented deviation at
+communication steps; every other step is unchanged), then waits and
+consumes the reduction; without a mesh the same schedule runs with a
+synchronous reduction.  The round's masks and weights are decided on the
+host from the step counter, so every rank decides the same round.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device; so do
@@ -57,10 +75,11 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree_util import (client_mean, client_mean_grouped,
                                         client_mean_grouped_weighted,
-                                        client_mean_weighted)
+                                        client_mean_weighted, tree_map)
 from repro_torch.federation.stragglers import arrival_histogram
 from repro_torch.optim import flat
 from repro_torch.telemetry.spec import resolve_metric_groups
@@ -218,7 +237,8 @@ def comm_tree(cfg, step: int, tree, policy: str, *, weights=None,
 
 def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
                  weights=None, comm_every=None, corrupt=None, robust=None,
-                 verdicts=None, compress=None, ef=()):
+                 verdicts=None, compress=None, ef=(), shard=None,
+                 pending=None):
     """Apply the per-section policies to flat [M, N] buffers at a
     communication step: one masked reduction per communicated run, private
     sections untouched.  Other steps return ``bufs`` as they are.
@@ -237,7 +257,10 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
     ``compress`` / ``ef``: a :class:`flat.CompressCfg` and the current
     error-feedback buffers; with ``compress`` set the call returns
     ``(bufs, ef)``, and a section that does not reduce leaves both as they
-    are."""
+    are.
+    ``shard`` / ``pending``: a :class:`flat.ShardCtx` (``bufs`` are then a
+    rank's blocks) and the list of reductions issued without waiting, as
+    :func:`flat.client_mean_masked` takes them."""
     n = len(policies)
     ce = tuple(comm_every) if comm_every is not None else (1,) * n
     if len(ce) != n or any(c < 1 for c in ce):
@@ -267,7 +290,7 @@ def comm_buffers(spec: flat.FlatSpec, cfg, step: int, bufs, policies, *,
             weights=tuple(w_of_sec[i] if i in live else None
                           for i in range(n)),
             corrupt=corrupt, robust=robust, verdicts=verdicts,
-            compress=compress, ef=ef)
+            compress=compress, ef=ef, shard=shard, pending=pending)
         bufs, ef = (out, ef) if compress is None else out
     return bufs if compress is None else (bufs, ef)
 
@@ -301,7 +324,11 @@ class Engine(NamedTuple):
     """A compiled sequence spec: ``init_state(var_trees, mom_trees=None,
     step=0, ef=None, stale=None, deadline=None, retry=None)``,
     ``step(state, batch, metrics=None) -> state`` and ``views(state) ->
-    (var_dict, mom_dict)`` (``mom_dict`` None without momentum).
+    (var_dict, mom_dict)`` (``mom_dict`` None without momentum).  On a mesh
+    (``shard``, a :class:`flat.ShardCtx`) ``init_state`` takes the trees of
+    every client and keeps the rank's blocks, ``step`` takes the rank's
+    clients' rows of the batch, and ``views`` reads a whole state
+    (``sharding.rules.gather_state``).
 
     Given a ``metrics`` dict, ``step`` writes into it.  Its round's
     decision goes under ``metrics["decision"]`` (a dict, present only
@@ -322,6 +349,7 @@ class Engine(NamedTuple):
     init_state: Any
     step: Any
     views: Any
+    shard: Any = None
 
 
 def _compress_cfg(cfg, aspec: AlgoSpec, compression):
@@ -376,10 +404,24 @@ def _robust_cfg(robustness):
     return rcfg
 
 
+SHARDED = "ROADMAP queue 1, 'Sharded substrate'"
+
+
+def unported_on_mesh(stragglers, faults, robustness, in_band) -> list:
+    """The engine features among these that the sharded substrate does not
+    run yet (the reference's mesh runs none of them in its tests), by
+    name; ``in_band``: in-band telemetry metrics are asked for."""
+    return [what for hit, what in (
+        (stragglers is not None, "stragglers"), (faults is not None, "faults"),
+        (robustness is not None, "robustness"),
+        (in_band, "in-band telemetry metrics")) if hit]
+
+
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 block: int | None = None, compression=None,
                 participation=None, stragglers=None, faults=None,
-                robustness=None, telemetry=None) -> Engine:
+                robustness=None, telemetry=None, shard=None,
+                overlap: bool = False) -> Engine:
     """Compile ``aspec`` into the fused flat-substrate step.
 
     ``templates``: section → leaf template tree without the client axis
@@ -470,12 +512,18 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 "telemetry metrics group 'health' needs participation "
                 "sampling, faults= or robustness= — there is nothing to "
                 "screen")
+    refused = [] if shard is None else unported_on_mesh(
+        stragglers, faults, robustness, bool(tel_groups))
+    if refused:
+        raise NotImplementedError(f"{refused[0]} on execution.mesh is not "
+                                  f"ported ({SHARDED})")
     has_ef = ccfg is not None and ccfg.has_ef
     sections = aspec.sections
     has_mom = aspec.has_momentum
     spec = flat.make_spec({s: templates[s] for s in sections},
                           sections=sections,
-                          block=block if block else flat.BLOCK)
+                          block=block if block else flat.BLOCK,
+                          shards=shard.model_size if shard else 1)
     policies = aspec.policies
     cadence = tuple(q.comm_every for q in aspec.sequences)
     part, strag = participation, stragglers
@@ -485,9 +533,47 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
     late = None if strag is None else strag.spec.late_policy
     alpha = 1.0 if part is None else float(part.spec.stale_discount)
 
+    chunk = None if shard is None else shard.model_index
+
+    def _flatten(trees, dtype=None):
+        """[M_rank, ...] trees → the rank's blocks (whole buffers off a
+        mesh)."""
+        return flat.flatten_tree(spec, trees, batch_dims=1, dtype=dtype,
+                                 chunk=chunk)
+
     def _flatten_grads(gdict):
-        return flat.flatten_tree(spec, {s: gdict[s] for s in sections},
-                                 batch_dims=1, dtype=torch.float32)
+        return _flatten({s: gdict[s] for s in sections}, torch.float32)
+
+    def _whole_rows(bufs):
+        """The rank's clients' whole rows: its blocks all-gathered over the
+        model axis (the blocks themselves off a mesh)."""
+        if shard is None:
+            return bufs
+        k, out = shard.model_size, []
+        for b in bufs:
+            parts = torch.empty((k * b.shape[0], b.shape[1]), dtype=b.dtype,
+                                device=b.device)
+            dist.all_gather_into_tensor(parts, b.contiguous(),
+                                        group=shard.model_group)
+            out.append(parts.view(k, b.shape[0], b.shape[1])
+                       .permute(1, 0, 2).reshape(b.shape[0], -1))
+        return tuple(out)
+
+    def _oracle(bufs, batch, mask):
+        """The flattened oracle directions at iterate ``bufs`` (the rank's
+        blocks), non-participants' rows zeroed."""
+        views = flat.unflatten_tree(spec, _whole_rows(bufs))
+        return flat.mask_buffers(_flatten_grads(oracle(views, batch)),
+                                 _local(mask))
+
+    def _local(v):
+        return v if shard is None else shard.local_rows(v)
+
+    def _rows(tree):
+        """The rank's clients of an [M, ...] tree (the tree off a mesh)."""
+        if shard is None:
+            return tree
+        return tree_map(lambda v: v[shard.rows(v.shape[0])], tree)
 
     def _round_ctx(state: FlatState, decision):
         """(launch mask, comm weights, corrupt transform, staleness mask,
@@ -550,20 +636,22 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             return state.deadline
         return s_info[3]
 
-    def comm(step: int, bufs, ef, weights, corrupt=None, verdicts=None):
+    def comm(step: int, bufs, ef, weights, corrupt=None, verdicts=None,
+             pending=None):
         """Communicate ``bufs``; returns ``(bufs, ef)``."""
         if ccfg is None:
             return comm_buffers(spec, cfg, step, bufs, policies,
                                 weights=weights, comm_every=cadence,
                                 corrupt=corrupt, robust=rcfg,
-                                verdicts=verdicts), ef
+                                verdicts=verdicts, shard=shard,
+                                pending=pending), ef
         return comm_buffers(spec, cfg, step, bufs, policies, weights=weights,
-                            comm_every=cadence, compress=ccfg, ef=ef)
+                            comm_every=cadence, compress=ccfg, ef=ef,
+                            shard=shard, pending=pending)
 
     def init_state(var_trees, mom_trees=None, step: int = 0, ef=None,
                    stale=None, deadline=None, retry=None):
-        vars_b = flat.flatten_tree(spec, {s: var_trees[s] for s in sections},
-                                   batch_dims=1)
+        vars_b = _flatten(_rows({s: var_trees[s] for s in sections}))
         if not has_mom:
             mom_b = ()
         elif mom_trees is None:
@@ -571,10 +659,9 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             mom_b = tuple(torch.zeros(b.shape, dtype=torch.float32,
                                       device=b.device) for b in vars_b)
         else:
-            mom_b = flat.flatten_tree(
-                spec, {q.section: mom_trees[q.momentum]
-                       for q in aspec.sequences},
-                batch_dims=1, dtype=torch.float32)
+            mom_b = _flatten(_rows({q.section: mom_trees[q.momentum]
+                                    for q in aspec.sequences}),
+                             torch.float32)
         if not has_ef:
             ef_b = ()
         elif ef is None:
@@ -704,22 +791,37 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         # 1) old-iterate oracle on pytree views of the entering iterate;
         #    non-participants' contributions are zeroed
         with annotate("oracle/old"):
-            g_old = flat.mask_buffers(_flatten_grads(oracle(
-                flat.unflatten_tree(spec, state.vars), batch)), mask)
+            g_old = _oracle(state.vars, batch, mask)
         # 2) variable step + partial momentum: one gated launch per buffer
         with annotate("update"):
             vars_b, mom_b = flat.storm_partial_step(
-                spec, state.vars, state.mom, g_old, lrs, decays, mask=mask)
+                spec, state.vars, state.mom, g_old, lrs, decays, mask=mask,
+                shard=shard)
         del g_old
         local = _tel_local(metrics, mask, corrupt, vars_b)
         efv, efm = state.ef if state.ef else ((), ())
-        # 3) communicate the variables (in place: vars_b is overwritten)
-        with annotate("comm/vars"):
-            vars_c, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
-        # 4) new-iterate oracle, same batch; the STORM correction is one add
-        with annotate("oracle/new"):
-            g_new = flat.mask_buffers(_flatten_grads(oracle(
-                flat.unflatten_tree(spec, vars_c), batch)), mask)
+        if overlap and (t + 1) % cfg.local_steps == 0:
+            # 3+4) overlap: issue the variable reduction into a copy, run
+            #    the new-iterate oracle on the local iterate from before
+            #    it, then wait for the reduction
+            pending = [] if shard is not None else None
+            with annotate("comm/vars"):
+                vars_c, efv = comm(t, tuple(b.clone() for b in vars_b), efv,
+                                   wts, corrupt, verdicts, pending)
+            with annotate("oracle/new"):
+                g_new = _oracle(vars_b, batch, mask)
+            with annotate("comm/vars/wait"):
+                for finish in pending or ():
+                    finish()
+            del vars_b
+        else:
+            # 3) communicate the variables (in place: vars_b is overwritten)
+            with annotate("comm/vars"):
+                vars_c, efv = comm(t, vars_b, efv, wts, corrupt, verdicts)
+            # 4) new-iterate oracle, same batch; the STORM correction is
+            #    one add
+            with annotate("oracle/new"):
+                g_new = _oracle(vars_c, batch, mask)
         mom_b = flat.buffers_add(mom_b, g_new)
         del g_new
         with annotate("comm/mom"):
@@ -739,21 +841,22 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         verdicts = _verdicts(decision)
         lrs = tuple(_f32(getattr(cfg, q.lr)) for q in aspec.sequences)
         with annotate("oracle"):
-            g = flat.mask_buffers(_flatten_grads(oracle(
-                flat.unflatten_tree(spec, state.vars), batch)), mask)
+            g = _oracle(state.vars, batch, mask)
         efv, efm = state.ef if state.ef else ((), ())
         if has_mom:
             betas = (_f32(aspec.beta),) * len(aspec.sequences)
             with annotate("update"):
                 vars_b, mom_b = flat.momentum_sgd_step(
-                    spec, state.vars, state.mom, g, lrs, betas, mask=mask)
+                    spec, state.vars, state.mom, g, lrs, betas, mask=mask,
+                    shard=shard)
             local = _tel_local(metrics, mask, corrupt, vars_b)
             with annotate("comm/mom"):
                 mom_b, efm = comm(t, mom_b, efm, wts, corrupt, verdicts)
         else:
             # no momentum: the plain-SGD launch reads and writes no momentum
             with annotate("update"):
-                vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask)
+                vars_b = flat.sgd_step(spec, state.vars, g, lrs, mask=mask,
+                                       shard=shard)
             local = _tel_local(metrics, mask, corrupt, vars_b)
             mom_b = ()
         del g
@@ -773,10 +876,11 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
     step.telemetry_groups = tel_groups
 
     def views(state: FlatState):
+        """Pytree views of a whole state (on a mesh, gather it first)."""
         vt = flat.unflatten_tree(spec, state.vars)
         if not state.mom:
             return vt, None
         mt = flat.unflatten_tree(spec, state.mom)
         return vt, {q.momentum: mt[q.section] for q in aspec.sequences}
 
-    return Engine(aspec, spec, init_state, step, views)
+    return Engine(aspec, spec, init_state, step, views, shard)

@@ -11,15 +11,15 @@ model from the event stream's embedded experiment and checks every
 ``comm`` event's ``bytes_wire`` against it.
 
 ``elems`` counts the logical elements of each reduction (the padded
-section runs of every dtype buffer); ``bytes_wire`` is what one
-all-reduce of that payload moves (dense partial sums: only the dtype
-narrows it), ``bytes_uplink_per_client`` what one participating client
-ships (top-k sends only the kept values and their indices).  A section
-counts at the rounds its cadence (``Sequence.comm_every``) divides; the
-model does not tell a pod-local round from a global one, as the
-reference's does not.  The port's
-layout is the reference's unsharded one, so the integers are the
-reference's for every spec the port builds.
+section runs of every dtype buffer: one shard chunk's extents ×
+``FlatSpec.shards``); ``bytes_wire`` is what one all-reduce of that
+payload moves (dense partial sums: only the dtype narrows it),
+``bytes_uplink_per_client`` what one participating client ships (top-k
+sends only the kept values and their indices).  A section counts at the
+rounds its cadence (``Sequence.comm_every``) divides; the model does not
+tell a pod-local round from a global one, as the reference's does not.
+The port's layout is the reference's, sharded or not, so the integers are
+the reference's for every spec the port builds.
 """
 from __future__ import annotations
 
@@ -54,12 +54,13 @@ def comm_plan(flat_spec, aspec, compression=None) -> CommPlan | None:
     if compression is not None:
         csecs = set(compression.sections
                     or tuple(q.section for q in comm))
-    # extents carry section indices into flat_spec.sections
+    # extents carry section indices into flat_spec.sections and describe
+    # one shard chunk: the section's elements are (b - a) × shards
     elems: dict = {}
     for grp in flat_spec.groups:
         for s, a, b in grp.extents:
             name = flat_spec.sections[s]
-            elems[name] = elems.get(name, 0) + (b - a)
+            elems[name] = elems.get(name, 0) + (b - a) * flat_spec.shards
     block = flat_spec.groups[0].block if flat_spec.groups else 256
     secs = tuple((q.section, elems.get(q.section, 0), q.comm_every,
                   q.section in csecs) for q in comm)
@@ -72,8 +73,9 @@ def comm_plan(flat_spec, aspec, compression=None) -> CommPlan | None:
 
 
 def compressed_chunk_elems(flat_spec, aspec, compression) -> int:
-    """Elements of every compressed section over the buffers: the
-    section-extent arithmetic of the byte model, for its other readers."""
+    """Elements of every compressed section in one shard chunk (the whole
+    buffers unsharded): the section-extent arithmetic of the byte model,
+    for its other readers."""
     from repro_torch.optim.sequences import PRIVATE
     comm = tuple(q.section for q in aspec.sequences if q.comm != PRIVATE)
     csecs = compression.sections or comm

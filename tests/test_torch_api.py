@@ -3,9 +3,12 @@
 parses; ``fedbioacc.json``, ``fedbio.json``, ``fedbio_local.json``,
 ``fedavg.json``, ``fedbioacc_int8_topk.json``, ``fedbioacc_local.json``,
 ``fedbioacc_straggler.json``, ``fedbioacc_faulty.json`` and
-``fedbioacc_telemetry.json`` build; the other committed spec (sharded) is
-refused with ``NotImplementedError`` naming the feature the port does not
-run yet (so is training through the model kernels); the edits that were
+``fedbioacc_telemetry.json`` build; the other committed spec (sharded)
+asks for nothing unported (it builds in a world of 8 ranks:
+``tests/test_torch_sharded_engine.py``), and its edit with in-band
+telemetry metrics is refused with ``NotImplementedError`` naming the
+feature the port does not run yet on a mesh (so is training through the
+model kernels); the edits that were
 refused until their slice ported them (the hierarchical schedule,
 per-sequence cadences, compression with participation or stragglers, the
 unfused tree path, rematerialization) build and step; and the entry
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.api import Experiment, build
-from repro_torch.api.build import resolve_device
+from repro_torch.api.build import resolve_device, unported_features
 from repro_torch.core.tree_util import tree_leaves
 
 torch.set_num_threads(1)
@@ -44,7 +47,8 @@ TELEMETRIED = {"fedbioacc_telemetry.json": ("norms", "drift")}
 # slice that ported the feature now runs it)
 REFUSED = {
     "fedbioacc_sharded_overlap.json": (
-        {}, ["execution.mesh", "execution.overlap"]),
+        {"telemetry.metrics": ["norms"]},
+        ["in-band telemetry metrics on execution.mesh"]),
     "fedbioacc_telemetry.json": ({"execution.remat": True}, None),
 }
 
@@ -103,11 +107,19 @@ def test_committed_specs_are_all_covered():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_features_are_refused_by_name(name):
-    """The sharded spec is refused naming its features.  The telemetry spec
-    with remat, refused until rematerialization was ported, takes a step
-    with its in-band metrics, bit for bit the step without remat."""
+    """The sharded spec, which the port now runs (outside a process group
+    ``build`` asks for its 8 ranks), is refused naming the feature with
+    in-band telemetry metrics, which the sharded substrate does not run
+    yet.  The telemetry spec with remat, refused until rematerialization
+    was ported, takes a step with its in-band metrics, bit for bit the
+    step without remat."""
     edits, features = REFUSED[name]
-    exp = Experiment.load(str(ROOT / "experiments" / name)).edit(**edits)
+    base = Experiment.load(str(ROOT / "experiments" / name))
+    if base.execution.mesh is not None:
+        assert unported_features(base.validate().normalize()) == []
+        with pytest.raises(RuntimeError, match="needs 8 devices"):
+            build(base, device="cpu")
+    exp = base.edit(**edits)
     if features is None:
         states = []
         for e in (edits, {k: False for k in edits}):
@@ -301,16 +313,20 @@ def test_sampled_spec_refuses_unported_features_by_item(edit, item):
 ])
 def test_compression_with_unported_features_is_refused_by_name(edit,
                                                                 feature):
-    """``fedbioacc_int8_topk.json`` quantizing only (8 clients): the mesh
-    stays refused (ROADMAP queue 1, 'Sharded substrate'); the grouped int8
-    mean (2 pods of 4) and the participation-weighted int8 mean, refused
-    until this slice, run a round."""
+    """``fedbioacc_int8_topk.json`` quantizing only (8 clients): the grouped
+    int8 mean (2 pods of 4) and the participation-weighted int8 mean run a
+    round; on a mesh, refused until the sharded substrate was ported, the
+    spec asks for nothing unported, and outside a process group ``build``
+    asks for the mesh's 2 ranks (the compressed means on a mesh run in
+    ``tests/test_torch_sharded_substrate.py`` and
+    ``tests/test_torch_sharded_engine.py``)."""
     exp = Experiment.load(str(ROOT / "experiments" / "fedbioacc_int8_topk.json"))
     exp = exp.edit(**{"compression.topk_frac": 0.0, **edit})
     if "execution.mesh" in edit:
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        assert feature == "execution.mesh" and exp.execution.mesh == (2, 1)
+        assert unported_features(exp.validate().normalize()) == []
+        with pytest.raises(RuntimeError, match="needs 2 devices"):
             build(exp, device="cpu")
-        assert feature in str(err.value)
         return
     run, entering, state, _ = _two_steps(exp)
     x, before = (_rows(run, s.vars, "x") for s in (state, entering))

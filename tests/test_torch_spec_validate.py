@@ -157,11 +157,19 @@ def test_committed_spec_validates_in_both(path):
 
 
 def test_known_but_unported_spec_validates_then_build_refuses():
-    # the sharded spec is the one committed spec the port still refuses
+    # the sharded spec validates and asks for nothing unported: outside a
+    # process group build asks for its 8 ranks; what the sharded substrate
+    # does not run yet (here stragglers) is refused naming its item
     exp = Experiment.load(str(ROOT / "experiments" / SHARDED))
     assert exp.validate() is exp
-    with pytest.raises(NotImplementedError) as err:
+    with pytest.raises(RuntimeError, match="needs 8 devices"):
         build(exp, device="cpu")
+    strag = Experiment.load(str(ROOT / "experiments" /
+                                "fedbioacc_straggler.json"))
+    with pytest.raises(NotImplementedError) as err:
+        build(strag.edit(**{"execution.mesh": [4, 2],
+                            "execution.fuse_storm": True}), device="cpu")
+    assert "stragglers on execution.mesh" in str(err.value)
     assert "ROADMAP queue 1, 'Sharded substrate'" in str(err.value)
 
 
