@@ -125,6 +125,19 @@ Phases, each of which stops the script with a non-zero exit on failure:
    clients, 2 steps): ``quantpack``/``quantunpack`` launched on every
    rank's block (the int8 wire between them), a finite loss.  Its step
    times include phase 4's load on the host;
+4c. the static verifier (``analysis_phase``), run right after phase 2,
+   alone on the card (its gloo ranks hung in the CUDA driver when started
+   beside phase 4's load): ``python -m repro_torch.analysis --all
+   experiments/ --lint src/repro_torch`` (a subprocess in a session of its
+   own)
+   must exit 0 with an OK line for each committed spec (one recorded step
+   each: the S2xx step traces, and on ranks the W1xx collective and wire
+   audits, the sharded spec's on its 8 gloo ranks on ``cuda:0`` with
+   ``storm3_step`` calls in its recorded step, the compressed spec's int8
+   wire probe on 2) and a clean lint; then ``fedbioacc_local.json`` at
+   mesh (1, 1) with an extra 7-element f32 all-reduce wrapped into its
+   step (``testing.seeded_all_reduce``), in a 1-rank child on the card,
+   must exit 1 with W101 alone;
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
    ``fedbioacc_local.json``, ``fedbioacc_straggler.json``,
@@ -215,7 +228,9 @@ Phases, each of which stops the script with a non-zero exit on failure:
    storm family and ``quantpack`` read 0); the same run stopped after its
    step-2 checkpoint (``--crash-at-step 2``, the hard exit caught) and
    resumed must end as the uninterrupted run, every line and every array
-   of the final checkpoint bit for bit; (c) ``fedbioacc.json`` at full
+   of the final checkpoint bit for bit; ``federation.evaluate.
+   eval_federated`` on the uninterrupted run's final state (loaded into a
+   fresh build) must give finite figures and a loss per client, timed; (c) ``fedbioacc.json`` at full
    width with ``n_micro`` 2 over 2 sequences a client, with remat and
    without (``MICRO_EDITS``), 2 steps each from the same state and
    batches: the step times (CUDA events) and peaks logged, the two runs'
@@ -299,8 +314,12 @@ Phases, each of which stops the script with a non-zero exit on failure:
    with ``use_flash`` over 4 clips of 1,500 frames (the attention once a
    layer at head dim 80), finite logits of the expected shape, timed, its
    logits beside the same forward with the plain attention;
-9. the paper's problems (``repro_torch.core``; the generator check and
-   (a) in a child process started in phase 4): the Threefry generator on
+9. the paper's problems (``repro_torch.core``; the generator check, (a)
+   and the examples ``repro_torch.examples.quickstart`` and
+   ``fair_federated_learning``, two subprocesses at once on the card that
+   must each exit 0 after its own checks, in a child process started in
+   phase 4):
+   the Threefry generator on
    the card against the CPU (keys, bits, integers, uniforms, permutations
    bit for bit, normals within 4 ulps); (a) two rounds of each of the
    eight algorithms (Algorithms 1-4 and the Table-1 baselines) on the
@@ -339,6 +358,7 @@ import math
 import multiprocessing
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -371,6 +391,7 @@ from repro_torch.examples import data_cleaning as cleaning_ex  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     hyper_representation as hyperrep_ex)
 from repro_torch.federation import trainer  # noqa: E402
+from repro_torch.federation.evaluate import eval_federated  # noqa: E402
 from repro_torch.federation.faults import (RollbackGuard,  # noqa: E402
                                            make_faults)
 from repro_torch.federation.stragglers import simulate_rounds  # noqa: E402
@@ -398,7 +419,7 @@ from repro_torch.telemetry.comm import comm_plan, round_bytes  # noqa: E402
 from repro_torch.testing import (BF16_FLOOR, BF16_ULPS,  # noqa: E402
                                  bf16_ulps, flash_attention_fault,
                                  int8_flips, isolated_greedy, leaf_topk_flips,
-                                 top2_margin, topk_flips)
+                                 seeded_all_reduce, top2_margin, topk_flips)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM, f32 outside the tensor cores
@@ -466,8 +487,8 @@ RESUME_AT = 2
 # the phase-5 paths keep Mamba-2-130M's published widths and cut its depth
 # to this many of its 24 layers, so that the script fits in its time (6
 # until phases 8b and 8c came; the communication schedule's two paths kept
-# 6 until phase 5b came; 3 until phase 4b came)
-MAIN_LAYERS = 2
+# 6 until phase 5b came; 3 until phase 4b came; 2 until phase 4c came)
+MAIN_LAYERS = 1
 # the telemetry paths: the train CLI evaluates at steps 1, 2 and 4; card and
 # CPU in-band metrics agree within this (relative)
 TEL_LOG_EVERY = 2
@@ -3061,6 +3082,7 @@ def tree_cli_path(dev) -> None:
                     for a, b in zip(mine, want)))
         with open(os.path.join(whole, "manifest.json")) as fh:
             state_kind = json.load(fh)["treedef"].split("[", 1)[1].split("]")[0]
+        ev, eval_s = _evaluate_tree_state(exp, whole, dev)
     val = [h["val_loss"] for h in full]
     log(f"tree path, fedbioacc.json with fuse_storm false at full width "
         f"({MAIN_LAYERS} layers, {exp.problem.num_clients} clients) "
@@ -3071,10 +3093,35 @@ def tree_cli_path(dev) -> None:
         f"checkpoint's {len(want)} arrays "
         f"{'bit for bit' if same else 'NOT'} the uninterrupted run's; "
         f"launches over the three runs {launches}, on {card_line()}")
+    m = exp.problem.num_clients
+    log(f"eval_federated on the uninterrupted run's final state ({m} "
+        f"clients, {eval_s:.3f} s): {ev}")
+    if not (len(ev["val_loss_per_client"]) == m and all(
+            math.isfinite(v) for k, v in ev.items() if k.endswith("_mean"))
+            and all(math.isfinite(v) for v in ev["val_loss_per_client"])):
+        raise SystemExit("eval_federated on the tree path's state failed")
     if not (same and state_kind == "FedBiOAccTrainState"
             and all(math.isfinite(v) for v in val)
             and not any(launches.values()) and len(step_ms) == 4):
         raise SystemExit("tree path through the train CLI failed")
+
+
+def _evaluate_tree_state(exp: Experiment, ckpt: str, dev) -> tuple:
+    """``federation.evaluate.eval_federated`` on the tree state saved in
+    ``ckpt``, loaded into a fresh build of ``exp`` on the card, on the
+    validation stream of the build's fixed evaluation seed; returns (its
+    metrics, its seconds between synchronizations)."""
+    from repro_torch.api.build import EVAL_SEED
+    run = build(exp, device=dev)
+    state = load_checkpoint(ckpt, run.init(torch.Generator(
+        device=dev).manual_seed(exp.schedule.seed)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = eval_federated(run.model, state, run.batch_fn,
+                        torch.Generator().manual_seed(EVAL_SEED),
+                        num_clients=exp.problem.num_clients)
+    torch.cuda.synchronize()
+    return ev, time.perf_counter() - t0
 
 
 def _micro_run(exp: Experiment, dev) -> tuple:
@@ -3150,6 +3197,127 @@ def tree_path_phase(dev) -> dict:
     log(f"phase 5b took {time.perf_counter() - t0:.1f} s ((a) "
         f"{t1 - t0:.1f} s)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the static verifier (repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_TIMEOUT = 600.0     # seconds its processes may take
+# beside phase 4 every core is taken: the examples' small host-side tensor
+# work gets one thread (idle intra-op threads spin), which halved their
+# time on the card (my chip runs, PR 29)
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+ANALYSIS_SEED_ELEMS = 7      # the seeded extra all-reduce's f32 elements
+
+
+def _start_session(args: list, env: dict | None = None) -> subprocess.Popen:
+    """Start ``python *args`` from the checkout in a session of its own (it
+    may spawn ranks), with ``env`` added to the environment."""
+    return subprocess.Popen(
+        [sys.executable, *args], cwd=ROOT, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, start_new_session=True,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+             "PYTHONFAULTHANDLER": "1", **(env or {})})
+
+
+def _run_session(args: list, timeout: float, env: dict | None = None,
+                 proc: subprocess.Popen | None = None
+                 ) -> subprocess.CompletedProcess:
+    """Wait for ``python *args`` (started here, or ``proc`` when given)
+    for ``timeout`` seconds, past which its session is killed whole."""
+    if proc is None:
+        proc = _start_session(args, env)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        # each Python process of the session prints its threads' stacks on
+        # SIGABRT (PYTHONFAULTHANDLER) before the session is killed
+        for sig in (signal.SIGABRT, signal.SIGKILL):
+            try:
+                os.killpg(proc.pid, sig)
+            except ProcessLookupError:
+                break
+            time.sleep(10)
+        out, err = proc.communicate()
+        raise SystemExit(f"{args} still running after {timeout} s:\n"
+                         f"{out[-3000:]}\n{err[-20000:]}")
+    return subprocess.CompletedProcess(args, proc.returncode, out, err)
+
+
+def _seeded_w101(store: str, out: str) -> None:
+    """A 1-rank world at mesh (1, 1) on the card: ``fedbioacc_local.json``
+    with one extra f32 all-reduce on the data group wrapped into its step
+    (``testing.seeded_all_reduce``); writes the collective audit's findings
+    to ``out`` and exits 1 when there are any, as the verifier's CLI
+    does."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import collectives as coll
+    from repro_torch.launch.mesh import init_ranks
+    torch.set_num_threads(1)
+    init_ranks(0, 1, store)
+    run = build(Experiment.load(os.path.join(
+        ROOT, "experiments", "fedbioacc_local.json")).edit(
+            **{"execution.mesh": (1, 1)}), device="cuda")
+    findings = coll.audit_step_collectives(
+        seeded_all_reduce(run, ANALYSIS_SEED_ELEMS))
+    with open(out, "w") as fh:
+        json.dump([list(f) for f in findings], fh)
+    dist.destroy_process_group()
+    sys.exit(1 if findings else 0)
+
+
+def analysis_phase() -> None:
+    """Phase 4c, right after phase 2, alone on the card: ``python -m
+    repro_torch.analysis --all experiments/ --lint src/repro_torch`` on the
+    card must exit 0 with an OK line for each committed spec, the sharded
+    spec's audited on its 8 gloo ranks on ``cuda:0`` with ``storm3_step``
+    calls in its recorded step; then the seeded variant must exit 1 with
+    W101 alone."""
+    t0 = time.perf_counter()
+    specs = sorted(f for f in os.listdir(os.path.join(ROOT, "experiments"))
+                   if f.endswith(".json"))
+    out = _run_session(["-m", "repro_torch.analysis", "--all",
+                        "experiments/", "--lint", "src/repro_torch"],
+                       ANALYSIS_TIMEOUT)
+    lines = out.stdout.splitlines()
+    ok = [ln for ln in lines if ln.startswith("OK experiments/")]
+    sharded = [ln for ln in ok if "fedbioacc_sharded_overlap" in ln]
+    for ln in lines:
+        log(f"analysis: {ln}")
+    if (out.returncode != 0 or len(ok) != len(specs)
+            or "lint src/repro_torch: OK" not in lines
+            or not sharded or "storm3_step=" not in sharded[0]):
+        raise SystemExit(f"phase 4c: the verifier exited {out.returncode} "
+                         f"with {len(ok)} OK lines of {len(specs)} specs:\n"
+                         f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    found = os.path.join(tmp, "findings.json")
+    child = multiprocessing.get_context("spawn").Process(
+        target=_seeded_w101, args=(os.path.join(tmp, "store"), found))
+    child.start()
+    child.join(ANALYSIS_TIMEOUT)
+    if child.exitcode is None:
+        child.kill()
+        child.join()
+    findings = []
+    if os.path.isfile(found):
+        with open(found) as fh:
+            findings = json.load(fh)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"analysis: the seeded variant (fedbioacc_local at (1, 1), an extra "
+        f"{ANALYSIS_SEED_ELEMS}-element f32 all_reduce on the data group) "
+        f"exited {child.exitcode}: {findings}")
+    if child.exitcode != 1 or {f[0] for f in findings} != {"W101"}:
+        raise SystemExit("phase 4c: the seeded variant did not exit 1 with "
+                         "W101 alone")
+    log(f"phase 4c (the verifier on the card) took "
+        f"{time.perf_counter() - t0:.1f} s, alone after phase 2: the CLI "
+        f"over "
+        f"{len(specs)} specs {t1 - t0:.1f} s, the seeded variant "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4355,6 +4523,20 @@ def paper_checks() -> float:
     dev = torch.device("cuda", 0)
     random_cross_check(dev)
     paper_cross_check(dev)
+    # both examples at once, each a process of its own on the card
+    t1 = time.perf_counter()
+    started = {name: _start_session(["-m", f"repro_torch.examples.{name}"],
+                                    ONE_THREAD)
+               for name in ("quickstart", "fair_federated_learning")}
+    for name, proc in started.items():
+        out = _run_session(proc.args, 600.0, proc=proc)
+        log(f"example {name} on the card (both done "
+            f"{time.perf_counter() - t1:.1f} s after their start): exit "
+            f"{out.returncode}; " + " | ".join(
+                out.stdout.strip().splitlines()[-4:]))
+        if out.returncode != 0:
+            raise SystemExit(f"example {name} exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
     return time.perf_counter() - t0
 
 
@@ -4402,6 +4584,10 @@ def main() -> None:
         log_path = lib.with_suffix(".log")
         if log_path.is_file():
             log(log_path.read_text().strip())
+    # phase 4c runs here, alone: started beside phase 4's load, the
+    # verifier's gloo ranks hung in the CUDA driver in four of eight runs
+    # (not one stack to dump; my chip runs, PR 29), and never alone
+    analysis_phase()
 
     bases = {name: Experiment.load(os.path.join(ROOT, "experiments",
                                                 f"{name}.json"))

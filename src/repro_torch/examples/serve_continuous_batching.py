@@ -40,10 +40,10 @@ def main(argv=None) -> dict:
     key = jr.PRNGKey(0)
     prompts = [jr.randint(jr.fold_in(key, i), (8 + 4 * i,), 0,
                           cfg.vocab_size) for i in range(len(BUDGETS))]
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # analysis: ignore[L301] driver timing
     rids = [engine.submit(p, n) for p, n in zip(prompts, BUDGETS)]
     results = engine.run_to_completion()
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0  # analysis: ignore[L301] driver timing
     total = sum(len(v) for v in results.values())
     print(f"served {len(results)} requests / {total} tokens through {SLOTS} "
           f"slots in {dt:.2f}s on {dev}")

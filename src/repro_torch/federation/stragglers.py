@@ -159,7 +159,7 @@ def make_stragglers(spec: StragglerSpec | None,
         cands = deadline * ladder
         ok = (t_eff[None, :] <= cands[:, None]).sum(dim=1) >= q
         if bool(ok.any()):
-            first = int(torch.argmax(ok.to(torch.int32)))
+            first = int(torch.argmax(ok.to(torch.int32)))  # analysis: ignore[L303] host decision
             eff, ext = cands[first], first
         else:
             eff, ext = sorted_t[max(q - 1, 0)], n_rungs
@@ -220,7 +220,7 @@ def simulate_rounds(strag: Stragglers, part, num_rounds: int) -> list:
             sampled = torch.ones(M, dtype=torch.float32)
         arrivals, eff, ext, next_dl = strag.round_decision(r, sampled, dl)
         t = strag.round_times(r)
-        slow = float(torch.max(torch.where(sampled > 0, t, -torch.inf)))
+        slow = float(torch.max(torch.where(sampled > 0, t, -torch.inf)))  # analysis: ignore[L303] reporting
         eff_f = float(eff)
         active = r >= strag.spec.start_round
         rows.append({
@@ -228,8 +228,8 @@ def simulate_rounds(strag: Stragglers, part, num_rounds: int) -> list:
             "deadline": round(eff_f, 6),
             "wall_clock": round(min(eff_f, slow) if active else slow, 6),
             "wait_for_slowest": round(slow, 6),
-            "arrivals": int(torch.sum(arrivals > 0)),
-            "sampled": int(torch.sum(sampled > 0)),
+            "arrivals": int(torch.sum(arrivals > 0)),  # analysis: ignore[L303] reporting
+            "sampled": int(torch.sum(sampled > 0)),  # analysis: ignore[L303] reporting
             "quorum": int(strag.quorum_count(sampled)),
             "extensions": int(ext),
         })

@@ -452,6 +452,8 @@ def _make_flat_pair(cfg: FederatedConfig, aspec, templates, voracle,
         fn.telemetry = telemetry
         fn.telemetry_groups = engine.step.telemetry_groups
         fn.shard = shard
+        fn.compression = compression
+        fn.comm_fn = engine.comm_fn
     return init, train_step
 
 

@@ -104,7 +104,7 @@ def _launch(name, p, streams, tables, block: int, n_out: int):
     fn = getattr(_lib(), name)
     stream = torch.cuda.current_stream(p.device).cuda_stream
     with torch.cuda.device(p.device):
-        err = fn(int(p.dtype == torch.bfloat16),
+        err = fn(int(p.dtype == torch.bfloat16),  # analysis: ignore[L303] dtype flag
                  *[t.data_ptr() for t in (p, *streams, *tables, *outs)],
                  p.numel(), block, stream)
     if err != 0:
@@ -180,11 +180,11 @@ def storm_update_flat(p, m, g_new, g_old, lr, decay):
     p_out, m_out = torch.empty_like(p), torch.empty_like(m)
     if p.numel() == 0:
         return p_out, m_out
-    lr32, decay32 = (float(torch.tensor(float(x), dtype=torch.float32))
+    lr32, decay32 = (float(torch.tensor(float(x), dtype=torch.float32))  # analysis: ignore[L303] host scalar
                      for x in (lr, decay))
     with torch.cuda.device(dev):
         err = _lib().storm_update(
-            int(p.dtype == torch.bfloat16), int(m.dtype == torch.bfloat16),
+            int(p.dtype == torch.bfloat16), int(m.dtype == torch.bfloat16),  # analysis: ignore[L303] dtype flags
             *(t.data_ptr() for t in tensors), lr32, decay32,
             p_out.data_ptr(), m_out.data_ptr(), p.numel(),
             torch.cuda.current_stream(dev).cuda_stream)

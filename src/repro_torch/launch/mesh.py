@@ -14,14 +14,17 @@ along the data axis.
 One H100 holds one NCCL rank, so the ranks of a mesh on one card share
 ``cuda:0`` and talk through gloo, which takes CUDA tensors (it copies them
 through the host).  :func:`init_ranks` sets up such a world from a
-``FileStore``.
+``FileStore``; :func:`spawn_ranks` starts one from outside a process group.
 """
 from __future__ import annotations
 
+import multiprocessing.connection
 import os
+import time
 import warnings
 
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 class Mesh:
     """A ``[data, model]`` grid of the world's ranks: ``shape`` (axis →
@@ -50,6 +53,19 @@ class Mesh:
 
     def group(self, axis: str):
         return self._groups[axis]
+
+    def axes_of(self, group) -> tuple:
+        """``(axes, grouped)`` of a group this rank holds, as a collective
+        names its axis: its model column ``(("data",), False)``, its data
+        row ``(("model",), False)``, a pod ``(("data",), True)``; any other
+        group (``None``: the world) spans ``("data", "model")``."""
+        if group is self._groups["data"]:
+            return ("data",), False
+        if group is self._groups["model"]:
+            return ("model",), False
+        if any(group is g for g in self._pods.values()):
+            return ("data",), True
+        return ("data", "model"), False
 
     def pod_group(self, num_groups: int):
         """This rank's pod: the ranks of its model column whose data index
@@ -84,6 +100,43 @@ def init_ranks(rank: int, world: int, store_path: str) -> None:
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
+
+
+def spawn_ranks(target, world: int, store: str, args: tuple = (), *,
+                timeout: float | None = None) -> int:
+    """Run ``target(rank, world, store, *args)`` in ``world`` spawned
+    processes (each joins with :func:`init_ranks`) and wait for them.
+    Returns 0 when every rank exits 0, else the exit code of the first rank
+    seen to fail (1 for a signal); the other ranks are then stopped
+    (terminated, killed after 30 s).  Past ``timeout`` seconds the ranks
+    are stopped alike and ``TimeoutError`` is raised."""
+    deadline = None if timeout is None else time.monotonic() + timeout  # analysis: ignore[L301] join timeout
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, store, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    rc = 0
+    try:
+        while not rc and any(p.exitcode is None for p in procs):
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))  # analysis: ignore[L301] join timeout
+            if not multiprocessing.connection.wait(
+                    [p.sentinel for p in procs if p.exitcode is None], left):
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout} s")
+            for p in procs:
+                if p.exitcode not in (None, 0) and not rc:
+                    rc = p.exitcode if p.exitcode > 0 else 1
+    finally:
+        for p in procs:
+            if p.exitcode is None:
+                p.terminate()
+            p.join(30)
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+    return rc
 
 
 def _world() -> int:

@@ -204,7 +204,7 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16) -> Model:
 
 
 def _to_torch(a, device) -> torch.Tensor:
-    a = np.array(a)          # a writable, contiguous copy
+    a = np.array(a)  # analysis: ignore[L303] host array; a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         # numpy's bfloat16 (ml_dtypes) is not a dtype torch.from_numpy takes:
         # carry the bits as int16 and reinterpret them

@@ -330,6 +330,12 @@ class Engine(NamedTuple):
     clients' rows of the batch, and ``views`` reads a whole state
     (``sharding.rules.gather_state``).
 
+    ``comm_fn(state) -> state`` is the communication-only subprogram of
+    ``step``: the round context and the policy reductions (variables, then
+    momenta) on copies of the state's buffers, with no oracle and no fused
+    launch.  Training never calls it; ``repro_torch.analysis`` records its
+    collectives alone (the wire audit).
+
     Given a ``metrics`` dict, ``step`` writes into it.  Its round's
     decision goes under ``metrics["decision"]`` (a dict, present only
     with stragglers or faults): with stragglers ``arrivals`` ([M] f32 host
@@ -350,6 +356,7 @@ class Engine(NamedTuple):
     step: Any
     views: Any
     shard: Any = None
+    comm_fn: Any = None
 
 
 def _compress_cfg(cfg, aspec: AlgoSpec, compression):
@@ -883,4 +890,21 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         mt = flat.unflatten_tree(spec, state.mom)
         return vt, {q.momentum: mt[q.section] for q in aspec.sequences}
 
-    return Engine(aspec, spec, init_state, step, views, shard)
+    def comm_fn(state: FlatState) -> FlatState:
+        """The communication-only subprogram of one step: the reductions
+        of ``_storm_step``/``_sgd_step`` (the variables, then the momenta
+        when the spec carries them) under the same ``_round_ctx``, on
+        copies of the state's buffers."""
+        t = state.step
+        _, wts, corrupt, _, _ = _round_ctx(state, None)
+        efv, efm = state.ef if state.ef else ((), ())
+        vars_c, efv = comm(t, tuple(b.clone() for b in state.vars), efv,
+                           wts, corrupt)
+        mom_c = state.mom
+        if has_mom:
+            mom_c, efm = comm(t, tuple(b.clone() for b in state.mom), efm,
+                              wts, corrupt)
+        return state._replace(vars=vars_c, mom=mom_c,
+                              ef=(efv, efm) if state.ef else ())
+
+    return Engine(aspec, spec, init_state, step, views, shard, comm_fn)

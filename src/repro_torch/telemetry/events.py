@@ -96,7 +96,7 @@ class EventLog:
             raise TelemetryError(f"event {event!r} missing required keys "
                                  f"{missing}")
         rec = {"event": event, "seq": self._seq,
-               "ts": round(time.time(), 3), **fields}
+               "ts": round(time.time(), 3), **fields}  # analysis: ignore[L301] event timestamp
         self._seq += 1
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()

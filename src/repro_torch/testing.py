@@ -8,8 +8,10 @@ a limit in bf16 ulps that the exact kernel meets and a kernel that rounds
 p to bf16 or skips a key tile does not, and plain versions of those two
 faults to show it.  For serving, a request's isolated greedy decoding and
 the top-2 margin of a greedy choice, against which a continuous-batching
-engine's tokens are held.  Imports neither JAX nor the JAX package, so the
-card's machine can run it."""
+engine's tokens are held.  For the static verifier, a run whose step
+smuggles one extra collective in, which its collective audit must flag.
+Imports neither JAX nor the JAX package, so the card's machine can run
+it."""
 import math
 
 import numpy as np
@@ -191,3 +193,19 @@ def top2_margin(logits) -> float:
     """The largest logit less the second largest."""
     top = torch.topk(logits.float(), 2).values
     return float(top[0] - top[1])
+
+
+def seeded_all_reduce(run, elems: int):
+    """``run`` whose step first all-reduces ``elems`` f32 zeros over the
+    data group of its mesh: a collective the comm plan does not hold, which
+    ``repro_torch.analysis.collectives.audit_step_collectives`` must flag
+    (W101, or W102 when ``elems`` is a private run's length)."""
+    import torch.distributed as dist
+
+    def bad_step(state, batch):
+        dist.all_reduce(torch.zeros(elems, device=run.device),
+                        group=run.shard.data_group)
+        return run.step(state, batch)
+
+    bad_step.__dict__.update(run.step.__dict__)
+    return run._replace(step=bad_step)
