@@ -138,6 +138,22 @@ Phases, each of which stops the script with a non-zero exit on failure:
    mesh (1, 1) with an extra 7-element f32 all-reduce wrapped into its
    step (``testing.seeded_all_reduce``), in a 1-rank child on the card,
    must exit 1 with W101 alone;
+4d. the dry run (``launch/dryrun.py``), which allocates nothing on the
+   card and times nothing, in two children beside phases 5-9: (a)
+   ``--experiment`` on the ten committed specs on CUDA fakes (the sharded
+   one on rank 0 of a fake group of 8; ``dryrun_specs``); (b) the
+   full-width ``fedbioacc.json`` (``MAIN_LAYERS`` layers) traced, and run
+   once for real after phase 5 (``dryrun_path``): FLOPs equal
+   (``FlopCounterMode`` over the real step plus the launched kernels'
+   ``work``), argument bytes equal, the predicted peak within
+   ``PEAK_TOL`` of the real step's ``max_memory_allocated()`` increase;
+   (c) mamba2-130m's ``prefill_32k`` and ``decode_32k`` and llama3-405b's
+   ``train_4k`` (``DRYRUN_TRAIN``) at full width and ``MAIN_LAYERS``
+   layers; (d) phase 4b's full-width spec traced on a fake group of 8,
+   whose collectives must be the multiset 4b's rank 0 recorded at the same
+   step (round 1's communication step of its run (b)), and
+   ``--fused-mesh 4,2`` of mamba2-130m's ``train_4k``; no trace may move
+   ``torch.cuda.memory_allocated()`` (``dryrun_checks``);
 5. the paths: ``experiments/fedbioacc.json``, ``fedbio.json``,
    ``fedbio_local.json``, ``fedavg.json``, ``fedbioacc_int8_topk.json``,
    ``fedbioacc_local.json``, ``fedbioacc_straggler.json``,
@@ -405,6 +421,7 @@ from repro_torch.kernels.storm import kernel as storm  # noqa: E402
 from repro_torch.kernels.storm import storm_update  # noqa: E402
 from repro_torch.kernels.storm import quantpack as qp  # noqa: E402
 from repro_torch.kernels.storm import ref as storm_ref  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import metrics as tel_metrics  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -499,7 +516,7 @@ METRIC_PASSES = ("section_norms", "section_drift", "quant_roundtrip_err",
 KERNEL_RUNS, PLAIN_RUNS = 30, 10
 # the serving path: full-width RecurrentGemma-9B prefill and greedy decode
 SERVE_ARCH = "recurrentgemma-9b"
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 16
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4096, 8
 # its 26 rec layers scan once each and its 12 local layers attend once
 # each, all in the prefill; decode runs neither kernel
 SERVE_LAUNCHES = {"lru_scan": 26, "flash_attention": 12, "storm_update": 0}
@@ -530,7 +547,7 @@ ENGINE_ARCHS = ("granite-8b", "mamba2-130m", "recurrentgemma-9b",
 # chat-style traffic at full width: mixed prompts into a fixed pool of
 # decode slots
 ENGINE_PROMPTS = (200, 517, 777, 1031, 1300, 1555, 2047, 1800)
-ENGINE_BUDGETS = (16, 48, 24, 40, 32, 20, 44, 28)
+ENGINE_BUDGETS = (8, 24, 12, 20, 16, 10, 22, 14)
 ENGINE_SLOTS = 4
 # an engine's logits against the isolated decode's at a compared step
 # (the same inputs at another batch size), relative to the largest logit
@@ -546,7 +563,7 @@ BATCHED = {"gemma2-2b": (2, 4096, 16), "olmoe-1b-7b": (4, 4096, 16),
 # card and whose step does not run out of memory taken: gemma2-2b halved
 # from its 26 layers, recurrentgemma-9b in whole (rec, rec, local) units,
 # internvl2-76b at one layer
-FAMILY_STEPS = 2
+FAMILY_STEPS = 1
 TRAIN_DEPTHS = (("granite-moe-1b-a400m", (None,)),
                 ("hubert-xlarge", (None,)),
                 ("gemma2-2b", (None, 13, 6, 3, 1)),
@@ -648,7 +665,7 @@ def _depth(layers: int):
     ``layers`` layers."""
     from repro_torch import configs
     orig = configs.get_config
-    homes = (configs, serve)
+    homes = (configs, serve, dryrun)
 
     def cut(name):
         return dataclasses.replace(orig(name), num_layers=layers)
@@ -682,7 +699,6 @@ class Kernel(NamedTuple):
     wrapper: Callable
     plain: Callable
     inputs: Callable   # (n, tiles, grp, gen, dev) -> the call's tensors
-    ops: int           # f32 operations per element
     replaces: str      # the TPU kernel
     path: str          # the path whose buffers it is held and timed at
     source: str = "src/repro_torch/kernels/csrc/storm3.cu"
@@ -717,40 +733,49 @@ def _unpack_inputs(n, tiles, grp, gen, dev):
 
 KERNELS = {
     "storm3_step": Kernel(
-        storm.storm3_step, storm_ref.storm3_step_ref, _update_inputs(2, 2), 4,
+        storm.storm3_step, storm_ref.storm3_step_ref, _update_inputs(2, 2),
         "src/repro/kernels/storm/kernel.py:153", "fedbioacc",
         no_library="two outputs (p - lr*m and decay*(m - g_old)) from "
         "per-tile lr and decay tables: no single PyTorch call returns both"),
     "storm3_update": Kernel(
         storm.storm3_update, storm_ref.storm3_update_ref,
-        _update_inputs(3, 2), 5, "src/repro/kernels/storm/kernel.py:127",
+        _update_inputs(3, 2), "src/repro/kernels/storm/kernel.py:127",
         "fedbioacc",
         no_library="two outputs (p - lr*m and g_new + decay*(m - g_old)) "
         "from per-tile tables: no single PyTorch call returns both"),
     "sgd3_step": Kernel(
-        storm.sgd3_step, storm_ref.sgd3_step_ref, _update_inputs(1, 1), 2,
+        storm.sgd3_step, storm_ref.sgd3_step_ref, _update_inputs(1, 1),
         "src/repro/kernels/storm/kernel.py:206", "fedbio",
         library=lambda p, g, lrs, block: torch.addcmul(
             p.view(-1, block), lrs.view(-1, 1), g.view(-1, block), value=-1,
             out=torch.empty_like(p).view(-1, block))),
     "momsgd3_step": Kernel(
         storm.momsgd3_step, storm_ref.momsgd3_step_ref, _update_inputs(2, 2),
-        4, "src/repro/kernels/storm/kernel.py:228", "fedavg",
+        "src/repro/kernels/storm/kernel.py:228", "fedavg",
         no_library="two outputs, the second from the first (m' = beta*m + "
         "g, then p - lr*m'): no single PyTorch call returns both"),
     "quantpack": Kernel(
-        qp.quantpack_flat, storm_ref.quantpack_ref, _pack_inputs, 6,
+        qp.quantpack_flat, storm_ref.quantpack_ref, _pack_inputs,
         "src/repro/kernels/storm/quantpack.py:50", COMPRESSED,
         "src/repro_torch/kernels/csrc/quantpack.cu",
         no_library="no single PyTorch call takes per-tile absmax scales and "
         "quantizes"),
     "quantunpack": Kernel(
-        qp.quantunpack_flat, storm_ref.quantunpack_ref, _unpack_inputs, 1,
+        qp.quantunpack_flat, storm_ref.quantunpack_ref, _unpack_inputs,
         "src/repro/kernels/storm/quantpack.py:68", COMPRESSED,
         "src/repro_torch/kernels/csrc/quantpack.cu",
         library=lambda q, s, block: torch.mul(q.view(-1, block),
                                               s.view(-1, 1))),
 }
+
+
+def kernel_work(name: str, n: int, grp):
+    """One launch's work over ``n`` elements of a flat group: the kernel's
+    own ``work`` function (the bytes its inputs and outputs take, its
+    operations), which the dry run adds up too."""
+    if name in ("quantpack", "quantunpack"):
+        return qp.work(name, n, grp.block)
+    return storm.work(name, n, grp.dtype, block=grp.block)
 
 
 def kernel_phase(groups_of: dict, dev) -> dict:
@@ -779,7 +804,8 @@ def kernel_phase(groups_of: dict, dev) -> dict:
                                      f"version on the {grp.dtype} buffer")
                 max_err = max(max_err, float((o.double() - w.double())
                                              .abs().max()))
-            moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+            work = kernel_work(name, n, grp)
+            moved = work.bytes
             probe = ""
             if name == "quantpack":
                 x, (q, s) = args[0], out
@@ -814,7 +840,8 @@ def kernel_phase(groups_of: dict, dev) -> dict:
                                 KERNEL_RUNS)
                 lib_ms += l_ms
                 lib = f", library {l_ms:.4f} ms (bitwise equal)"
-            bound = max(moved / HBM_BYTES_PER_S, k.ops * n / F32_FLOPS_PER_S) * 1e3
+            bound = max(moved / HBM_BYTES_PER_S,
+                        work.flops / F32_FLOPS_PER_S) * 1e3
             log(f"{name} {str(grp.dtype).replace('torch.', '')} group "
                 f"[{CLIENTS}, {grp.padded}] ({k.path} path): bitwise equal, "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, {moved} B, "
@@ -823,7 +850,7 @@ def kernel_phase(groups_of: dict, dev) -> dict:
             ms += k_ms
             plain_ms += p_ms
             bound_bytes += moved
-            flops += k.ops * n
+            flops += work.flops
             del args
             torch.cuda.empty_cache()
         bytes_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
@@ -1133,8 +1160,9 @@ def storm_update_phase(dev) -> dict:
         groups.setdefault((p.dtype, m.dtype), []).append((p, m, gn, go))
     bufs = [tuple(torch.cat([leaf[i].reshape(-1) for leaf in grp])
                   for i in range(4)) for grp in groups.values()]
-    moved = sum(t.numel() * t.element_size() for b in bufs
-                for t in (*b, b[0], b[1]))
+    works = [storm.work("storm_update", b[0].numel(), b[0].dtype,
+                        m_dtype=b[1].dtype) for b in bufs]
+    moved = sum(w.bytes for w in works)
     group_ms = [timed_ms(lambda b=b: storm.storm_update_flat(
         *b, TREE_LR, TREE_DECAY), KERNEL_RUNS) for b in bufs]
     k_ms = sum(group_ms)
@@ -1142,13 +1170,13 @@ def storm_update_phase(dev) -> dict:
         *b, TREE_LR, TREE_DECAY), PLAIN_RUNS) for b in bufs)
     w_ms = timed_ms(lambda: storm_update(params, mom, g_new, g_old, TREE_LR,
                                          TREE_DECAY), KERNEL_RUNS)
-    n = sum(b[0].numel() for b in bufs)
     sizes = [(str(p).replace("torch.", ""), str(m).replace("torch.", ""),
               sum(leaf[0].numel() for leaf in grp))
              for (p, m), grp in groups.items()]
     entry = _entry("storm_update", "src/repro_torch/kernels/csrc/storm3.cu",
                    "src/repro/kernels/storm/kernel.py:76", max(errs), k_ms,
-                   p_ms, moved, 5 * n / F32_FLOPS_PER_S * 1e3, None)
+                   p_ms, moved,
+                   sum(w.flops for w in works) / F32_FLOPS_PER_S * 1e3, None)
     entry["launches"] = launches["storm_update"]
     log(f"storm_update over {TREE_ARCH} ({count} parameters in "
         f"{len(leaves)} leaves; groups (p, m, elements) {sizes}), f32 and "
@@ -2632,6 +2660,36 @@ def _sharded_specs(tmp: str) -> dict:
 
 
 @contextlib.contextmanager
+def _recorded_comm_step(entries: list):
+    """``train_cli.build`` whose runs record the collectives of their first
+    communication step on this rank (the reference's entries, as
+    ``[entry, count]`` rows into ``entries``)."""
+    from repro_torch.analysis.collectives import record_collectives
+    orig = train_cli.build
+
+    def recording_build(exp, **kw):
+        run = orig(exp, **kw)
+        inner = run.step
+
+        def step(state, batch):
+            if entries or state.step != run.spec.schedule.local_steps - 1:
+                return inner(state, batch)
+            with record_collectives(run.shard.mesh) as rec:
+                out = inner(state, batch)
+            entries.extend(_entries_json(rec.counter()))
+            return out
+
+        step.__dict__.update(inner.__dict__)
+        return run._replace(step=step)
+
+    train_cli.build = recording_build
+    try:
+        yield
+    finally:
+        train_cli.build = orig
+
+
+@contextlib.contextmanager
 def _timed_steps(times: list):
     """``train_cli.build`` whose runs time each step on the host, between
     two synchronizations of the card (milliseconds into ``times``)."""
@@ -2756,8 +2814,9 @@ def _sharded_rank(rank: int, world: int, store: str, tmp: str) -> None:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         b_dir, b2_dir = (os.path.join(tmp, d) for d in ("b", "b-step2"))
-        out["b_steps_ms"], out["b_comm"] = [], []
+        out["b_steps_ms"], out["b_comm"], out["b_entries"] = [], [], []
         with _timed_steps(out["b_steps_ms"]), _timed_comm(out["b_comm"]), \
+                _recorded_comm_step(out["b_entries"]), \
                 _keep_checkpoint(2, b_dir, b2_dir):
             out["b"] = train_cli.main([
                 "--experiment", specs["b"], "--device", "cuda",
@@ -2846,7 +2905,8 @@ def _stop_ranks(procs: list) -> list:
 def sharded_phase(started: tuple) -> dict:
     """Join phase 4b's ranks and check what they wrote (see the module
     docstring); returns the launches of (b)'s and (c)'s runs, summed over
-    the ranks."""
+    the ranks, and the collectives rank 0 recorded at (b)'s round-1
+    communication step."""
     procs, tmp, t0 = started
     for p in procs:
         p.join(max(1.0, t0 + SHARDED_TIMEOUT - time.perf_counter()))
@@ -2954,7 +3014,7 @@ def sharded_phase(started: tuple) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s from its start "
         f"(beside phase 4)")
-    return {k: got[k] + c_got[k] for k in got}
+    return {k: got[k] + c_got[k] for k in got}, r0["b_entries"]
 
 
 # ---------------------------------------------------------------------------
@@ -3321,6 +3381,208 @@ def analysis_phase() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "mamba2-130m"
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k")
+# the grid's train kind: llama3-405b's deployment (2 clients, FedBiO, 16
+# microbatches) traces in a fraction of mamba2-130m's (16 clients,
+# FedBiOAcc, 4 microbatches: 394.3 s at 1 layer on the H100's host), as
+# the tree path loops over clients and microbatches on the host
+DRYRUN_TRAIN = ("llama3-405b", "train_4k")
+PEAK_TOL = 0.10              # predicted peak against the real step's
+SPECS = ("fedbioacc", "fedbio", "fedbio_local", "fedavg", COMPRESSED,
+         SAMPLED, STRAGGLED, FAULTY, TELEMETRY, SHARDED)
+
+
+def _entries_json(counter) -> list:
+    return [[list(e), k] for e, k in sorted(counter.items())]
+
+
+def _entries(rows: list) -> dict:
+    return {(e[0], tuple(e[1]), e[2], e[3], e[4]): k for e, k in rows}
+
+
+def _brief(rec: dict) -> str:
+    """A dry-run record on one line: what it sized and what it cost."""
+    keep = ("status", "kind", "trace_s", "trace_ops", "kernels", "memory",
+            "cost", "per_device_argument_bytes", "mesh", "n_micro",
+            "remat_layers", "compression_check")
+    out = {k: rec[k] for k in keep if k in rec}
+    coll = rec.get("collectives")
+    if coll:
+        out["collectives"] = {"total_bytes": coll["total_bytes"],
+                              "counts": {k: v for k, v in
+                                         coll["counts"].items() if v},
+                              "bytes_by_dtype": coll["bytes_by_dtype"]}
+    return json.dumps(out)
+
+
+def _fedbioacc_full() -> Experiment:
+    return full_width_experiment(Experiment.load(os.path.join(
+        ROOT, "experiments", "fedbioacc.json")))
+
+
+def _grid_one(arch: str, shape: str, **kw) -> None:
+    rec = dryrun.run_one(arch, shape, device="cuda", **kw)
+    if rec["status"] != "OK":
+        raise SystemExit(f"dry run of {arch} × {shape} {kw}: {rec}")
+    log(f"dry run (c) {arch} × {shape}{' ' + str(kw) if kw else ''} at "
+        f"{MAIN_LAYERS} layer(s): {_brief(rec)}")
+
+
+def dryrun_specs() -> float:
+    """Phase 4d (a), in a child process of its own beside phases 5–9 (it
+    allocates nothing on the card): the ten committed specs on CUDA fakes
+    (the sharded one on rank 0 of a fake group of 8).  Returns the
+    seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    held = torch.cuda.memory_allocated()
+    for name in SPECS:
+        path = os.path.join(ROOT, "experiments", f"{name}.json")
+        rec = dryrun.run_experiment(path, device="cuda")
+        if rec["status"] != "OK":
+            raise SystemExit(f"dry run of {name}: {rec}")
+        if name == SHARDED and rec.get("mesh") != dict(zip(
+                ("data", "model"), SHARDED_MESH)):
+            raise SystemExit(f"dry run of {name} on no fake mesh: {rec}")
+        if name == COMPRESSED and rec["compression_check"] != \
+                "unsharded: no collectives to audit":
+            raise SystemExit(f"dry run of {name}: {rec['compression_check']}")
+        log(f"dry run (a) {name}: {_brief(rec)}")
+    if torch.cuda.memory_allocated() != held:
+        raise SystemExit(f"the dry runs allocated on the card: "
+                         f"{torch.cuda.memory_allocated() - held} B")
+    return time.perf_counter() - t0
+
+
+def dryrun_checks() -> dict:
+    """Phase 4d's other traces, in a second child beside phases 5–9: (b)'s
+    trace of the full-width ``fedbioacc.json``; (c) the grid arch's
+    prefill and decode and ``DRYRUN_TRAIN``; (d) the full-width sharded
+    spec phase 4b ran, on a fake group of 8, and the fused mesh ``4,2`` of
+    the grid arch.  Checks that no trace allocated on the card; returns
+    (b)'s record, (d)'s collectives and the seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.init()
+    held = torch.cuda.memory_allocated()
+    sharded_spec = _sharded_specs(tempfile.mkdtemp(
+        prefix="chip_smoke_dryrun_"))["b"]
+    with _depth(MAIN_LAYERS):
+        full, _ = dryrun.trace_experiment(_fedbioacc_full(), "cuda")
+        full = {k: full[k] for k in ("memory", "cost", "kernels")}
+        log(f"dry run (b) fedbioacc at full width, {MAIN_LAYERS} layer(s), "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(full)}")
+        for shape in DRYRUN_SHAPES:
+            _grid_one(DRYRUN_ARCH, shape)
+        out, _ = dryrun.trace_experiment(Experiment.load(sharded_spec),
+                                         "cuda")
+        log(f"dry run (d) {SHARDED} at full width on a fake group of 8: "
+            f"{_brief(out)}")
+        _grid_one(DRYRUN_ARCH, "train_4k", fused_mesh=SHARDED_MESH)
+        _grid_one(*DRYRUN_TRAIN)
+    if torch.cuda.memory_allocated() != held:
+        raise SystemExit(f"the dry runs allocated on the card: "
+                         f"{torch.cuda.memory_allocated() - held} B")
+    return {"full": full, "entries": _entries_json(out["_entries"]),
+            "s": time.perf_counter() - t0}
+
+
+def _device_bytes(tree) -> int:
+    """The bytes of the distinct card storages in ``tree``."""
+    seen = {}
+    for t in dryrun._tensors(tree):
+        if t.is_cuda:
+            seen[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def dryrun_path(dev) -> tuple:
+    """Phase 4d (b)'s real side: the step the second child traces
+    (``fedbioacc.json`` at full width, ``MAIN_LAYERS`` layers) run once
+    on the card.  Returns its launches and what :func:`dryrun_compare`
+    holds the trace to: ``FlopCounterMode`` over the step plus the
+    launched kernels' work, the state's and batch's storages on the card,
+    the outputs', and the step's ``max_memory_allocated()`` increase."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with _depth(MAIN_LAYERS):
+        run = build(_fedbioacc_full(), device=dev)
+        state = run.init(torch.Generator(device=dev).manual_seed(0))
+        state = state._replace(step=run.spec.schedule.local_steps - 1)
+        batch = run.place_batch(run.batch_fn(
+            torch.Generator().manual_seed(0)))
+        args = _device_bytes((state, batch))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            new, _ = run.step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = launch_counts()
+        m = run.spec.problem.num_clients
+        kernel_flops = sum(storm.work("storm3_step", m * g.padded, g.dtype,
+                                      block=g.block).flops
+                           for g in run.step.spec.groups)
+        if launches["storm3_step"] != len(run.step.spec.groups):
+            raise SystemExit(f"dry run (b): the real step launched "
+                             f"{launches}")
+        measured = {"aten_flops": counter.get_total_flops(),
+                    "kernel_flops": kernel_flops,
+                    "launches": launches["storm3_step"], "args": args,
+                    "outputs": _device_bytes(new), "peak": peak}
+    del state, batch, new
+    torch.cuda.empty_cache()
+    return launches, measured
+
+
+def dryrun_compare(traced: dict, real: dict) -> None:
+    """Phase 4d (b): FLOPs equal, argument bytes equal, the predicted
+    peak within ``PEAK_TOL`` of the measured one, the gap's cause
+    printed."""
+    mem = traced["memory"]
+    flops = real["aten_flops"] + real["kernel_flops"]
+    pred, peak = mem["temp_size_in_bytes"], real["peak"]
+    gap = (pred - peak) / peak
+    log(f"dry run (b) against the real step: FLOPs "
+        f"{traced['cost']['flops']:.0f} traced, {flops} real "
+        f"({real['aten_flops']} ATen + {real['kernel_flops']} in "
+        f"{real['launches']} storm3_step); argument bytes "
+        f"{mem['argument_size_in_bytes']} traced, {real['args']} real; "
+        f"output bytes {mem['output_size_in_bytes']} traced, "
+        f"{real['outputs']} real; peak above the arguments {pred} B "
+        f"predicted, {peak} B measured ({gap:+.2%}: the dry run counts each "
+        f"storage while a tensor holds it, the caching allocator its "
+        f"blocks as they are handed out and back)")
+    if traced["cost"]["flops"] != float(flops):
+        raise SystemExit("dry run (b): the traced FLOPs differ from the "
+                         "real step's")
+    if mem["argument_size_in_bytes"] != real["args"]:
+        raise SystemExit("dry run (b): the traced argument bytes differ from "
+                         "the real state's and batch's")
+    if abs(gap) > PEAK_TOL:
+        raise SystemExit(f"dry run (b): the predicted peak is {gap:+.2%} "
+                         f"from the measured one")
+
+
+def dryrun_collectives_check(traced: list, ranks: list) -> None:
+    """Phase 4d (d): the collectives rank 0 of the fake group issued in its
+    trace of round 1's communication step are the multiset 4b's rank 0
+    recorded on gloo for the same step."""
+    got, want = _entries(traced), _entries(ranks)
+    if got != want:
+        raise SystemExit(f"dry run (d): the fake group's collectives "
+                         f"{got} differ from phase 4b's {want}")
+    log(f"dry run (d): the fake group of 8 issued phase 4b's multiset, "
+        f"{sum(got.values())} collectives in {len(got)} kinds")
+
+
+# ---------------------------------------------------------------------------
 # phases 6 to 8: the model kernels and the serving path
 # ---------------------------------------------------------------------------
 
@@ -3365,7 +3627,8 @@ def lru_phase(dev) -> dict:
             raise SystemExit(f"lru_scan: kernel differs from the plain "
                              f"version at {[B, S, C]} with h0")
         odd[f"{[B, S, C]}"] = [k for k, v in lru_ops.VARIANTS.items() if v]
-    moved = sum(t.numel() * t.element_size() for t in (a, b, out))
+    work = lru_ops.work(*shape)
+    moved = work.bytes
     lanes_ms = raw_ms("lru_scan_lanes", lru_ops._lib(), a.data_ptr(),
                       b.data_ptr(), None, out.data_ptr(), *shape)
     del out, want, oa, ob
@@ -3373,7 +3636,7 @@ def lru_phase(dev) -> dict:
     p_ms = timed_ms(lambda: lru_scan_ref(a, b), 3)
     entry = _entry("lru_scan", "src/repro_torch/kernels/csrc/lru_scan.cu",
                    "src/repro/kernels/lru/kernel.py:48", err, k_ms, p_ms,
-                   moved, 2 * a.numel() / F32_FLOPS_PER_S * 1e3, None)
+                   moved, work.flops / F32_FLOPS_PER_S * 1e3, None)
     log(f"lru_scan f32 {list(shape)} (serving path, per rec layer; "
         f"{variant[0]}): bitwise equal (and with h0 at {odd}), kernel "
         f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {moved} B, bound "
@@ -3460,7 +3723,9 @@ def flash_phase(dev) -> dict:
     if not lib_err <= FLASH_TOL[torch.bfloat16]:
         raise SystemExit(f"the library call differs from the plain version "
                          f"({lib_err})")
-    moved = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    work = flash_ops.work(B, S, H, hkv, D, q.dtype, causal=kw["causal"],
+                          window=kw["window"])
+    moved = work.bytes
     # each (query, key) pair in the band costs D multiply-adds for q.k and D
     # for p.v.  q.k multiplies bf16 inputs, whose products f32 holds
     # exactly, so bf16 tensor cores compute the reference's products; p.v
@@ -3470,8 +3735,8 @@ def flash_phase(dev) -> dict:
     # products at the bf16 tensor-core rate.  (Pricing p.v at the f32 rate,
     # as before the tensor-core kernel, is logged for comparison.)
     pairs = int(mask.sum())
-    half = 2 * D * pairs * B * H
-    ops_ms = 4 * half / BF16_TC_FLOPS_PER_S * 1e3
+    half = work.flops // 4
+    ops_ms = work.flops / BF16_TC_FLOPS_PER_S * 1e3
     old_ms = (half / BF16_TC_FLOPS_PER_S + half / F32_FLOPS_PER_S) * 1e3
     del want, out
     torch.cuda.empty_cache()
@@ -3669,11 +3934,11 @@ def flash_families_phase(dev) -> None:
                              f"version at {case} ({lib_err})")
         torch.cuda.empty_cache()
         H, D = q.shape[2], q.shape[3]
-        moved = 2 * q.numel() * q.element_size() + \
-            2 * k.numel() * k.element_size()
-        pairs = int(mask.sum())
-        half = 2 * D * pairs * B * H
-        ops_ms = 4 * half / BF16_TC_FLOPS_PER_S * 1e3
+        work = flash_ops.work(B, q.shape[1], H, k.shape[2], D, q.dtype,
+                              causal=kw["causal"], window=kw["window"])
+        moved = work.bytes
+        half = work.flops // 4
+        ops_ms = work.flops / BF16_TC_FLOPS_PER_S * 1e3
         bound = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms)
         k_ms = timed_ms(lambda: flash_ops.flash_attention(q, k, v, **kw),
                         KERNEL_RUNS)
@@ -4054,15 +4319,16 @@ def storm_family_check(arch: str, groups, m: int, dev) -> None:
                            *(x[t0:t1] for x in args[3:]), grp.block)
             ok = ok and all(same_bits(o[a:b], w) for o, w in zip(out, want))
         torch.cuda.synchronize()
-        moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+        work = kernel_work("storm3_step", n, grp)
+        moved = work.bytes
         del out
         if not ok:
             raise SystemExit(f"storm3_step differs from the plain version at "
                              f"{arch}'s {grp.dtype} buffer")
         torch.cuda.empty_cache()
         k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block), 10)
-        bound = max(moved / HBM_BYTES_PER_S, k.ops * n / F32_FLOPS_PER_S) \
-            * 1e3
+        bound = max(moved / HBM_BYTES_PER_S,
+                    work.flops / F32_FLOPS_PER_S) * 1e3
         log(f"storm3_step {str(grp.dtype).replace('torch.', '')} group "
             f"[{m}, {grp.padded}] ({arch}'s training buffer): bitwise equal "
             f"to the plain version, kernel {k_ms:.4f} ms, {moved} B, bound "
@@ -4500,12 +4766,13 @@ def paper_kernels(buffers: dict, dev) -> None:
         if not all(same_bits(o, w) for o, w in zip(out, want)):
             raise SystemExit(f"{kname} differs from its plain version on "
                              f"the {what} buffers")
-        moved = sum(t.numel() * t.element_size() for t in (*args, *out))
+        work = kernel_work(kname, p.numel(), grp)
+        moved = work.bytes
         k_ms = timed_ms(lambda: k.wrapper(*args, block=grp.block),
                         KERNEL_RUNS)
         p_ms = timed_ms(lambda: k.plain(*args, grp.block), PLAIN_RUNS)
         bound = max(moved / HBM_BYTES_PER_S,
-                    k.ops * p.numel() / F32_FLOPS_PER_S) * 1e3
+                    work.flops / F32_FLOPS_PER_S) * 1e3
         log(f"{kname} on the {what} path's buffers f32 "
             f"[{p.numel() // grp.padded}, {grp.padded}] (tile {grp.block}): "
             f"bitwise equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -4660,13 +4927,19 @@ def main() -> None:
     pool.shutdown()
     paper_s = paper.result()
     child.shutdown()
-    sharded_launches = sharded_phase(sharded)
+    sharded_launches, b_entries = sharded_phase(sharded)
     for kname, k in kernels.items():
         k["launches"] += sharded_launches.get(kname, 0)
     log(f"waited {time.perf_counter() - t:.1f} s for the train CLI's "
         f"subprocess checks and phase 9's child")
     t4 = time.perf_counter()
     log(f"phases 3b-4 took {t4 - t3:.1f} s")
+    # phase 4d's traces allocate nothing on the card and time nothing: two
+    # children run them beside phases 5-9, whose main process alone is busy
+    dry = [concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn")) for _ in range(2)]
+    dry_specs, dry_checks = (dry[0].submit(dryrun_specs),
+                             dry[1].submit(dryrun_checks))
     for name, full in fulls.items():
         t = time.perf_counter()
         with _depth(MAIN_LAYERS):
@@ -4681,6 +4954,11 @@ def main() -> None:
         for kname, k in kernels.items():
             k["launches"] += launches[kname]
     log(f"phase 5 took {time.perf_counter() - t4:.1f} s")
+    t = time.perf_counter()
+    launches, real_b = dryrun_path(dev)
+    for kname, k in kernels.items():
+        k["launches"] += launches[kname]
+    log(f"phase 4d (b)'s real step took {time.perf_counter() - t:.1f} s")
     torch.cuda.empty_cache()
     launches = tree_path_phase(dev)
     for kname, k in kernels.items():
@@ -4708,6 +4986,15 @@ def main() -> None:
     launches = paper_phase(dev, paper_s)
     for kname, k in kernels.items():
         k["launches"] += launches[kname]
+
+    t = time.perf_counter()
+    specs_s, traced = dry_specs.result(), dry_checks.result()
+    for pool in dry:
+        pool.shutdown()
+    log(f"waited {time.perf_counter() - t:.1f} s for phase 4d's traces "
+        f"({specs_s:.1f} s for (a), {traced['s']:.1f} s for the rest)")
+    dryrun_compare(traced["full"], real_b)
+    dryrun_collectives_check(traced["entries"], b_entries)
 
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all, on "
         f"{card_line()}")

@@ -73,8 +73,6 @@ _OBSERVED = {
     "isend": ("ppermute", "collective-permute", "tensor", "tensor"),
     "irecv": ("ppermute", "collective-permute", "tensor", "tensor"),
 }
-_HLO_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-            "collective-permute", "collective-broadcast")
 
 
 def _tensors(x) -> list:
@@ -102,17 +100,10 @@ class Record:
 
     def wire(self) -> Dict[str, Any]:
         """The record in the form of the reference's
-        ``hlo_stats.collective_bytes``, as far as the audits read it:
-        per-op ``bytes`` and ``counts``, ``bytes_by_dtype`` (HLO tokens)."""
-        out = dict.fromkeys(_HLO_OPS, 0)
-        counts = dict.fromkeys(_HLO_OPS, 0)
-        by_dtype: Dict[str, int] = {}
-        for op, nbytes in self.ops:
-            counts[op] += 1
-            for d, b in nbytes.items():
-                out[op] += b
-                by_dtype[d] = by_dtype.get(d, 0) + b
-        return {"bytes": out, "counts": counts, "bytes_by_dtype": by_dtype}
+        ``hlo_stats.collective_bytes``: per-op ``bytes`` and ``counts``,
+        ``bytes_by_dtype`` (HLO tokens), ``total_bytes`` and ``ops``."""
+        from repro_torch.launch.hlo_stats import collective_bytes
+        return collective_bytes(self.ops)
 
 
 def _observed(fn, name: str, rec: Record, mesh):

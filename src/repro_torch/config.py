@@ -3,7 +3,12 @@
 
 * :class:`ModelConfig`     — architecture hyper-parameters.
 * :class:`FederatedConfig` — the paper's algorithm knobs (M clients, I local
-  steps, learning rates, STORM constants, Neumann terms).
+  steps, learning rates, STORM constants, Neumann terms) and the clients'
+  placement on the mesh.
+* :class:`InputShape` / :data:`INPUT_SHAPES` — the four assigned input
+  shapes the dry run sizes every architecture at.
+* :class:`MeshConfig` — the production mesh (``[16, 16]``, or ``[2, 16,
+  16]`` across two pods) the placement rules divide the leaves over.
 
 Field names, defaults and :meth:`ModelConfig.reduced` are the JAX package's,
 so that one experiment spec means the same model and the same schedule in
@@ -127,6 +132,8 @@ class FederatedConfig:
     neumann_q: int = 8
     neumann_tau: float = 0.5
     lower_l2: float = 1e-2
+    # client placement on the mesh (launch/archspec.py, sharding/rules.py)
+    placement: str = "client_sharded"   # or "client_replicated"
     # CommFedBiO's top-k ratio
     compress_ratio: float = 0.1
     hierarchy_period: int = 0
@@ -139,3 +146,47 @@ class FederatedConfig:
     fuse_storm: bool = False
     fuse_storm_block: int = 1024
     seed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n

@@ -15,7 +15,9 @@ the current stream (bf16: ``flash_fwd_tc``, on the tensor cores; f32:
 ``flash_fwd``), or raise if the kernels cannot take them.
 
 ``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls on
-any device; :func:`reset_counts` zeroes both.
+any device; :func:`reset_counts` zeroes both.  Fake CUDA tensors get a fake
+output and launch nothing (``kernels/abstract.py``); :func:`work` is the
+kernel's work per launch.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import abstract
 from repro_torch.kernels.flash.ref import flash_attention_ref
 
 LAUNCHES = {"flash_attention": 0}      # both kernels count here
@@ -46,6 +49,38 @@ def _lib():
                                _I64, _INT, _INT, _I64, _F32, _F32, _VP]
     lib.flash_attn.restype = ctypes.c_int
     return lib
+
+
+def band_pairs(S: int, *, causal: bool, window: int) -> int:
+    """The (query, key) pairs of ``ref.band_mask(S, ...)``, counted in
+    closed form."""
+    w = window if window and window > 0 else 0
+    if causal:
+        if not w:
+            return S * (S + 1) // 2
+        m = min(S, w)
+        return m * (m + 1) // 2 + (S - m) * w
+    if not w:
+        return S * S
+    # query q sees keys k > q − w: all S while q < w − 1, then S − j
+    full = min(S, w - 1)
+    rest = S - full
+    return full * S + rest * S - rest * (rest - 1) // 2
+
+
+def work(B: int, S: int, H: int, hkv: int, D: int, dtype, *, causal: bool,
+         window: int) -> abstract.Work:
+    """The work of one launch: q, k, v read and the output written; per
+    (query, key) pair in the band, D multiply-adds for q.k and D for p.v.
+    The bf16 kernel runs one q.k product and three p.v products (the exact
+    bf16 split of the f32 p) at the bf16 tensor-core rate; the f32 kernel
+    the two on the CUDA cores."""
+    size = dtype.itemsize
+    moved = size * (2 * B * S * H * D + 2 * B * S * hkv * D)
+    half = 2 * D * band_pairs(S, causal=causal, window=window) * B * H
+    if dtype == torch.bfloat16:
+        return abstract.Work(moved, 4 * half, "bf16_tc")
+    return abstract.Work(moved, 2 * half)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -73,14 +108,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: tensors on several devices "
                          f"{devices}")
     dev = q.device
-    if dev.type == "cpu":
+    if abstract.device_type(q) == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
-    if dev.type != "cuda":
+    if abstract.device_type(q) != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} is not one the "
                          f"kernel is built for {HEAD_DIMS}")
+    if abstract.is_fake(q, k, v):
+        if not all(t.is_contiguous() for t in (q, k, v)):
+            raise ValueError("flash_attention: q, k, v must be contiguous")
+        abstract.record("flash_attention", work(
+            B, S, H, hkv, D, q.dtype, causal=causal, window=window))
+        return torch.empty_like(q)
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous and "

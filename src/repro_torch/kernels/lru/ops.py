@@ -11,6 +11,9 @@ channels] tiles) where TMA can read the tensors (``C % 4 == 0``, a and b
 16-byte aligned), else ``lru_scan_lanes``; :func:`scan_variant` picks.
 ``LAUNCHES`` counts kernel launches on the card, ``VARIANTS`` each kernel's,
 ``CALLS`` calls on any device; :func:`reset_counts` zeroes all three.
+Fake CUDA tensors get a fake output and launch nothing
+(``kernels/abstract.py``): the fake rule names the kernel tensors aligned to
+16 bytes get.  :func:`work` is the kernel's work per launch.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import abstract
 from repro_torch.kernels.lru.ref import lru_scan_ref
 
 LAUNCHES = {"lru_scan": 0}
@@ -55,6 +59,13 @@ def scan_variant(B: int, S: int, C: int, a_ptr: int, b_ptr: int) -> str:
     return "lru_scan_lanes"
 
 
+def work(B: int, S: int, C: int, *, h0: bool = False) -> abstract.Work:
+    """The work of one launch over f32 [B, S, C]: a and b (and h0) read,
+    h written; one multiply and one add per element."""
+    n = B * S * C
+    return abstract.Work(4 * (3 * n + (B * C if h0 else 0)), 2 * n)
+
+
 def lru_scan(a, b, h0=None):
     """``h_t = a_t·h_{t−1} + b_t`` along axis 1.  a, b: [B, S, C] f32;
     h0: [B, C] f32 or None (zeros).  Returns h: [B, S, C] f32."""
@@ -74,13 +85,17 @@ def lru_scan(a, b, h0=None):
     if len(devices) != 1:
         raise ValueError(f"lru_scan: tensors on several devices {devices}")
     dev = a.device
-    if dev.type == "cpu":
+    if abstract.device_type(a) == "cpu":
         return lru_scan_ref(a, b, h0)
-    if dev.type != "cuda":
+    if abstract.device_type(a) != "cuda":
         raise ValueError(f"lru_scan: no kernel for device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lru_scan: tensors must be contiguous")
     out = torch.empty_like(a)
+    if abstract.is_fake(*tensors):
+        abstract.record(scan_variant(B, S, C, 0, 0),
+                        work(B, S, C, h0=h0 is not None))
+        return out
     variant = scan_variant(B, S, C, a.data_ptr(), b.data_ptr())
     with torch.cuda.device(dev):
         err = getattr(_lib(), variant)(

@@ -21,7 +21,9 @@ the current stream, or raise if the kernel cannot take them.  There is no
 fallback from the card to the plain version.
 
 ``LAUNCHES`` counts kernel launches on the card, ``CALLS`` counts calls of
-each wrapper on any device; :func:`reset_counts` zeroes both.
+each wrapper on any device; :func:`reset_counts` zeroes both.  Fake CUDA
+tensors get fake outputs and launch nothing (``kernels/abstract.py``);
+:func:`work` is each kernel's work per launch.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import abstract
 from repro_torch.kernels.storm import ref
 
 BLOCK = 64 * 1024      # the flat layout's tile; the JAX package's default
@@ -41,6 +44,25 @@ CALLS = dict.fromkeys(_NAMES, 0)
 _VP, _I64, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                          ctypes.c_float)
 _DTYPES = (torch.float32, torch.bfloat16)
+# kernel → (f32 input streams, tables, outputs, operations per element)
+_SHAPES = {"storm3_step": (2, 2, 2, 4), "storm3_update": (3, 2, 2, 5),
+           "sgd3_step": (1, 1, 1, 2), "momsgd3_step": (2, 2, 2, 4)}
+
+
+def work(name: str, n: int, p_dtype, *, block: int = BLOCK,
+         m_dtype=torch.float32) -> abstract.Work:
+    """The work of one launch of ``name`` over ``n`` elements of a
+    ``p_dtype`` buffer: p, the f32 streams and the per-tile tables read,
+    p' (and the f32 m') written.  ``storm_update`` takes scalar (lr,
+    decay) and its momentum, gradients and m' in ``m_dtype``."""
+    p_size = p_dtype.itemsize
+    if name == "storm_update":
+        m_size = m_dtype.itemsize
+        return abstract.Work(2 * n * p_size + 4 * n * m_size, 5 * n)
+    n_in, n_tables, n_out, ops = _SHAPES[name]
+    moved = (n * p_size + n_in * 4 * n + n_tables * 4 * (n // block)
+             + n * p_size + (n_out - 1) * 4 * n)
+    return abstract.Work(moved, ops * n)
 
 
 def reset_counts() -> None:
@@ -81,26 +103,31 @@ def _check(name, p, streams, tables, block: int) -> bool:
         raise ValueError(f"{name}: tables need N/block={n // block} entries, "
                          f"got {[t.numel() for t in tables]}")
     dev = p.device
-    if dev.type == "cpu":
+    if abstract.device_type(p) == "cpu":
         return False
-    if dev.type != "cuda":
+    if abstract.device_type(p) != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     if p.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: p must be float32 or bfloat16, got {p.dtype}")
     if any(t.dtype != torch.float32 for t in (*streams, *tables)):
         raise TypeError(f"{name}: momenta, gradients and tables must be "
                         f"float32")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() or abstract.host_stand_in(t)
+               for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     return True
 
 
 def _launch(name, p, streams, tables, block: int, n_out: int):
     """Launch ``name`` on the current stream; returns ``p'`` alone
-    (``n_out`` 1) or ``(p', m')`` (``n_out`` 2, ``m'`` f32)."""
+    (``n_out`` 1) or ``(p', m')`` (``n_out`` 2, ``m'`` f32).  Fake tensors
+    get fake outputs and the launch's work is recorded instead."""
     outs = [torch.empty_like(p)]
     if n_out == 2:
         outs.append(torch.empty_like(streams[0]))
+    if abstract.is_fake(p, *streams, *tables):
+        abstract.record(name, work(name, p.numel(), p.dtype, block=block))
+        return outs[0] if n_out == 1 else tuple(outs)
     fn = getattr(_lib(), name)
     stream = torch.cuda.current_stream(p.device).cuda_stream
     with torch.cuda.device(p.device):
@@ -171,14 +198,18 @@ def storm_update_flat(p, m, g_new, g_old, lr, decay):
         raise TypeError(f"{name}: g_new and g_old must have m's dtype "
                         f"{m.dtype}, got {g_new.dtype}, {g_old.dtype}")
     dev = p.device
-    if dev.type == "cpu":
+    if abstract.device_type(p) == "cpu":
         return ref.storm_update_ref(p, m, g_new, g_old, lr, decay)
-    if dev.type != "cuda":
+    if abstract.device_type(p) != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     p_out, m_out = torch.empty_like(p), torch.empty_like(m)
     if p.numel() == 0:
+        return p_out, m_out
+    if abstract.is_fake(*tensors):
+        abstract.record(name, work(name, p.numel(), p.dtype,
+                                   m_dtype=m.dtype))
         return p_out, m_out
     lr32, decay32 = (float(torch.tensor(float(x), dtype=torch.float32))  # analysis: ignore[L303] host scalar
                      for x in (lr, decay))

@@ -18,6 +18,9 @@ over a thread-block cluster of :func:`cluster_size` CTAs; the two-pass
 multiple of 4 elements, unaligned pointers).  ``LAUNCHES`` counts kernel
 launches on the card per wrapper, ``VARIANTS`` per pack kernel, ``CALLS``
 calls of each wrapper on any device; :func:`reset_counts` zeroes all three.
+Fake CUDA tensors get fake outputs and launch nothing
+(``kernels/abstract.py``): the pack's fake rule names the kernel a buffer
+aligned to 16 bytes gets.  :func:`work` is each kernel's work per launch.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import abstract
 from repro_torch.kernels.storm import ref
 
 _NAMES = ("quantpack", "quantunpack")
@@ -80,6 +84,18 @@ def pack_variant(block: int, x_ptr: int, q_ptr: int) -> str:
     return "quantpack_tiles"
 
 
+def work(name: str, n: int, block: int) -> abstract.Work:
+    """The work of one launch over ``n`` elements in tiles of ``block``:
+    the pack reads the f32 x and writes int8 q and the f32 scales (six
+    operations an element: the absmax, the scale, the division, the
+    rounding and the two clamps); the unpack reads q and the scales and
+    writes one f32 product an element."""
+    tiles = n // block
+    if name == "quantpack":
+        return abstract.Work(4 * n + n + 4 * tiles, 6 * n)
+    return abstract.Work(n + 4 * tiles + 4 * n, n)
+
+
 def _check(name, tensors, n: int, block: int) -> bool:
     """Validate shapes; returns True for the card, False for the CPU."""
     devices = {t.device for t in tensors}
@@ -90,9 +106,9 @@ def _check(name, tensors, n: int, block: int) -> bool:
     if block <= 0 or n % block:
         raise ValueError(f"{name}: N={n} is not a multiple of block={block}")
     dev = tensors[0].device
-    if dev.type == "cpu":
+    if abstract.device_type(tensors[0]) == "cpu":
         return False
-    if dev.type != "cuda":
+    if abstract.device_type(tensors[0]) != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
@@ -120,6 +136,10 @@ def quantpack_flat(x, *, block: int):
         return ref.quantpack_ref(x, block)
     q = torch.empty(n, dtype=torch.int8, device=x.device)
     scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
+    if abstract.is_fake(x):
+        abstract.record(pack_variant(block, 0, 0),
+                        work("quantpack", n, block))
+        return q, scales
     ptrs = (x.data_ptr(), q.data_ptr(), scales.data_ptr())
     variant = pack_variant(block, ptrs[0], ptrs[1])
     if variant == "quantpack_cluster":
@@ -145,6 +165,9 @@ def quantunpack_flat(q, scales, *, block: int):
     if not on_card:
         return ref.quantunpack_ref(q, scales, block)
     out = torch.empty(n, dtype=torch.float32, device=q.device)
+    if abstract.is_fake(q, scales):
+        abstract.record("quantunpack", work("quantunpack", n, block))
+        return out
     _run("quantunpack", "quantunpack", q.device, q.data_ptr(), scales.data_ptr(),
          out.data_ptr(), n, block)
     return out

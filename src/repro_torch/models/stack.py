@@ -24,6 +24,7 @@ import contextlib
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch._C._functorch import TransformType
 from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
 
@@ -252,12 +253,16 @@ class _Remat(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, _fn_tangent, _treedef_tangent, *tangents):
         # a primal that is a slice of a larger storage (a layer unbound
-        # from its stage) would give its tangent that whole storage
+        # from its stage) would give its tangent that whole storage.  A
+        # fake primal (a dry run's) is copied whatever its storage: forward
+        # AD then refuses the views ``fn`` takes of a saved fake.
         leaves = ctx.saved_tensors
         idx = [i for i, t in enumerate(tangents) if t is not None]
+        primals = [leaves[i] for i in idx]
+        primals = (_own_storage(primals) if not any(map(is_fake, primals))
+                   else [t.clone() for t in primals])
         _, out = torch.func.jvp(
-            _Remat._of(ctx, leaves, idx),
-            tuple(_own_storage([leaves[i] for i in idx])),
+            _Remat._of(ctx, leaves, idx), tuple(primals),
             tuple(_own_storage([tangents[i] for i in idx])))
         return out
 

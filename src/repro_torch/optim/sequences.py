@@ -679,6 +679,12 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                          for bufs in (vars_b, mom_b))
         else:
             ef_b = ef
+        return FlatState(vars_b, mom_b, int(step), ef_b,
+                         *_host_state(stale, deadline, retry))
+
+    def _host_state(stale, deadline, retry):
+        """The host fields (staleness counters, deadline, retry counter),
+        on the CPU whatever the buffers' device."""
         if not need_stale:
             stale_b = ()
         elif stale is None:
@@ -693,8 +699,7 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                               else deadline))
         retry_b = () if faults is None else torch.tensor(
             0 if retry is None else int(retry), dtype=torch.int32)
-        return FlatState(vars_b, mom_b, int(step), ef_b, stale_b, dl_b,
-                         retry_b)
+        return stale_b, dl_b, retry_b
 
     def _decision(metrics):
         """The step's decision record ``metrics["decision"]`` (None without
