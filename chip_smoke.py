@@ -123,8 +123,31 @@ Phases, each of which stops the script with a non-zero exit on failure:
    ``main`` ending bit for bit as the uninterrupted one; (c)
    ``fedbioacc_int8_topk.json`` edited to the mesh at that width (4
    clients, 2 steps): ``quantpack``/``quantunpack`` launched on every
-   rank's block (the int8 wire between them), a finite loss.  Its step
-   times include phase 4's load on the host;
+   rank's block (the int8 wire between them), a finite loss; (d) the
+   straggler, faulty and telemetry specs edited to the mesh at their own
+   size, 4 steps on the CPU and steps 3-4 on the card from the CPU's
+   step-2 checkpoint: each step's round (arrivals and deadline, faults
+   and the screened clients) equal on both devices, each field within
+   ``SHARDED_TOL`` of its norm (the faulty spec's ill-conditioned last
+   momenta only logged: ROADMAP queue 3 item 15), the telemetry spec's
+   in-band metrics within ``GUARD_METRIC_TOL``; (e) at full width
+   (``MAIN_LAYERS`` layers) on the card, the runs of ``FULL_RUNS``, one
+   round each: the straggler spec (8 clients); the faulty spec (8
+   clients) with its faults from round 0 on (NaN and ×25 sends, the
+   screen, the z-score, clip) and the health metrics, every NaN sender
+   screened, its metric passes (the health screen among them) and guarded
+   means at the communication step held against the same on CPU copies
+   of their inputs (the means within ``SHARDED_TOL``, their verdicts
+   equal), each guarded mean's ms on the card; the faulty spec cut to 4
+   clients so that round 0 sends NaN at retry 0 and rolls back once, to
+   step 1, on every rank (``ROLLBACK_EDITS``), the rollback's host
+   snapshot and restore seconds on each rank; the telemetry spec with
+   int8 sends and the compression metrics, its metric passes (the
+   quantization pass among them) at the communication step against CPU
+   copies; every rank's ``storm3_step`` launches (one a dtype buffer a
+   step, gated by the round) and ``quantpack``/``quantunpack`` launches,
+   the reductions' ms through gloo, each rank's step ms and peak bytes.
+   Its step times include phase 4's load on the host;
 4c. the static verifier (``analysis_phase``), run right after phase 2,
    alone on the card (its gloo ranks hung in the CUDA driver when started
    beside phase 4's load): ``python -m repro_torch.analysis --all
@@ -368,6 +391,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import itertools
 import json
 import math
@@ -2632,13 +2656,44 @@ SHARDED = "fedbioacc_sharded_overlap"
 SHARDED_MESH = (4, 2)
 SHARDED_TOL = 1e-5           # card against CPU, of each field's norm
 SHARDED_TIMEOUT = 900.0      # seconds the ranks may take, beside phase 4
+# (d)/(e): stragglers, faults with the guarded means and rollback, and
+# in-band telemetry on the mesh
+GUARDED = (STRAGGLED, FAULTY, TELEMETRY)
+GUARD_METRIC_TOL = 1e-4      # in-band metrics, card against CPU, relative
+# (e) at full width, each run one round (2 steps), by run: (committed spec,
+# its edits, the steps it runs, the step whose metric passes and guarded
+# means also run on CPU copies of their inputs, 0 for none).  The faulty
+# spec with its faults from round 0 on, fault seed 45: NaN from clients 2
+# and 5 and ×25 from 0 and 7 (the committed spec's kinds and rates; its
+# round 1, seed 7, sends NaN from 2 and 5 and ×25 from 4 and 7), the
+# screen, the z-score and clip as committed, with the health metrics.  The
+# faulty spec cut to 4 clients, the plain mean and no screen, fault seed
+# 13: round 0 sends NaN (clients 2 and 3) at retry 0 and none at retry 1,
+# so the run rolls back once, to step 1, and runs on (3 steps).  The
+# telemetry spec with int8 sends and the compression metrics
+ROLLBACK_EDITS = {"problem.num_clients": 4, "faults.nan_rate": 0.2,
+                  "faults.byzantine_rate": 0.0, "faults.seed": 13,
+                  "faults.start_round": 0, "robustness.aggregator": "mean",
+                  "robustness.screen": False}
+FULL_RUNS = {
+    "straggler": (STRAGGLED, {}, 2, 0),
+    "faulty": (FAULTY, {"faults.start_round": 0, "faults.seed": 45,
+                        "telemetry.metrics": ["norms", "drift", "health"]},
+               2, 2),
+    "rollback": (FAULTY, ROLLBACK_EDITS, 3, 0),
+    "telemetry": (TELEMETRY, {"compression.quant": "int8",
+                              "telemetry.metrics": [
+                                  "norms", "drift", "compression"]}, 2, 2),
+}
 
 
 def _sharded_specs(tmp: str) -> dict:
     """The phase's spec files: (a) the committed spec; (b) its edit at full
     width (4 steps with overlap) and (b') the same without overlap for one
     communication round; (c) the compressed spec edited to the mesh at
-    that width, 4 clients, one communication round."""
+    that width, 4 clients, one communication round; (d) the straggler,
+    faulty and telemetry specs edited to the mesh, 4 steps; (e) at full
+    width the runs of ``FULL_RUNS``."""
     base = Experiment.load(os.path.join(ROOT, "experiments",
                                         f"{SHARDED}.json"))
     width = {"problem.reduced": False, "problem.seq_len": 512,
@@ -2652,6 +2707,15 @@ def _sharded_specs(tmp: str) -> dict:
                  **width, **{"problem.num_clients": 4,
                              "execution.mesh": list(SHARDED_MESH),
                              "schedule.steps": 2})}
+    guard = {name: Experiment.load(os.path.join(
+        ROOT, "experiments", f"{name}.json")).edit(**{
+            "execution.mesh": list(SHARDED_MESH), "schedule.steps": 4})
+        for name in GUARDED}
+    for name in GUARDED:
+        specs[f"d_{name}"] = guard[name]
+    for run, (name, edits, _, _) in FULL_RUNS.items():
+        specs[f"e_{run}"] = guard[name].edit(**width, **{
+            "schedule.steps": 2, **edits})
     paths = {}
     for k, exp in specs.items():
         paths[k] = os.path.join(tmp, f"{k}.json")
@@ -2779,6 +2843,135 @@ def _keep_checkpoint(step: int, src: str, dst: str):
         train_cli.save_checkpoint = orig
 
 
+@contextlib.contextmanager
+def _timed_rollback(records: dict):
+    """``RollbackGuard``'s host snapshot and restore, timed between
+    synchronizations of the card (seconds into ``records["snapshot"]`` and
+    ``records["restore"]``)."""
+    from repro_torch.federation import faults
+    orig = {"snapshot": faults._host_copy, "restore": faults._restore}
+
+    def timed(key):
+        def fn(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[key](*args)
+            torch.cuda.synchronize()
+            records.setdefault(key, []).append(
+                round(time.perf_counter() - t, 4))
+            return out
+        return fn
+
+    faults._host_copy, faults._restore = timed("snapshot"), timed("restore")
+    try:
+        yield
+    finally:
+        faults._host_copy, faults._restore = (orig["snapshot"],
+                                              orig["restore"])
+
+
+_METRIC_PASSES = ("section_norms", "section_drift", "quant_roundtrip_err",
+                  "health_screen")
+
+
+@contextlib.contextmanager
+def _on_cpu_at(at: int, e: dict):
+    """Runs of ``train_cli.build`` whose step ``at`` (1-based; 0 for none)
+    also runs the in-band metric passes of ``optim/flat.py`` and the
+    guarded mean of a run on a rank's block (``flat._robust_mean_sharded``)
+    on CPU copies of what the step hands them on the card, every rank in
+    the same order, so that the CPU side's gloo collectives match too.
+    Into ``e``: ``metrics``, each pass call's results on both devices as
+    ``[pass, {key: (card, CPU)}]``; ``guarded``, each guarded mean's
+    elements, its time on the card (between synchronizations, its gloo
+    collectives included), its result's relative error against the CPU's
+    and both devices' screen verdicts; ``pass_packs``, the ``quantpack``
+    launches of each card call of the quantization pass (the rest are the
+    int8 wire's)."""
+    orig = {n: getattr(flat, n) for n in (*_METRIC_PASSES,
+                                          "_robust_mean_sharded")}
+    orig_build = train_cli.build
+    armed = [False]
+    e.update(metrics=[], guarded=[], pass_packs=[])
+
+    def cpu(v):
+        # plain tuples and lists of tensors (buffers, the fault masks); the
+        # spec and the ShardCtx pass as they are
+        if torch.is_tensor(v):
+            return v.cpu()
+        if type(v) in (tuple, list):
+            return type(v)(cpu(x) for x in v)
+        return v
+
+    def flat_out(out):
+        return (dict(out) if isinstance(out, dict) else {"": out})
+
+    def armed_build(exp, **kw):
+        run = orig_build(exp, **kw)
+        inner = run.step
+
+        def step(state, batch):
+            armed[0] = int(state.step) + 1 == at
+            try:
+                return inner(state, batch)
+            finally:
+                armed[0] = False
+
+        step.__dict__.update(inner.__dict__)
+        return run._replace(step=step)
+
+    def wrapped(name):
+        def fn(*args, **kw):
+            n0 = qp.LAUNCHES["quantpack"]
+            out = orig[name](*args, **kw)
+            if name == "quant_roundtrip_err":
+                e["pass_packs"].append(qp.LAUNCHES["quantpack"] - n0)
+            if armed[0]:
+                ref = orig[name](*cpu(args),
+                                 **{k: cpu(v) for k, v in kw.items()})
+                got, want = flat_out(out), flat_out(ref)
+                e["metrics"].append([name, {
+                    k: (got[k].cpu().reshape(-1).tolist(),
+                        want[k].reshape(-1).tolist()) for k in sorted(got)}])
+            return out
+        return fn
+
+    def guarded(seg, w, corrupt, robust, shard, m, verdicts):
+        if not armed[0]:
+            return orig["_robust_mean_sharded"](seg, w, corrupt, robust,
+                                                shard, m, verdicts)
+        host = seg.to("cpu", copy=True)
+        mine = None if verdicts is None else []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig["_robust_mean_sharded"](seg, w, corrupt, robust, shard, m,
+                                     verdicts)
+        torch.cuda.synchronize()
+        ms = round((time.perf_counter() - t) * 1e3, 3)
+        orig["_robust_mean_sharded"](host, cpu(w), cpu(corrupt), robust,
+                                     shard, m, mine)
+        want = host.to(seg.device)
+        err = float(torch.linalg.vector_norm(
+            seg.to(torch.float64) - want.to(torch.float64))
+            / torch.clamp_min(torch.linalg.vector_norm(
+                want, dtype=torch.float64), 1e-30))
+        e["guarded"].append({
+            "elems": seg.numel(), "ms": ms, "rel": err,
+            "verdicts": ([] if mine is None else
+                         [verdicts[-1].tolist(), mine[-1].tolist()])})
+
+    train_cli.build = armed_build
+    for n in _METRIC_PASSES:
+        setattr(flat, n, wrapped(n))
+    flat._robust_mean_sharded = guarded
+    try:
+        yield
+    finally:
+        train_cli.build = orig_build
+        for n, fn in orig.items():
+            setattr(flat, n, fn)
+
+
 def _sharded_rank(rank: int, world: int, store: str, tmp: str) -> None:
     """One rank of phase 4b: every run of the phase through the train CLI's
     ``main`` in this process (one gloo world for all of them); writes its
@@ -2809,6 +3002,23 @@ def _sharded_rank(rank: int, world: int, store: str, tmp: str) -> None:
         "--resume", a_step2, "--device", "cuda", "--log-every", "1",
         "--ckpt-dir", os.path.join(tmp, "a-cuda"), "--ckpt-every", "2"])
     out["a_s"] = round(time.perf_counter() - t, 1)
+    # (d) stragglers, faults and in-band telemetry at the specs' own size:
+    # the CPU runs 4 steps, the card steps 3-4 from its step-2 checkpoint
+    t = time.perf_counter()
+    for name in GUARDED:
+        d_cpu, d_step2 = (os.path.join(tmp, f"d-{name}-{x}")
+                          for x in ("cpu", "step2"))
+        with _keep_checkpoint(2, d_cpu, d_step2):
+            out[f"d_{name}_cpu"] = train_cli.main([
+                "--experiment", specs[f"d_{name}"], "--device", "cpu",
+                "--log-every", "1", "--ckpt-dir", d_cpu, "--ckpt-every",
+                "2"])
+        dist.barrier()
+        out[f"d_{name}_cuda"] = train_cli.main([
+            "--resume", d_step2, "--device", "cuda", "--log-every", "1",
+            "--ckpt-dir", os.path.join(tmp, f"d-{name}-cuda"),
+            "--ckpt-every", "2"])
+    out["d_s"] = round(time.perf_counter() - t, 1)
     with _depth(MAIN_LAYERS):
         t = time.perf_counter()
         reset_counts()
@@ -2856,6 +3066,30 @@ def _sharded_rank(rank: int, world: int, store: str, tmp: str) -> None:
         out["c_variants"] = variant_counts()
         out["c_peak"] = torch.cuda.max_memory_allocated()
         out["c_s"] = round(time.perf_counter() - t, 1)
+        # (e) the runs of FULL_RUNS at full width, on the card
+        for key, (name, _, _, at) in FULL_RUNS.items():
+            t = time.perf_counter()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            e = {"steps_ms": [], "comm": [], "rollback": {}}
+            printed = io.StringIO()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_timed_steps(e["steps_ms"]))
+                stack.enter_context(_timed_comm(e["comm"]))
+                stack.enter_context(contextlib.redirect_stdout(printed))
+                stack.enter_context(_timed_rollback(e["rollback"]))
+                stack.enter_context(_on_cpu_at(at, e))
+                sink = ([] if name != TELEMETRY else [
+                    "--telemetry-sink", os.path.join(tmp, "e-events.jsonl")])
+                e["lines"] = train_cli.main([
+                    "--experiment", specs[f"e_{key}"], "--device", "cuda",
+                    "--log-every", "1", *sink])
+            torch.cuda.synchronize()
+            e["printed"] = printed.getvalue()
+            e["launches"] = launch_counts()
+            e["peak"] = torch.cuda.max_memory_allocated()
+            e["s"] = round(time.perf_counter() - t, 1)
+            out[f"e_{key}"] = e
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     dist.barrier()
@@ -3011,10 +3245,192 @@ def sharded_phase(started: tuple) -> dict:
         f"by rank {[r['c_steps_ms'] for r in ranks]}; peak memory by rank "
         f"{[r['c_peak'] for r in ranks]} B; val_loss {c_loss}; "
         f"{r0['c_s']} s")
+    guard_check_specs(tmp, r0)
+    e_got = guard_check_full(ranks, groups)
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 4b took {time.perf_counter() - t0:.1f} s from its start "
         f"(beside phase 4)")
-    return {k: got[k] + c_got[k] for k in got}, r0["b_entries"]
+    return ({k: got[k] + c_got[k] + e_got[k] for k in got},
+            r0["b_entries"])
+
+
+def _rel(a, b) -> float:
+    a, b = (torch.as_tensor(np.asarray(v, np.float64)) for v in (a, b))
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _inband(path: str) -> dict:
+    """step → the in-band metrics event of that step (``upd_norm/*`` and
+    the rest), out of an event stream."""
+    return {ev["step"]: {k: v for k, v in ev.items()
+                         if "/" in k or k in ("participants", "arrivals")}
+            for ev in read_events(path)
+            if ev.get("event") == "metrics" and any("/" in k for k in ev)}
+
+
+def guard_check_specs(tmp: str, r0: dict) -> None:
+    """Phase 4b (d): each of ``GUARDED`` on the mesh at its own size, steps
+    3-4 on the card from the CPU's step-2 checkpoint: each step line's
+    round (arrivals and deadline; faults and the screened clients) equal on
+    both devices, the val_loss within ``GUARD_METRIC_TOL``, each field of
+    the final state within ``SHARDED_TOL`` of its norm (the faulty spec's
+    momenta, which round 1's ×25 sends leave ill-conditioned, only logged:
+    ROADMAP queue 3 item 15), and the telemetry spec's in-band metrics of
+    both steps within ``GUARD_METRIC_TOL``."""
+    fields = ("arrivals", "deadline", "nan", "byzantine", "screened")
+    for name in GUARDED:
+        cpu, card = r0[f"d_{name}_cpu"], r0[f"d_{name}_cuda"]
+        if [h["step"] for h in cpu] != [1, 2, 3, 4] or \
+                [h["step"] for h in card] != [3, 4]:
+            raise SystemExit(f"phase 4b (d) {name}: steps {cpu} / {card}")
+        rounds = [{k: h[k] for k in fields if k in h} for h in cpu[2:]]
+        losses = [_rel(g["val_loss"], c["val_loss"])
+                  for g, c in zip(card, cpu[2:])]
+        if [{k: h[k] for k in fields if k in h} for h in card] != rounds \
+                or not max(losses) <= GUARD_METRIC_TOL:
+            raise SystemExit(f"phase 4b (d) {name}: rounds card {card}, "
+                             f"CPU {cpu[2:]}")
+        # the reduced specs' one f32 buffer: a0 the variables, a1 the
+        # momenta, then the step and the host fields
+        final = [_ckpt_arrays(os.path.join(tmp, f"d-{name}-{dev}"))
+                 for dev in ("cuda", "cpu")]
+        errs = [_rel(g, c) for g, c in zip(*final)]
+        held = [e <= SHARDED_TOL for e in errs]
+        if not held[0] or (name != FAULTY and not all(held)) or \
+                len(final[0]) != len(final[1]):
+            raise SystemExit(f"phase 4b (d) {name}: card against CPU, "
+                             f"relative error by field {errs}")
+        metrics = ""
+        if name == TELEMETRY:
+            got, want = (_inband(os.path.join(tmp, f"d-{name}-{dev}",
+                                              "events.jsonl"))
+                         for dev in ("cuda", "cpu"))
+            rel = {k: _rel(got[t][k], want[t][k])
+                   for t in (3, 4) for k in want[t]}
+            if sorted(got) != [3, 4] or not rel or \
+                    not max(rel.values()) <= GUARD_METRIC_TOL:
+                raise SystemExit(f"phase 4b (d) {name}: in-band metrics "
+                                 f"card {got}, CPU {want}")
+            metrics = (f"; in-band metrics of steps 3-4 ({len(rel)}) within "
+                       f"{max(rel.values()):.3e} of the CPU's")
+        log(f"phase 4b (d): {name}.json on the [4, 2] mesh at its size, "
+            f"steps 3-4 on the card from the CPU's step-2 checkpoint: "
+            f"rounds {rounds} equal on both devices, val_loss within "
+            f"{max(losses):.3e}; relative error by field of the final state "
+            f"{[f'{e:.3e}' for e in errs]} (limit {SHARDED_TOL}"
+            f"{'; the momenta only logged, queue 3 item 15' if name == FAULTY else ''})"
+            f"{metrics}")
+    log(f"phase 4b (d) took {r0['d_s']} s")
+
+
+def _cpu_checks(e: list, name: str, passes: set) -> str:
+    """The card-against-CPU records of a (e) run (:func:`_on_cpu_at`), over
+    the ranks: every metric pass of ``passes`` ran, each result within
+    ``GUARD_METRIC_TOL`` of the CPU's; every guarded mean within
+    ``SHARDED_TOL`` of the CPU's, its screen verdicts equal.  Returns the
+    log's words for them."""
+    rels = [_rel(card, cpu) for x in e for _, res in x["metrics"]
+            for card, cpu in res.values()]
+    ran = {p for x in e for p, _ in x["metrics"]}
+    if ran != passes or not rels or not max(rels) <= GUARD_METRIC_TOL:
+        raise SystemExit(f"phase 4b (e) {name}: metric passes {sorted(ran)} "
+                         f"(expected {sorted(passes)}) card against CPU "
+                         f"{rels}")
+    words = (f"{len(rels)} results of the passes {sorted(ran)} over the "
+             f"ranks within {max(rels):.3e} of the same passes on CPU "
+             f"copies of their inputs")
+    guarded = [g for x in e for g in x["guarded"]]
+    if not guarded:
+        return words
+    if not all(g["rel"] <= SHARDED_TOL and g["verdicts"]
+               and g["verdicts"][0] == g["verdicts"][1] for g in guarded):
+        raise SystemExit(f"phase 4b (e) {name}: the guarded means card "
+                         f"against CPU {guarded}")
+    return (f"{words}; {len(guarded)} guarded means (screen, z-score, "
+            f"{name}'s aggregator) within {max(g['rel'] for g in guarded):.3e} "
+            f"of the same on CPU copies (limit {SHARDED_TOL}), verdicts "
+            f"equal, {sorted({tuple(g['verdicts'][0]) for g in guarded})}; "
+            f"on the card (elements, ms, its gloo collectives in it) by "
+            f"rank {[[(g['elems'], g['ms']) for g in x['guarded']] for x in e]}")
+
+
+def guard_check_full(ranks: list, groups: int) -> dict:
+    """Phase 4b (e): the runs of ``FULL_RUNS`` at full width on the card,
+    every rank's ``storm3_step`` launches counted (one a dtype buffer a
+    step, its tables gated by the round), and with int8 sends the
+    ``quantpack``/``quantunpack`` launches of the wire (one pair a buffer
+    a reduction) and of the quantization pass; each rank's step ms and
+    peak bytes and the reductions' ms through gloo.  The faulty spec:
+    round 0's NaN and ×25 sends, every NaN sender screened, no rollback,
+    the health screen and the guarded means against CPU copies
+    (:func:`_cpu_checks`).  The rollback edit: one rollback on every rank
+    (one restore each, to step 1), the host snapshot and restore seconds.
+    The telemetry spec with int8 sends: its metric passes, the
+    quantization pass among them, against CPU copies.  Returns the
+    launches summed over the ranks and the runs."""
+    total = {k: 0 for k in ranks[0]["e_straggler"]["launches"]}
+    for key, (name, _, steps, _) in FULL_RUNS.items():
+        e = [r[f"e_{key}"] for r in ranks]
+        lines = e[0]["lines"]
+        got = {k: sum(x["launches"][k] for x in e) for k in total}
+        want = {k: 0 for k in total}
+        want["storm3_step"] = len(ranks) * steps * groups
+        if key == "telemetry":
+            # the wire packs the variables and momenta of each buffer once;
+            # the quantization pass packs its chunks at every step
+            packs = len(ranks) * 2 * groups + sum(
+                n for x in e for n in x["pass_packs"])
+            want.update(quantpack=packs, quantunpack=packs)
+        rolled = [json.loads(ln) for ln in e[0]["printed"].splitlines()
+                  if ln.startswith('{"rollback_to"')]
+        if got != want or not all(math.isfinite(h["val_loss"])
+                                  for h in lines) or \
+                [h["step"] for h in lines] != [1, 2] or \
+                bool(rolled) != (key == "rollback"):
+            raise SystemExit(f"phase 4b (e) {key}: launches {got} "
+                             f"(expected {want}), lines {lines}, rollbacks "
+                             f"{rolled}")
+        total = {k: total[k] + got[k] for k in total}
+        comm = [[(c["step"] + 1, c["elems"], c["issue_ms"], c["wait_ms"])
+                 for c in x["comm"]] for x in e]
+        extra = ""
+        if key == "straggler":
+            extra = (f"; arrivals by step "
+                     f"{[h['arrivals'] for h in lines]}, deadlines "
+                     f"{[h['deadline'] for h in lines]}")
+        if key == "faulty":
+            last = lines[-1]
+            if not last["nan"] or not last["byzantine"] or \
+                    not set(last["nan"]) <= set(last["screened"]):
+                raise SystemExit(f"phase 4b (e) {key}: round 0 {last}")
+            extra = (f"; round 0 (step 2): NaN from {last['nan']}, ×25 from "
+                     f"{last['byzantine']}, screened {last['screened']}; "
+                     f"{_cpu_checks(e, key, {'section_norms', 'section_drift', 'health_screen'})}"
+                     f"; the reductions through gloo (step, elements, "
+                     f"issue ms, wait ms; with the CPU copies) "
+                     f"by rank {comm}")
+        if key == "rollback":
+            restores = [len(x["rollback"].get("restore", [])) for x in e]
+            if [(r["rollback_to"], r["retry"]) for r in rolled] != [(1, 1)] \
+                    or restores != [1] * len(ranks):
+                raise SystemExit(f"phase 4b (e) {key}: rollbacks {rolled}, "
+                                 f"restores by rank {restores}")
+            extra = (f"; rolled back {rolled} on every rank: snapshot s by "
+                     f"rank {[x['rollback']['snapshot'] for x in e]}, "
+                     f"restore s by rank "
+                     f"{[x['rollback']['restore'] for x in e]}; the plain "
+                     f"means (no screen) through gloo (step, elements, "
+                     f"issue ms, wait ms) by rank {comm}")
+        if key == "telemetry":
+            extra = (f"; int8 sends: {_cpu_checks(e, key, set(_METRIC_PASSES) - {'health_screen'})}; "
+                     f"the quantization pass's packs "
+                     f"{sum(n for x in e for n in x['pass_packs'])}")
+        log(f"phase 4b (e): {name}.json ({key}) at full width ({MAIN_LAYERS} "
+            f"layers) on the [4, 2] mesh, {steps} steps: launches over the "
+            f"ranks {got}; step ms by rank {[x['steps_ms'] for x in e]}; "
+            f"peak memory by rank {[x['peak'] for x in e]} B; val_loss "
+            f"{[h['val_loss'] for h in lines]}{extra}; {e[0]['s']} s")
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,12 @@ Two surfaces, one expected model:
 Where the port departs from the reference's model, the model says why: the
 participation weights are host values every rank holds for all M clients,
 so a weighted run's weight sum is no collective (the reference psums it);
-and the oracle's all-gathers of the rows over the model axis, which GSPMD
+the oracle's all-gathers of the rows over the model axis, which GSPMD
 inserts into the reference's program at compile time, are explicit
-collectives of the port's step.
+collectives of the port's step; and so are the in-band telemetry passes'
+reductions (:func:`telemetry_collectives`), which the reference computes
+on global arrays outside ``shard_map``, where GSPMD inserts them.  Neither
+is in the communication-only subprogram.
 """
 from __future__ import annotations
 
@@ -155,6 +158,7 @@ class _Expect:
 
     def __init__(self, *, data_size: int, use_scatter: bool, m_local: int):
         self.c: Counter = Counter()
+        self.verdicts: Counter = Counter()    # the screen's verdict gathers
         self.nds = data_size
         self.use_scatter = use_scatter
         self.m_local = m_local
@@ -164,8 +168,10 @@ class _Expect:
         self.c[("psum", axes, grouped, dtype, elems)] += 1
 
     def gather(self, elems: int, dtype: str = "float32", *,
-               axes=("data",)) -> None:
-        self.c[("all_gather", axes, False, dtype, elems)] += 1
+               axes=("data",)) -> Entry:
+        key = ("all_gather", axes, False, dtype, elems)
+        self.c[key] += 1
+        return key
 
     def allreduce(self, elems: int, dtype: str, *,
                   grouped: bool = False) -> None:
@@ -192,7 +198,7 @@ class _Expect:
             self.psum(1)                              # mu
             self.psum(1)                              # sd
         if verdicts and robust.screen:
-            self.gather(m)                            # the health verdicts
+            self.verdicts[self.gather(m)] += 1        # the health verdicts
         self.psum(1)                                  # wsum_eff
         if robust.aggregator == "trim":
             self.gather(m * L)                        # every client's rows
@@ -240,7 +246,9 @@ def expected_step_collectives(run, round_idx: Optional[int] = None
     ``info`` carries ``private_elems`` (merged private-run lengths, for
     W102 classification), ``comm_elems`` (per-event communicated payload
     elems, one shard chunk), ``events`` (reduction events per step) and
-    ``oracle_gathers`` (the entries of the oracle's row gathers, which the
+    ``oracle_gathers``, ``telemetry`` and ``verdicts`` (the entries of
+    the oracle's row gathers, of the in-band telemetry passes and of the
+    screen's verdict gathers for the step's decision record, which the
     communication-only subprogram does not issue)."""
     from repro_torch.optim import flat
     from repro_torch.optim.sequences import HIERARCHICAL, PRIVATE
@@ -250,7 +258,8 @@ def expected_step_collectives(run, round_idx: Optional[int] = None
     exp = run.spec
     info: Dict[str, Any] = {"events": 0, "comm_elems": 0,
                             "private_elems": set(),
-                            "oracle_gathers": Counter()}
+                            "oracle_gathers": Counter(),
+                            "telemetry": Counter(), "verdicts": Counter()}
     shard = run.shard
     if shard is None:
         return Counter(), info
@@ -327,6 +336,9 @@ def expected_step_collectives(run, round_idx: Optional[int] = None
             _dtype(grp.dtype),
             m_local * (grp.padded // k))] += oracles
     exp_c.c.update(info["oracle_gathers"])
+    info["telemetry"] = telemetry_collectives(run)
+    exp_c.c.update(info["telemetry"])
+    info["verdicts"] = exp_c.verdicts
 
     # per-event communicated payload elems (cadence-1 view, one chunk)
     modes_all = tuple("mean" if p != PRIVATE else "none" for p in policies)
@@ -336,6 +348,55 @@ def expected_step_collectives(run, round_idx: Optional[int] = None
             if mode != "none":
                 info["comm_elems"] += stop - a
     return exp_c.c, info
+
+
+def telemetry_collectives(run) -> Counter:
+    """The collectives of one step's in-band telemetry passes on a mesh
+    (``flat.section_norms``, ``section_drift``, ``quant_roundtrip_err``
+    and ``health_screen`` with ``shard=``, as ``sequences.make_engine``
+    calls them): each pass's f64 partial sums, one per section, are
+    all-reduced over the model and then the data axis
+    (``flat._mesh_sums``); drift first all-reduces its mean row's f32
+    column sums over the data axis, a chunk of each section run at a
+    time; the screen all-reduces each row's (non-finite count, squared
+    norm) over the model axis and all-gathers them over the data axis."""
+    from repro_torch.optim import flat
+
+    groups = getattr(run.step, "telemetry_groups", ())
+    shard = run.shard
+    c: Counter = Counter()
+    if not groups or shard is None:
+        return c
+    spec, step = run.step.spec, run.step
+    m_local = run.spec.problem.num_clients // shard.data_size
+    n_sec = len({int(s) for grp in spec.groups for s, _, _ in grp.extents})
+
+    def sums(n: int) -> None:
+        c[("psum", ("model",), False, "float64", n)] += 1
+        c[("psum", ("data",), False, "float64", n)] += 1
+
+    compress = step.compression
+    if "drift" in groups:
+        for grp in spec.groups:
+            for runs in flat._section_cols(spec, grp, shard).values():
+                for a, b in runs:
+                    for c0, c1 in flat._chunks(a, b):
+                        c[("psum", ("data",), False, "float32",
+                           c1 - c0)] += 1
+        sums(n_sec)
+    if "compression" in groups and compress.quant is not None:
+        sums(1)                                   # quant_err
+    if "health" in groups and step.robustness is not None:
+        c[("psum", ("model",), False, "float64", 2 * m_local)] += 1
+        c[("all_gather", ("data",), False, "float64", 2 * m_local)] += 1
+    if "norms" in groups:
+        sums(n_sec)                               # upd_norm
+        if step.aspec.has_momentum:
+            sums(n_sec)                           # mom_norm
+    if ("compression" in groups and compress.topk_frac > 0
+            and compress.error_feedback):
+        sums(n_sec)                               # ef_norm
+    return c
 
 
 def _fmt_entry(e: Entry, k: int) -> str:
@@ -470,9 +531,11 @@ def expected_wire_bytes(expected: Counter, data_size: int) -> Dict[str, int]:
 
 def comm_expected(run) -> Counter:
     """The expected entries of the communication-only subprogram: the
-    step's, less the oracle's row gathers."""
+    step's, less the oracle's row gathers, the telemetry passes' and the
+    verdict gathers (the subprogram keeps no decision record)."""
     expected, info = expected_step_collectives(run)
-    return expected - info["oracle_gathers"]
+    return (expected - info["oracle_gathers"] - info["telemetry"]
+            - info["verdicts"])
 
 
 def audit_wire(run, coll: Optional[Dict[str, Any]] = None) -> List[Finding]:

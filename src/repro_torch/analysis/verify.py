@@ -59,7 +59,8 @@ def mesh_pass(exp, *, hlo: bool = True, device=None
     notes.append(f"step: {n_ops} collectives == plan "
                  f"({info['events']} events x {info['comm_elems']} "
                  f"elems/chunk + {sum(info['oracle_gathers'].values())} "
-                 f"oracle gathers; kernel calls " + " ".join(
+                 f"oracle gathers + {sum(info['telemetry'].values())} "
+                 f"telemetry; kernel calls " + " ".join(
                      f"{k}={v}" for k, v in sorted(calls.items())) + ")"
                  if not findings else "step: FAIL")
     if hlo:

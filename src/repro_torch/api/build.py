@@ -83,23 +83,16 @@ def unported_features(exp: Experiment) -> list:
     """What ``exp`` asks for that the port does not run yet, each with the
     ROADMAP item that ports it."""
     from repro_torch.api import registry
-    from repro_torch.optim.sequences import unported_on_mesh
 
     ex = exp.execution
     algos = "queue 1, 'Remaining algorithms'"
-    shard = "queue 1, 'Sharded substrate'"
     kernel_training = "queue 1, 'Training through the model kernels'"
     no_grad = ("the reference's train step cannot differentiate through its "
                "Pallas {} kernel: pallas_call has no reverse-mode rule and "
                "the kernel no custom_vjp")
-    tel = exp.telemetry
-    on_mesh = [] if ex.mesh is None else unported_on_mesh(
-        exp.stragglers, exp.faults, exp.robustness,
-        tel is not None and (tel.metrics is None or len(tel.metrics) > 0))
     checks = [
         (exp.algorithm.name not in registry.names(),
          f"algorithm {exp.algorithm.name!r}", algos),
-        *((True, f"{what} on execution.mesh", shard) for what in on_mesh),
         (ex.use_flash, "execution.use_flash (" + no_grad.format("flash") +
          ")", kernel_training),
         (ex.use_lru_kernel, "execution.use_lru_kernel (" +

@@ -335,12 +335,23 @@ def _fakes(mode: TargetFake, tree):
 
 @contextlib.contextmanager
 def healthy_round():
-    """The guarded means' screen reads each sender's row statistics on the
-    host (``optim.flat._row_stats``: finiteness and squared norm).  A dry
-    run traces their computation and hands the host those of a healthy
-    round: every row finite, every norm equal."""
+    """Hand the guarded means' screen the values of a healthy round.
+
+    Off a mesh the screen reads each sender's row statistics on the host
+    (``optim.flat._row_stats``: finiteness and squared norm): the dry run
+    traces their computation and hands the host those of a healthy round,
+    every row finite and every norm equal, so the host takes the healthy
+    branch.  On a mesh the screen runs on the device
+    (``flat._robust_mean_sharded``: the row statistics completed over the
+    model axis, the z-score, the aggregate selected by ``where``), so the
+    dry run traces all of it, collectives included, whatever the verdicts;
+    what it cannot know is their values, which the step's decision record
+    reads on the host: it hands the record those of a healthy round, every
+    participant healthy.  Neither covers a round whose screen drops a
+    sender: on a mesh the ops and the bytes are the same, off it the host
+    skips nothing else either."""
     from repro_torch.optim import flat
-    orig = flat._row_stats
+    orig, orig_sharded = flat._row_stats, flat._robust_mean_sharded
 
     def stats(x0, w, corrupt):
         orig(x0, w, corrupt)
@@ -349,11 +360,20 @@ def healthy_round():
             return (torch.ones(m, dtype=torch.bool),
                     torch.ones(m, dtype=torch.float64))
 
-    flat._row_stats = stats
+    def sharded(seg, w, corrupt, robust, shard, m, verdicts):
+        traced = None if verdicts is None else []
+        orig_sharded(seg, w, corrupt, robust, shard, m, traced)
+        with unset_fake_temporarily():
+            healthy = (torch.ones(m) if w is None
+                       else (w.cpu() > 0).to(torch.float32))
+        if verdicts is not None:
+            verdicts.extend(healthy for _ in traced)
+
+    flat._row_stats, flat._robust_mean_sharded = stats, sharded
     try:
         yield
     finally:
-        flat._row_stats = orig
+        flat._row_stats, flat._robust_mean_sharded = orig, orig_sharded
 
 
 def trace(mode: TargetFake, args, step, *, mesh=None) -> Dict[str, Any]:

@@ -118,13 +118,19 @@ def spawn_ranks(target, world: int, store: str, args: tuple = (), *,
         p.start()
     rc = 0
     try:
-        while not rc and any(p.exitcode is None for p in procs):
+        # the ranks still running, taken once a round: the sentinel of a
+        # rank that exits after this is ready, so the wait returns.  (Read
+        # again for the wait, ``exitcode`` could reap the last rank there
+        # and leave nothing to wait on: with no timeout, for ever.)
+        live = list(procs)
+        while live and not rc:
             left = (None if deadline is None
                     else max(0.0, deadline - time.monotonic()))  # analysis: ignore[L301] join timeout
             if not multiprocessing.connection.wait(
-                    [p.sentinel for p in procs if p.exitcode is None], left):
+                    [p.sentinel for p in live], left):
                 raise TimeoutError(f"{world} ranks still running after "
                                    f"{timeout} s")
+            live = [p for p in live if p.exitcode is None]
             for p in procs:
                 if p.exitcode not in (None, 0) and not rc:
                     rc = p.exitcode if p.exitcode > 0 else 1

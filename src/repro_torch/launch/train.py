@@ -80,10 +80,18 @@ a ``FileStore`` in a temporary directory; on the card every rank uses
 ``cuda:0``, whose kernels the CLI builds once before it spawns), each rank
 running this same CLI; rank 0 alone prints the lines, writes the event
 stream and the checkpoints (the whole state, gathered), and a rank's
-failure stops them all with its exit code.
+failure stops them all with its exit code.  Stragglers, faults with the
+guarded means, rollback and in-band telemetry run there as off a mesh:
+every rank decides each round alike on the host, each rank's
+``RollbackGuard`` snapshots and restores its own blocks on the loss every
+rank is given (the ranks check with one all-gather per evaluation that
+they decided alike), and ``--max-restarts`` supervises the spawned world
+as one run.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --experiment experiments/fedbioacc_sharded_overlap.json --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --experiment experiments/fedbioacc_faulty.json --mesh 4,2 --device cpu
 
 A checkpoint holds the raw train state (a ``FlatState``, or the unfused
 path's pytree train state), the embedded spec
@@ -391,6 +399,25 @@ def _diagnostic_checkpoint(ns, save, step: int) -> None:
     print(f"diagnostic checkpoint -> {d}", flush=True)
 
 
+_DECISIONS = ("healthy", "rollback", "retry budget exhausted")
+
+
+def _agree(shard, t: int, decision: str) -> None:
+    """On a mesh, check that every rank took the same rollback decision at
+    the evaluation of step ``t`` (one all-gather of the decision): each
+    rank's guard sees the same broadcast loss, so they must agree, and a
+    rank that rolled back alone would run on from another state."""
+    if shard is None:
+        return
+    code = torch.tensor([_DECISIONS.index(decision)], dtype=torch.int64)
+    every = torch.empty(dist.get_world_size(), dtype=torch.int64)
+    dist.all_gather_into_tensor(every, code)
+    if not bool((every == code).all()):
+        raise RuntimeError(
+            f"step {t}: the ranks' rollback decisions differ: "
+            f"{[_DECISIONS[int(c)] for c in every]}")
+
+
 def _line_fields(metrics) -> dict:
     """The JSON line's fields of a step's round, from the engine's decision
     record (``metrics["decision"]``): with stragglers the clients that beat
@@ -665,11 +692,13 @@ def main(argv=None):
                 try:
                     rb = guard.observe(t, state, data_gen, loss)
                 except RollbackError as e:
+                    _agree(shard, t, "retry budget exhausted")
                     emit("retry_budget_exhausted", step=t, retry=retry(),
                          bad_loss=float(loss))
                     end("retry_budget_exhausted", t)
                     _diagnostic_checkpoint(ns, save, t)
                     raise SystemExit(f"round {t}: {e}")
+                _agree(shard, t, "healthy" if rb is None else "rollback")
                 if rb is not None:
                     t, state, _ = rb
                     # else the tuple keeps this state on the device after

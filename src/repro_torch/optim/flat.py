@@ -1335,15 +1335,24 @@ def _client_mean_masked_sharded(spec: FlatSpec, bufs, modes, num_groups,
 # reference's f32 sums run in XLA's order, which is not reproduced).
 # Results are 0-d (or [M]) f32 tensors on the buffers' device, read by the
 # host only where the train CLI logs them.
+#
+# With ``shard=`` each pass runs on a rank's blocks (its clients' rows, one
+# model chunk, whose columns are the chunk extents themselves) and
+# completes its partial sums with collectives, so that every rank holds the
+# whole metric: a quantity of a row over the model axis, a sum over
+# clients over the data axis.  The reference computes these passes on
+# global arrays outside ``shard_map`` and lets GSPMD insert the same
+# reductions; the values agree up to the order of summation.
 
-def _section_cols(spec: FlatSpec, grp: _Group) -> dict:
+def _section_cols(spec: FlatSpec, grp: _Group, shard=None) -> dict:
     """Column ranges of every section in one (whole, possibly shard-major)
     buffer: ``{section_index: [(start, stop), ...]}``.  The extents cover
-    one chunk, so a sharded layout repeats them at every chunk offset."""
+    one chunk, so a sharded layout repeats them at every chunk offset; a
+    rank's block (``shard``) is one chunk, whose ranges are the extents."""
     chunk = grp.padded // spec.shards
     out: dict = {}
     for s, a, b in grp.extents:
-        for j in range(spec.shards):
+        for j in range(1 if shard is not None else spec.shards):
             out.setdefault(int(s), []).append((j * chunk + a,
                                                j * chunk + b))
     return out
@@ -1354,20 +1363,38 @@ def _chunks(a: int, b: int, step: int = _CHUNK):
         yield c, min(c + step, b)
 
 
+def _mesh_sums(parts: dict, shard) -> dict:
+    """Complete per-section partial sums (0-d tensors, keyed by section)
+    over the mesh: one all-reduce of the stacked sums over the model axis,
+    then one over the data axis, the keys in sorted order on every rank.
+    Off a mesh the sums pass."""
+    if shard is None or not parts:
+        return parts
+    keys = sorted(parts)
+    vec = torch.stack([parts[k] for k in keys])
+    _psum(_psum(vec, shard.model_group), shard.data_group)
+    return dict(zip(keys, vec.unbind()))
+
+
 def section_norms(spec: FlatSpec, bufs, *, mask=None, prefix="norm",
-                  minus=None) -> dict:
+                  minus=None, shard: ShardCtx | None = None) -> dict:
     """Per-section l2 norms of flat [M, N] buffers (telemetry side output):
     ``{"<prefix>/<section>": 0-d f32}``.  ``mask`` [M] restricts the sum to
     participant rows (selected, so a left-out row never multiplies a
     NaN).  ``minus``: buffers of the same layout; the norm is then that of
     ``bufs − minus``, the difference taken in the buffers' dtype as the
     reference takes it, a chunk at a time.  Section padding is zero by
-    construction and contributes nothing."""
+    construction and contributes nothing.  ``shard``: the buffers are a
+    rank's blocks and ``mask`` stays the [M] mask of every client; the
+    squares are all-reduced over the model, then the data axis."""
     names = spec.sections or ("all",)
+    if shard is not None:
+        _check_blocks(spec, shard, bufs)
+        mask = shard.local_rows(mask)
     sq: dict = {}
     for gi, (grp, buf) in enumerate(zip(spec.groups, bufs)):
         keep = None if mask is None else _rows(mask > 0, buf)
-        for s, runs in _section_cols(spec, grp).items():
+        for s, runs in _section_cols(spec, grp, shard).items():
             for a, b in runs:
                 for c0, c1 in _chunks(a, b):
                     x = buf[:, c0:c1]
@@ -1378,43 +1405,59 @@ def section_norms(spec: FlatSpec, bufs, *, mask=None, prefix="norm",
                         x = torch.where(keep, x, 0.0)
                     part = x.square().sum(dtype=torch.float64)
                     sq[s] = part if s not in sq else sq[s] + part
+    sq = _mesh_sums(sq, shard)
     return {f"{prefix}/{names[s]}": v.sqrt().to(torch.float32)
             for s, v in sorted(sq.items())}
 
 
-def section_drift(spec: FlatSpec, bufs, *, mask=None,
-                  prefix="drift") -> dict:
+def section_drift(spec: FlatSpec, bufs, *, mask=None, prefix="drift",
+                  shard: ShardCtx | None = None) -> dict:
     """Per-section client-drift dispersion (telemetry side output): the rms
     distance of participant rows to the participants' mean row, the
     non-IID heterogeneity term, measured on the LOCAL iterates before
     averaging.  The mean is taken in f32 as the reference takes it; same
-    masking as :func:`section_norms`."""
+    masking as :func:`section_norms`.  ``shard``: the mean row's column
+    sums are all-reduced over the data axis first (f32), then the squared
+    distances over the model and the data axis."""
     names = spec.sections or ("all",)
-    m = bufs[0].shape[0]
+    if shard is not None:
+        _check_blocks(spec, shard, bufs)
+    m = bufs[0].shape[0] * (1 if shard is None else shard.data_size)
     rows = (None if mask is None
             else torch.nonzero(mask.cpu() > 0).flatten())
     cnt = m if rows is None else max(int(rows.numel()), 1)
+    if shard is not None and rows is not None:
+        # this rank's participants, as indices into its own rows
+        lo = shard.rows(m).start
+        rows = rows[(rows >= lo) & (rows < lo + bufs[0].shape[0])] - lo
     sq: dict = {}
     for grp, buf in zip(spec.groups, bufs):
         idx = None if rows is None else rows.to(buf.device)
-        for s, runs in _section_cols(spec, grp).items():
+        for s, runs in _section_cols(spec, grp, shard).items():
             for a, b in runs:
                 for c0, c1 in _chunks(a, b):
                     seg = buf[:, c0:c1]
                     x = (seg if idx is None else seg[idx]).to(torch.float32)
-                    mean = x.sum(dim=0, keepdim=True) / cnt
+                    tot = x.sum(dim=0, keepdim=True)
+                    if shard is not None:
+                        _psum(tot, shard.data_group)
+                    mean = tot / cnt
                     part = (x - mean).square().sum(dtype=torch.float64)
                     sq[s] = part if s not in sq else sq[s] + part
+    sq = _mesh_sums(sq, shard)
     return {f"{prefix}/{names[s]}": (v / cnt).sqrt().to(torch.float32)
             for s, v in sorted(sq.items())}
 
 
-def quant_roundtrip_err(bufs, block: int, quant) -> torch.Tensor:
+def quant_roundtrip_err(bufs, block: int, quant,
+                        shard: ShardCtx | None = None) -> torch.Tensor:
     """l2 norm of the quantization round-trip error over ``bufs``: the
     value error the next compressed send of these buffers would incur
     (telemetry side output).  int8 goes through the ``quantpack`` /
     ``quantunpack`` wrappers (the kernels on a CUDA tensor, their plain
-    versions on the CPU), a tile-aligned chunk of columns at a time."""
+    versions on the CPU), a tile-aligned chunk of columns at a time.
+    ``shard``: the buffers are a rank's blocks; a tile never straddles a
+    block, so only the sum of squares is all-reduced (model, then data)."""
     if quant not in ("bf16", "int8"):
         raise ValueError(f"unknown compression quant {quant!r}")
     step = max(_CHUNK // block, 1) * block
@@ -1429,11 +1472,12 @@ def quant_roundtrip_err(bufs, block: int, quant) -> torch.Tensor:
             else:
                 d = x.to(torch.bfloat16).to(torch.float32) - x
             sq += d.square().sum(dtype=torch.float64)
-    return sq.sqrt().to(torch.float32)
+    return _mesh_sums({0: sq}, shard)[0].sqrt().to(torch.float32)
 
 
 def health_screen(spec: FlatSpec, bufs, mask, corrupt,
-                  robust: RobustCfg) -> torch.Tensor:
+                  robust: RobustCfg,
+                  shard: ShardCtx | None = None) -> torch.Tensor:
     """Recomputed health-screen verdicts for telemetry: [M] f32 on the
     host, 1 where a participant (``mask > 0``, every client without a
     mask) would FAIL the screen on what it sends this round.  The rows are
@@ -1441,16 +1485,33 @@ def health_screen(spec: FlatSpec, bufs, mask, corrupt,
     transform, as the reference concatenates them; the verdict is the
     guarded reduction's rule (:func:`_health_stats`) with its z-score over
     those whole-row norms, an audit approximation (the guarded reduction
-    itself screens each run)."""
-    m, dev = bufs[0].shape[0], bufs[0].device
+    itself screens each run).  ``shard``: the buffers are a rank's blocks
+    and ``mask``/``corrupt`` the [M] operands of every client; each row's
+    squared norm and count of non-finite entries are completed over the
+    model axis, then every client's are all-gathered over the data axis
+    (the z-score needs them all)."""
+    n_l, dev = bufs[0].shape[0], bufs[0].device
+    m = n_l * (1 if shard is None else shard.data_size)
     p = (torch.ones(m, dtype=torch.bool) if mask is None
          else mask.cpu() > 0)
-    finite = torch.ones(m, dtype=torch.bool, device=dev)
-    sq = torch.zeros(m, dtype=torch.float64, device=dev)
+    if shard is not None:
+        _check_blocks(spec, shard, bufs)
+        if corrupt is not None:
+            corrupt = (shard.local_rows(corrupt[0]),
+                       shard.local_rows(corrupt[1]), corrupt[2])
+    bad = torch.zeros(n_l, dtype=torch.float64, device=dev)
+    sq = torch.zeros(n_l, dtype=torch.float64, device=dev)
     for buf in bufs:
         for c0, c1 in _chunks(0, buf.shape[-1]):
             x = _corrupt_rows(buf[:, c0:c1].to(torch.float32), corrupt)
-            finite &= torch.isfinite(x).all(dim=1)
+            bad += (~torch.isfinite(x)).sum(dim=1)
             sq += x.square().sum(dim=1, dtype=torch.float64)
-    h, _ = _health_stats(finite.cpu(), sq.cpu(), p, robust)
+    if shard is not None:
+        stats = _psum(torch.cat([bad, sq]), shard.model_group)
+        every = torch.empty(shard.data_size * stats.numel(),
+                            dtype=stats.dtype, device=dev)
+        dist.all_gather_into_tensor(every, stats, group=shard.data_group)
+        bad, sq = every.view(shard.data_size, 2, n_l).permute(
+            1, 0, 2).reshape(2, m).unbind()
+    h, _ = _health_stats((bad == 0).cpu(), sq.cpu(), p, robust)
     return p.to(torch.float32) * (1.0 - h)

@@ -57,8 +57,13 @@ without waiting, runs the new-iterate oracle on the local iterate from
 before the reduction (the reference's documented deviation at
 communication steps; every other step is unchanged), then waits and
 consumes the reduction; without a mesh the same schedule runs with a
-synchronous reduction.  The round's masks and weights are decided on the
-host from the step counter, so every rank decides the same round.
+synchronous reduction.  The round's masks, weights, arrivals, deadline and
+fault masks are decided on the host from the step counter (and the
+deadline and retry count every rank holds), so every rank decides the
+same round; the guarded means gather the screen's verdicts of every
+client, and the in-band metric passes complete their partial sums over
+the mesh (``flat.section_norms`` … ``flat.health_screen`` with
+``shard=``), so every rank holds the whole metric.
 
 The step counter lives on the host (``FlatState.step`` is a Python int), so
 whether a step communicates is decided without reading the device; so do
@@ -411,19 +416,6 @@ def _robust_cfg(robustness):
     return rcfg
 
 
-SHARDED = "ROADMAP queue 1, 'Sharded substrate'"
-
-
-def unported_on_mesh(stragglers, faults, robustness, in_band) -> list:
-    """The engine features among these that the sharded substrate does not
-    run yet (the reference's mesh runs none of them in its tests), by
-    name; ``in_band``: in-band telemetry metrics are asked for."""
-    return [what for hit, what in (
-        (stragglers is not None, "stragglers"), (faults is not None, "faults"),
-        (robustness is not None, "robustness"),
-        (in_band, "in-band telemetry metrics")) if hit]
-
-
 def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 block: int | None = None, compression=None,
                 participation=None, stragglers=None, faults=None,
@@ -519,11 +511,6 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
                 "telemetry metrics group 'health' needs participation "
                 "sampling, faults= or robustness= — there is nothing to "
                 "screen")
-    refused = [] if shard is None else unported_on_mesh(
-        stragglers, faults, robustness, bool(tel_groups))
-    if refused:
-        raise NotImplementedError(f"{refused[0]} on execution.mesh is not "
-                                  f"ported ({SHARDED})")
     has_ef = ccfg is not None and ccfg.has_ef
     sections = aspec.sections
     has_mom = aspec.has_momentum
@@ -735,13 +722,14 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
         m = {}
         with annotate("telemetry/local"):
             if "drift" in tel_groups:
-                m.update(flat.section_drift(spec, local_vars, mask=mask))
+                m.update(flat.section_drift(spec, local_vars, mask=mask,
+                                            shard=shard))
             if "compression" in tel_groups and ccfg.quant is not None:
                 m["quant_err"] = flat.quant_roundtrip_err(
-                    local_vars, spec.groups[0].block, ccfg.quant)
+                    local_vars, spec.groups[0].block, ccfg.quant, shard)
             if "health" in tel_groups and rcfg is not None:
                 m["screened"] = flat.health_screen(spec, local_vars, mask,
-                                                   corrupt, rcfg)
+                                                   corrupt, rcfg, shard)
         return m
 
     def _tel_metrics(metrics, state: FlatState, new: FlatState, mask,
@@ -756,16 +744,18 @@ def make_engine(cfg, aspec: AlgoSpec, templates: dict, oracle, *,
             if "norms" in tel_groups:
                 m.update(flat.section_norms(spec, new.vars, mask=mask,
                                             prefix="upd_norm",
-                                            minus=state.vars))
+                                            minus=state.vars, shard=shard))
                 if new.mom:
                     m.update(flat.section_norms(spec, new.mom, mask=mask,
-                                                prefix="mom_norm"))
+                                                prefix="mom_norm",
+                                                shard=shard))
             m.update({k: v for k, v in local.items()
                       if k.startswith("drift/")})
             if "compression" in tel_groups:
                 if new.ef:
                     m.update(flat.section_norms(spec, new.ef[0],
-                                                prefix="ef_norm"))
+                                                prefix="ef_norm",
+                                                shard=shard))
                 if "quant_err" in local:
                     m["quant_err"] = local["quant_err"]
             if "health" in tel_groups:

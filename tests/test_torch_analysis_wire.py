@@ -11,7 +11,10 @@ spawned gloo ranks on the CPU, and its CLI.
   of 2 the audit records rounds 1 and 2 and audits clean.
 * An 8-rank world: ``experiments/fedbioacc_sharded_overlap.json`` audits
   clean for W101–W105 on its ``[4, 2]`` mesh, and so does its edit with
-  ``hierarchy_period`` 2 (rounds 1 and 2: pod-local, then global).
+  ``hierarchy_period`` 2 (rounds 1 and 2: pod-local, then global); so do
+  the straggler, faulty and telemetry specs edited to that mesh, the
+  faulty one also with every telemetry group it allows (the health
+  screen's gathers), each step's telemetry collectives planned.
 * A 2-rank world: the compressed spec's wire probe at ``(2, 1)`` audits
   clean, and the bytes its communication subprogram moves equal
   ``expected_wire_bytes`` dtype for dtype.
@@ -29,6 +32,7 @@ import signal
 import subprocess
 import sys
 
+import pytest
 import torch
 
 import torch_mesh as tm
@@ -37,6 +41,14 @@ torch.set_num_threads(1)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SHARDED = "fedbioacc_sharded_overlap.json"
+# the specs edited to the [4, 2] mesh whose steps the audit holds
+MESH_VARIANTS = {
+    "straggler": ("fedbioacc_straggler.json", {}),
+    "faulty": ("fedbioacc_faulty.json", {}),
+    "telemetry": ("fedbioacc_telemetry.json", {}),
+    "faulty-telemetry": ("fedbioacc_faulty.json",
+                         {"telemetry.metrics": None}),
+}
 
 
 def _spec(name: str, **edits):
@@ -150,8 +162,13 @@ def sharded_ranks(rank: int, world: int, store: str, out: str) -> None:
     # all-reduces over 2 pods of the data axis), round 2 global
     hier, _ = mesh_pass(_spec(SHARDED, **{"schedule.hierarchy_period": 2}),
                         device="cpu")
+    guards = {}
+    for name, (path, edits) in MESH_VARIANTS.items():
+        f, n = mesh_pass(_spec(path, **{"execution.mesh": list(tm.MESH),
+                                        **edits}), device="cpu")
+        guards[name] = {"findings": _findings(f), "notes": n}
     _leave(rank, out, {"findings": _findings(findings), "notes": notes,
-                       "hierarchical": _findings(hier)})
+                       "hierarchical": _findings(hier), "guards": guards})
 
 
 def probe_ranks(rank: int, world: int, store: str, out: str) -> None:
@@ -200,12 +217,32 @@ def test_w101_w102_seeds_fire_on_a_one_rank_mesh(tmp_path):
                               "findings": []}
 
 
-def test_sharded_spec_audits_clean_on_eight_ranks(tmp_path):
-    res = _world(sharded_ranks, tmp_path, tm.WORLD)
+@pytest.fixture(scope="module")
+def eight(tmp_path_factory):
+    """What rank 0 of the 8-rank world wrote (:func:`sharded_ranks`)."""
+    return _world(sharded_ranks, tmp_path_factory.mktemp("eight"), tm.WORLD)
+
+
+def test_sharded_spec_audits_clean_on_eight_ranks(eight):
+    res = eight
     assert res["findings"] == [] and res["hierarchical"] == []
     step, wire = res["notes"]
     assert step.startswith("step: ") and "== plan" in step
     assert wire.startswith("wire: ")
+
+
+@pytest.mark.parametrize("name", sorted(MESH_VARIANTS))
+def test_mesh_variant_audits_clean_on_eight_ranks(eight, name):
+    """Stragglers, faults with the guarded means and in-band telemetry on
+    the mesh: every collective of the step planned, the telemetry passes'
+    among them (none without telemetry), and the wire byte-exact."""
+    res = eight["guards"][name]
+    assert res["findings"] == []
+    step, wire = res["notes"]
+    assert step.startswith("step: ") and "== plan" in step
+    assert wire.startswith("wire: ")
+    with_telemetry = "telemetry" in name
+    assert (" + 0 telemetry;" not in step) == with_telemetry, step
 
 
 def test_int8_wire_probe_bytes_equal_the_model(tmp_path):

@@ -46,9 +46,8 @@ TELEMETRIED = {"fedbioacc_telemetry.json": ("norms", "drift")}
 # rematerialization: (edits, what the port refuses in it; None where the
 # slice that ported the feature now runs it)
 REFUSED = {
-    "fedbioacc_sharded_overlap.json": (
-        {"telemetry.metrics": ["norms"]},
-        ["in-band telemetry metrics on execution.mesh"]),
+    "fedbioacc_sharded_overlap.json": ({"telemetry.metrics": ["norms"]},
+                                       None),
     "fedbioacc_telemetry.json": ({"execution.remat": True}, None),
 }
 
@@ -107,19 +106,23 @@ def test_committed_specs_are_all_covered():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_features_are_refused_by_name(name):
-    """The sharded spec, which the port now runs (outside a process group
-    ``build`` asks for its 8 ranks), is refused naming the feature with
-    in-band telemetry metrics, which the sharded substrate does not run
-    yet.  The telemetry spec with remat, refused until rematerialization
-    was ported, takes a step with its in-band metrics, bit for bit the
-    step without remat."""
+    """The sharded spec, which the port runs (outside a process group
+    ``build`` asks for its 8 ranks), also with in-band telemetry metrics,
+    refused until the mesh ran them: nothing is refused and ``build``
+    again asks for its ranks (the metrics on the mesh:
+    ``tests/test_torch_sharded_engine.py``).  The telemetry spec with
+    remat, refused until rematerialization was ported, takes a step with
+    its in-band metrics, bit for bit the step without remat."""
     edits, features = REFUSED[name]
     base = Experiment.load(str(ROOT / "experiments" / name))
-    if base.execution.mesh is not None:
-        assert unported_features(base.validate().normalize()) == []
-        with pytest.raises(RuntimeError, match="needs 8 devices"):
-            build(base, device="cpu")
     exp = base.edit(**edits)
+    if base.execution.mesh is not None:
+        for e in (base, exp):
+            assert unported_features(e.validate().normalize()) == []
+            with pytest.raises(RuntimeError, match="needs 8 devices"):
+                build(e, device="cpu")
+        if features is None:
+            return
     if features is None:
         states = []
         for e in (edits, {k: False for k in edits}):

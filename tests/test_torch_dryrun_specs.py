@@ -14,6 +14,12 @@ at once, while the reference compiles in this one.
   multiset;
 * the compressed spec moved onto a ``[4, 2]`` mesh (an edit made here, at
   run time) passes ``check_compressed_collectives``;
+* the straggler, faulty and telemetry specs moved onto that mesh (the
+  telemetry spec also with int8 + top-k sends: the compression group)
+  trace on rank 0 of a fake group of 8, each step issuing exactly the
+  audit's multiset (the faulty one's screen traced on the device, its
+  decision record handed a healthy round's verdicts:
+  ``dryrun.healthy_round``);
 * ``--fused-mesh 4,2`` on a reduced Mamba-2 at a small train shape and
   one microbatch: the sharded substrate on rank 0 of a fake group of 8
   (two clients a data shard), its kernels and collectives; a decode shape
@@ -76,6 +82,31 @@ print(json.dumps({"equal": got == want, "n": sum(got.values()),
                   "missing": repr(want - got)}))
 """
 
+_GUARDS = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.analysis.collectives import expected_step_collectives
+from repro_torch.api import Experiment
+from repro_torch.launch import dryrun
+res = {}
+for path in sys.argv[1:]:
+    out, run = dryrun.trace_experiment(Experiment.load(path), "cpu")
+    want, info = expected_step_collectives(run)
+    got = out["_entries"]
+    res[path] = {"equal": got == want, "mesh": out["mesh"],
+                 "telemetry": sum(info["telemetry"].values()),
+                 "host": sorted(out["memory"]["host_fields"]),
+                 "extra": repr(got - want), "missing": repr(want - got)}
+print(json.dumps(res))
+"""
+GUARDS = {"fedbioacc_straggler": {"[0].step", "[0].stale", "[0].deadline"},
+          "fedbioacc_faulty": {"[0].step", "[0].retry"},
+          "fedbioacc_telemetry": {"[0].step"}}
+# the telemetry spec with int8 + top-k sends: the compression group's
+# passes (quant_err, ef_norm) on the mesh
+INT8_TELEMETRY = {"compression.quant": "int8", "compression.topk_frac": 0.1,
+                  "execution.storm_block": 256}
+
 
 def _start(args):
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1",
@@ -101,6 +132,15 @@ def runs(tmp_path_factory):
     procs["int8_on_mesh"] = _start(
         ["-m", "repro_torch.launch.dryrun", "--experiment", str(mesh_spec),
          "--device", "cpu", "--out", str(tmp / "int8_on_mesh.jsonl")])
+    guards = []
+    for name in GUARDS:
+        guards.append(str(tmp / f"{name}_on_mesh.json"))
+        Experiment.load(str(EXP / f"{name}.json")).edit(**{
+            "execution.mesh": (4, 2)}).save(guards[-1])
+    guards.append(str(tmp / "fedbioacc_telemetry_int8_on_mesh.json"))
+    Experiment.load(str(EXP / "fedbioacc_telemetry.json")).edit(**{
+        "execution.mesh": (4, 2), **INT8_TELEMETRY}).save(guards[-1])
+    procs["guards"] = _start(["-c", _GUARDS, *guards])
     procs["fused"] = _start(["-c", _FUSED])
     procs["sharded"] = _start(
         ["-c", _SHARDED, str(EXP / "fedbioacc_sharded_overlap.json")])
@@ -114,7 +154,7 @@ def _record(runs, name):
     procs, tmp = runs
     out, err = procs[name].communicate(timeout=600)
     assert procs[name].returncode == 0, err[-3000:] + out[-2000:]
-    if name in ("sharded", "fused"):
+    if name in ("sharded", "fused", "guards"):
         return json.loads(out.strip().splitlines()[-1])
     return json.loads((tmp / f"{name}.jsonl").read_text())
 
@@ -171,6 +211,16 @@ def test_sharded_spec_issues_the_expected_collectives(runs):
     assert res["mesh"] == {"data": 4, "model": 2}
     assert res["equal"], (res["extra"], res["missing"])
     assert res["n"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(GUARDS) + ["fedbioacc_telemetry_int8"])
+def test_guarded_spec_on_a_mesh_issues_the_expected_collectives(runs, name):
+    res = _record(runs, "guards")
+    rec = next(v for k, v in res.items() if k.endswith(f"/{name}_on_mesh.json"))
+    assert rec["mesh"] == {"data": 4, "model": 2}
+    assert rec["equal"], (rec["extra"], rec["missing"])
+    assert set(rec["host"]) == GUARDS.get(name, {"[0].step"})
+    assert (rec["telemetry"] > 0) == name.startswith("fedbioacc_telemetry")
 
 
 def test_compressed_spec_on_a_mesh_passes_the_wire_check(runs):

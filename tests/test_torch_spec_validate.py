@@ -21,6 +21,7 @@ from repro.api.spec import Experiment as JExperiment  # noqa: E402
 from repro.api.spec import SpecError as JSpecError  # noqa: E402
 
 from repro_torch.api import Experiment, build  # noqa: E402
+from repro_torch.api.build import unported_features  # noqa: E402
 from repro_torch.api import spec as tspec  # noqa: E402
 from repro_torch.api.spec import SpecError  # noqa: E402
 
@@ -158,19 +159,25 @@ def test_committed_spec_validates_in_both(path):
 
 def test_known_but_unported_spec_validates_then_build_refuses():
     # the sharded spec validates and asks for nothing unported: outside a
-    # process group build asks for its 8 ranks; what the sharded substrate
-    # does not run yet (here stragglers) is refused naming its item
+    # process group build asks for its 8 ranks; so does the straggler spec
+    # on a mesh, which the sharded substrate now runs (it was refused by
+    # name until it did)
     exp = Experiment.load(str(ROOT / "experiments" / SHARDED))
     assert exp.validate() is exp
     with pytest.raises(RuntimeError, match="needs 8 devices"):
         build(exp, device="cpu")
     strag = Experiment.load(str(ROOT / "experiments" /
-                                "fedbioacc_straggler.json"))
+                                "fedbioacc_straggler.json")).edit(
+        **{"execution.mesh": [4, 2], "execution.fuse_storm": True})
+    assert unported_features(strag.validate().normalize()) == []
+    with pytest.raises(RuntimeError, match="needs 8 devices"):
+        build(strag, device="cpu")
+    # what the port still refuses is named with its item
     with pytest.raises(NotImplementedError) as err:
-        build(strag.edit(**{"execution.mesh": [4, 2],
-                            "execution.fuse_storm": True}), device="cpu")
-    assert "stragglers on execution.mesh" in str(err.value)
-    assert "ROADMAP queue 1, 'Sharded substrate'" in str(err.value)
+        build(strag.edit(**{"execution.use_flash": True}), device="cpu")
+    assert "execution.use_flash" in str(err.value)
+    assert ("ROADMAP queue 1, 'Training through the model kernels'"
+            in str(err.value))
 
 
 def test_name_lists_equal_the_reference():

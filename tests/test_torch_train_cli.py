@@ -163,21 +163,28 @@ def test_cli_flags_example_of_the_reference():
 
 
 def test_unported_flags_reach_the_spec_and_are_refused(tmp_path):
-    # --mesh runs (tests/test_torch_sharded_engine.py); stragglers on a
-    # mesh do not yet, and are refused by that name before any rank starts
-    with pytest.raises(SystemExit, match="stragglers on execution.mesh"):
-        train.main(["--experiment", STRAGGLER, "--mesh", "2,2",
+    # --mesh runs, stragglers on a mesh too (tests/test_torch_sharded_engine
+    # .py); a spec that trains through the flash kernel, which the port
+    # refuses, is refused by that name with --mesh applied, before any
+    # rank starts
+    flash = str(tmp_path / "flash.json")
+    Experiment.load(STRAGGLER).edit(**{"execution.use_flash": True}).save(
+        flash)
+    assert train.apply_overrides(Experiment.load(flash), {"mesh": "2,2"}) \
+        .execution.mesh == (2, 2)
+    with pytest.raises(SystemExit, match="execution.use_flash"):
+        train.main(["--experiment", flash, "--mesh", "2,2",
                     "--device", "cpu"])
-    # --telemetry-sink is ported: it reaches the spec; a run that another
-    # unported flag stops at build writes no stream
+    # --telemetry-sink is ported: it reaches the spec; a run that an
+    # unported feature stops at build writes no stream
     sink = str(tmp_path / "ev.jsonl")
     exp = train.apply_overrides(Experiment.load(STRAGGLER),
                                 {"telemetry_sink": sink})
     assert exp.telemetry == exp.telemetry._replace(sink=sink)
     # (--comm-every, the flag this case used until per-sequence cadences
     # were ported, now runs: tests/test_torch_hierarchical.py)
-    with pytest.raises(SystemExit, match="stragglers on execution.mesh"):
-        train.main(["--experiment", STRAGGLER, "--telemetry-sink", sink,
+    with pytest.raises(SystemExit, match="execution.use_flash"):
+        train.main(["--experiment", flash, "--telemetry-sink", sink,
                     "--mesh", "2,1", "--device", "cpu"])
     assert not os.path.exists(sink)
 

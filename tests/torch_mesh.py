@@ -15,11 +15,11 @@ MESH = (4, 2)
 
 
 def run_ranks(target, tmpdir: str, *args, world: int = WORLD,
-              timeout: float = 600.0) -> None:
+              timeout: float = 600.0, during=None) -> None:
     """Run ``target(rank, world, store, *args)`` in ``world`` spawned
     processes over a ``FileStore`` under ``tmpdir``; joins them within
     ``timeout`` seconds (killing what is left) and raises unless every
-    rank exited 0."""
+    rank exited 0.  ``during()`` runs in this process while they do."""
     ctx = mp.get_context("spawn")
     store = os.path.join(tmpdir, "store")
     procs = [ctx.Process(target=target, args=(r, world, store, *args))
@@ -28,6 +28,8 @@ def run_ranks(target, tmpdir: str, *args, world: int = WORLD,
         p.start()
     pending = list(procs)
     try:
+        if during is not None:
+            during()
         while pending:
             ready = multiprocessing.connection.wait(
                 [p.sentinel for p in pending], timeout)
@@ -267,13 +269,227 @@ def field_arrays(step, whole_state, fields) -> dict:
 
 SPEC = "experiments/fedbioacc_sharded_overlap.json"
 
+# ---------------------------------------------------------------------------
+# guards: stragglers, faults with the guarded means, in-band telemetry
+# ---------------------------------------------------------------------------
+
+GUARD_SPECS = {"straggler": "experiments/fedbioacc_straggler.json",
+               "faulty": "experiments/fedbioacc_faulty.json",
+               "telemetry": "experiments/fedbioacc_telemetry.json"}
+
+
+def guard_cases() -> dict:
+    """case name → (committed spec, its edits, steps): the three specs,
+    and the other late policies (``carry``, ``cancel``), the other guards
+    (``trim``, with every metric group the faulty spec allows, the health
+    screen's among them, and a z-score threshold of 1 that screens the
+    ×25 sends out too, so that its last momenta are well-conditioned; the
+    unguarded mean over the byzantine sends, the NaN sends off so that the
+    fields stay finite), and the other metric groups
+    (``health`` under m = 2 of 4 participation; ``compression`` with int8
+    sends, on the int8 engine case's tiles of 256).  The faulty and the
+    straggler specs run 4 steps: the faults start at round 1, and round 1
+    decides on the deadline round 0 carried; the rest 2 (one round)."""
+    tel = ("norms", "drift")
+    return {
+        "straggler": ("straggler", {}, 4),
+        "straggler-carry": ("straggler",
+                            {"stragglers.late_policy": "carry"}, 2),
+        "straggler-cancel": ("straggler",
+                             {"stragglers.late_policy": "cancel"}, 2),
+        "faulty": ("faulty", {}, 4),
+        "faulty-trim": ("faulty", {"robustness.aggregator": "trim",
+                                   "robustness.z_thresh": 1.0,
+                                   "telemetry.metrics": None}, 4),
+        "faulty-mean": ("faulty", {"robustness": None,
+                                   "faults.nan_rate": 0.0}, 4),
+        "telemetry": ("telemetry", {}, 2),
+        "telemetry-health": ("telemetry", {
+            "participation.sampler": "uniform",
+            "participation.clients_per_round": 2,
+            "telemetry.metrics": tel + ("health",)}, 2),
+        "telemetry-int8": ("telemetry", {
+            "compression.quant": "int8", "execution.storm_block": 256,
+            "telemetry.metrics": tel + ("compression",)}, 2),
+    }
+
+
+def guard_experiment(root: str, name: str, mesh: bool = False):
+    """The case's spec (on the ``[4, 2]`` mesh with ``mesh``)."""
+    from repro_torch.api import Experiment
+    spec, edits, steps = guard_cases()[name]
+    exp = Experiment.load(os.path.join(root, GUARD_SPECS[spec])).edit(
+        **{"schedule.steps": steps, **edits})
+    return exp.edit(**{"execution.mesh": MESH}) if mesh else exp
+
+
+def _decision_arrays(dec: dict) -> dict:
+    out = {}
+    for k in ("arrivals", "deadline", "deadline_next", "extensions",
+              "quorum"):
+        if k in dec:
+            out[k] = np.asarray(torch.as_tensor(dec[k]).numpy())
+    if "faults" in dec:
+        for k, v in zip(("keep", "nan", "byz"), dec["faults"]):
+            out[k] = v.numpy()
+    if dec.get("health"):
+        out["health"] = np.stack([v.numpy() for v in dec["health"]])
+    if "screened" in dec:
+        out["screened"] = np.asarray(dec["screened"], np.int64)
+    return out
+
+
+def guard_run(exp, *, spread: bool = False) -> dict:
+    """Run ``exp`` through ``api.build`` on the CPU (inside the mesh's
+    ranks when it has one) from the seeded init on the seeded batches, for
+    its steps.  Returns what rank 0 holds, ``{key: array}``: at each step
+    t (1-based) its in-band metrics ``m{t}/<key>`` and its decision record
+    ``d{t}/<key>``; the eval losses ``loss``; the fields of the last two
+    steps ``s{t}/<field>/<leaf>``; the last state's raw buffers ``buf<i>``
+    and host fields; the wrapper calls ``calls`` (sorted by name).  With
+    ``spread`` (off a mesh) also the last step's relative response of each
+    buffer to a 1e-7 relative change of its entering variables
+    (``spread``), which measures how ill-conditioned it is."""
+    from repro_torch.api import build
+    from repro_torch.kernels.storm import kernel as tk
+    from repro_torch.sharding.rules import gather_state
+
+    run = build(exp, device="cpu")
+    seed = run.spec.schedule.seed
+    state = run.init(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    rank0 = run.shard is None or run.shard.mesh.rank == 0
+    out, losses = {}, []
+    tk.reset_counts()
+    for t in range(1, run.steps + 1):
+        batch = run.place_batch(run.batch_fn(gen))
+        if spread and t == run.steps:
+            out["spread"] = _spread(run, state, batch)
+        state, metrics = run.step(state, batch)
+        for k, v in metrics.items():
+            if k not in ("step", "decision"):
+                out[f"m{t}/{k}"] = torch.as_tensor(v).detach().numpy()
+        for k, v in _decision_arrays(metrics.get("decision", {})).items():
+            out[f"d{t}/{k}"] = v
+        losses.append(run.eval_fn(state))
+        if t >= run.steps - 1:
+            whole = (state if run.shard is None
+                     else gather_state(run.step.spec, state, run.shard))
+            if rank0:
+                for k, v in field_arrays(run.step, whole,
+                                         FIELDS["fedbioacc"]).items():
+                    out[f"s{t}/{k}"] = v
+                if t == run.steps:
+                    for i, b in enumerate(whole.vars + whole.mom):
+                        out[f"buf{i}"] = b.numpy().copy()
+                    for k in ("stale", "deadline", "retry"):
+                        v = getattr(whole, k)
+                        if not isinstance(v, tuple):
+                            out[k] = v.numpy().copy()
+    out["loss"] = np.array(losses)
+    out["calls"] = np.array([tk.CALLS[k] for k in sorted(tk.CALLS)])
+    return out
+
+
+def _spread(run, state, batch) -> np.ndarray:
+    """Each buffer's relative change after one step from ``state`` when
+    its variables are scaled by 1 + 1e-7, and then the eval loss's (off a
+    mesh; ``state`` is left as it was)."""
+    from repro_torch.kernels.storm import kernel as tk
+    calls = dict(tk.CALLS)
+
+    def once(vars_):
+        s = state._replace(vars=tuple(v.clone() for v in vars_),
+                           mom=tuple(m.clone() for m in state.mom))
+        new, _ = run.step(s, batch)
+        return ([b.to(torch.float64) for b in new.vars + new.mom],
+                run.eval_fn(new))
+    (a, la) = once(state.vars)
+    (b, lb) = once(tuple(v * (1 + 1e-7) for v in state.vars))
+    tk.CALLS.update(calls)          # these launches are not the run's
+    return np.array([float(torch.linalg.vector_norm(x - y)
+                           / torch.linalg.vector_norm(x))
+                     for x, y in zip(a, b)] + [abs(la - lb) / abs(la)])
+
+
+def rollback_spec(root: str):
+    """The committed faulty spec cut to 4 clients (one a data rank) and 6
+    steps, whose round 1 sends NaN at retry 0 (clients 1, 2; fault seed
+    18) and none at retry 1, with the plain mean and no screen: the run
+    rolls back once, to step 3, and runs on."""
+    from repro_torch.api import Experiment
+    return Experiment.load(os.path.join(root, GUARD_SPECS["faulty"])).edit(
+        **{"problem.num_clients": 4, "schedule.steps": 6,
+           "faults.nan_rate": 0.2, "faults.byzantine_rate": 0.0,
+           "faults.seed": 18, "robustness.aggregator": "mean",
+           "robustness.screen": False})
+
+
+def cli_in_process(argv: list, mesh: bool = False) -> str:
+    """The train CLI in this process on the CPU, logging every step
+    (``--mesh 4,2`` inside the ranks with ``mesh``); returns what it
+    printed (rank 0's)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    argv = [*argv, "--device", "cpu", "--log-every", "1"]
+    if mesh:
+        argv += ["--mesh", ",".join(map(str, MESH))]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    return buf.getvalue()
+
+
+def rollback_cli(spec_path: str, ckpt: str, mesh: bool = False) -> str:
+    """:func:`cli_in_process` on the rollback spec, checkpointing its last
+    step."""
+    return cli_in_process(["--experiment", spec_path, "--ckpt-dir", ckpt,
+                           "--ckpt-every", "6"], mesh)
+
+
+def faulty_cli(root: str, mesh: bool = False) -> str:
+    """:func:`cli_in_process` on the committed faulty spec."""
+    return cli_in_process(["--experiment", os.path.join(
+        root, GUARD_SPECS["faulty"])], mesh)
+
+
+def telemetry_cli(root: str, sink: str, mesh: bool = False) -> str:
+    """:func:`cli_in_process` on the committed telemetry spec for 2 steps,
+    its event stream at ``sink``."""
+    return cli_in_process(["--experiment", os.path.join(
+        root, GUARD_SPECS["telemetry"]), "--steps", "2", "--telemetry-sink",
+        sink], mesh)
+
+
+def guard_ranks(rank: int, world: int, store: str, out: str, root: str,
+                names: tuple) -> None:
+    """The cases ``names`` of :func:`guard_cases` on the ``[4, 2]`` mesh
+    (:func:`guard_run`); rank 0 writes their records to ``out`` (npz,
+    keyed ``<case>/<key>``)."""
+    _join(rank, world, store)
+    results = {}
+    for name in names:
+        rec = guard_run(guard_experiment(root, name, mesh=True))
+        if rank == 0:
+            results.update({f"{name}/{k}": v for k, v in rec.items()})
+    if rank == 0:
+        np.savez(out, **results)
+    _leave()
+
 
 def engine_ranks(rank: int, world: int, store: str, out: str,
-                 root: str) -> None:
+                 root: str, rollback: str = "") -> None:
     """Every case of :func:`engine_cases` on the ``[4, 2]`` mesh, then the
     committed sharded spec through ``api.build`` for its 4 steps (its
-    ``eval_fn`` after each); rank 0 writes the whole final states' fields
-    and the losses to ``out`` (npz)."""
+    ``eval_fn`` after each), then every case of :func:`guard_cases`
+    (:func:`guard_run`) and, given the rollback spec's path, the train CLI
+    on it (:func:`rollback_cli`), on the telemetry spec, whose stream goes
+    to ``telemetry_mesh.jsonl`` beside ``out`` (:func:`telemetry_cli`),
+    and on the faulty spec (:func:`faulty_cli`); rank 0 writes the whole
+    final states' fields, the losses, the guard cases' records and the
+    rollback and faulty CLIs' output to ``out`` (npz)."""
     mesh = _join(rank, world, store)
     from repro_torch.api import Experiment, build
     from repro_torch.kernels.storm import kernel as tk
@@ -302,5 +518,20 @@ def engine_ranks(rank: int, world: int, store: str, out: str,
         results["spec/losses"] = np.array(losses)
         for i, b in enumerate(whole.vars + whole.mom):
             results[f"spec/buf{i}"] = b.numpy()
+    for name in guard_cases():
+        rec = guard_run(guard_experiment(root, name, mesh=True))
+        if rank == 0:
+            results.update({f"{name}/{k}": v for k, v in rec.items()})
+    if rollback:
+        text = rollback_cli(rollback, os.path.join(os.path.dirname(out),
+                                                   "rollback_mesh"),
+                            mesh=True)
+        telemetry_cli(root, os.path.join(os.path.dirname(out),
+                                         "telemetry_mesh.jsonl"), mesh=True)
+        faulty = faulty_cli(root, mesh=True)
+        if rank == 0:
+            results["rollback/out"] = np.array(text)
+            results["faulty/out"] = np.array(faulty)
+    if rank == 0:
         np.savez(out, **results)
     _leave()
